@@ -1,0 +1,32 @@
+"""Architecture config registry of the port: ``get_config("<arch-id>")``.
+
+Only the architectures the port serves are registered; the others arrive
+with the slices that port their model families."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_ARCH_MODULES = {
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[arch_id])
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).config()
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).smoke_config()
+
+
+__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_smoke_config"]

@@ -1,0 +1,740 @@
+"""Continuous-batching serve engine over the shared paged KV pool.
+
+The port of the reference engine's paged, chunked, batched and bucketed
+mode (greedy decoding):
+
+* ONE shared pool of fixed-size physical pages plus per-slot page tables.
+  A host-side ``PagePool`` (refcounts, LIFO free list, page 0 as scratch)
+  hands out a request's prompt pages at admission and decode pages lazily,
+  one per slot as decode crosses a page boundary. When the pool runs dry
+  the youngest slot is preempted back to the head of the queue and later
+  resumed by re-prefilling prompt + generated tokens. Admission keeps
+  ``watermark_pages`` free while other slots are live.
+* Every admission round is one batched prefill, padded to a shape bucket
+  (pow2 width × pow2 length ladder), split into a cold dispatch (flash
+  prefill) and a prefix-hit dispatch (suffix prefill).
+* Prefix sharing (``prefix_cache=True``): retired prompts' full pages are
+  indexed in a radix trie; a later prompt maps its cached prefix onto the
+  same physical pages and prefills only the suffix. A fully cached prompt
+  re-prefills its last token into a copy-on-write split of its last page.
+* One batched decode step per iteration advances every live slot.
+
+The pool and tables live on the engine's device and are updated in place
+(the reference donated them through ``jit``). Settings of the reference
+engine that belong to later slices raise at construction."""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.prefix_cache import PrefixCache
+from repro_torch.models.model import ModelAPI, build_model
+
+# Smallest padded prompt length of the bucket ladder.
+LEN_BUCKET_MIN = 8
+
+
+def bucket_width(n: int, num_slots: int) -> int:
+    """Round an admission-round width up to a power of two, capped at the
+    slot-pool size — the extra rows are no-op padding rows (length 0)."""
+    w = 1
+    while w < n:
+        w *= 2
+    return min(w, num_slots)
+
+
+def bucket_length(s: int, floor: int = LEN_BUCKET_MIN) -> int:
+    """Round a padded prompt length up the ladder floor, 2·floor, 4·floor, …"""
+    length = floor
+    while length < s:
+        length *= 2
+    return length
+
+
+def bucket_pages(pages: int, table_width: int) -> int:
+    """Round a suffix round's max cached-prefix width (pages) up the pow2
+    ladder 1, 2, 4, …, capped at the table width."""
+    w = 1
+    while w < pages:
+        w *= 2
+    return min(w, max(table_width, 1))
+
+
+class AdmissionError(ValueError):
+    """Submit-time rejection of a request the engine could never serve.
+    ``reason`` is ``"exceeds_pool"``."""
+
+    def __init__(self, uid: int, reason: str, message: str):
+        super().__init__(message)
+        self.uid = uid
+        self.reason = reason
+
+
+class PagePool:
+    """Host-side refcounted free-list allocator over the shared KV page pool.
+
+    Page 0 is the reserved SCRATCH page: never handed out; every unallocated
+    page-table entry points at it, so stray writes (retired slots whose
+    ``pos`` keeps advancing in the batched decode step) land somewhere no
+    live read looks. ``alloc`` hands pages out at rc=1, ``share`` adds a
+    reference to a live page, ``free`` drops one — a page returns to the
+    free list only at rc=0. Sharing a free page and over-freeing are errors.
+    The free list is LIFO: the most recently freed pages are reused first; a
+    fresh pool allocates 1, 2, …, P-1."""
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 2:
+            raise ValueError(f"num_pages must be >= 2 (page 0 is reserved), got {num_pages}")
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self._free = list(range(num_pages - 1, 0, -1))
+        self._rc: dict[int, int] = {}
+        self.peak_in_use = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.num_pages - 1
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return self.capacity - self.available
+
+    @property
+    def live_refs(self) -> int:
+        return sum(self._rc.values())
+
+    def refcount(self, page: int) -> int:
+        return self._rc.get(page, 0)
+
+    def alloc(self, n: int) -> list[int] | None:
+        """Pop ``n`` pages at rc=1 each, or None (and nothing allocated)."""
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._rc[p] = 1
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        return pages
+
+    def share(self, page: int) -> int:
+        if self._rc.get(page, 0) < 1:
+            raise ValueError(f"share of free/foreign page {page}")
+        self._rc[page] += 1
+        return self._rc[page]
+
+    def free(self, pages) -> None:
+        for p in pages:
+            rc = self._rc.get(p, 0)
+            if rc < 1:
+                raise ValueError(f"double/foreign free of page {p}")
+            if rc == 1:
+                del self._rc[p]
+                self._free.append(p)
+            else:
+                self._rc[p] = rc - 1
+
+
+@dataclasses.dataclass
+class _ResumeState:
+    """Generation state of a preempted request. Re-admission prefills
+    prompt + generated[:-1] and continues decoding from generated[-1]."""
+    generated: list[int]
+    first_token_time: float
+    admit_time: float
+
+
+@dataclasses.dataclass
+class Request:
+    """One greedy generation request. Every request counts as arrived at
+    zero on the engine clock (its last ``reset_clock``/``reset_metrics``).
+    ``sampling`` exists for the reference's signature: any value other than
+    None raises (sampled decoding is a later slice)."""
+    uid: int
+    prompt: np.ndarray            # (prompt_len,) int32 token ids
+    max_new_tokens: int
+    sampling: object = None
+
+    def __post_init__(self):
+        self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
+        if self.prompt.size == 0:
+            raise ValueError("empty prompt")
+        if self.max_new_tokens <= 0:
+            raise ValueError("max_new_tokens must be positive")
+        if self.sampling is not None:
+            raise NotImplementedError("sampled decoding is a later slice; the port is greedy")
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    uid: int
+    prompt: list[int]
+    tokens: list[int]
+    slot: int
+    admit_time: float
+    first_token_time: float
+    finish_time: float
+
+    @property
+    def latency(self) -> float:
+        """Finish time from arrival at clock zero."""
+        return self.finish_time
+
+    @property
+    def ttft(self) -> float:
+        """Time to first token, from arrival at clock zero (includes
+        queueing)."""
+        return self.first_token_time
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Host-side state of one live slot."""
+    req: Request
+    generated: list[int]
+    next_feed: int                # token the next decode step consumes
+    admit_time: float
+    feed: np.ndarray              # prompt, or prompt + generated[:-1] on resume
+    prefix_len: int = 0           # leading feed tokens already in shared pages
+    first_token_time: float = -1.0
+    resumed: bool = False         # next emission is already known
+    pos_host: int = 0             # host mirror of the slot's write position
+    seq: int = 0                  # admission order (preemption takes the max)
+
+
+class ServeEngine:
+    """Slot-based continuous-batching scheduler over the shared paged pool.
+
+    Parameters follow the reference engine: ``num_slots`` (decode batch
+    width), ``max_seq`` (sizes the default pool and table width),
+    ``page_size``, ``num_pages`` (incl. scratch page 0; 0 = ring-equivalent
+    ``num_slots * ceil(max_seq/page_size) + 1``), ``watermark_pages`` and
+    ``prefix_cache``. Each slot's table holds ``num_slots *
+    ceil(max_seq/page_size)`` logical pages. A request finishes after
+    ``max_new_tokens`` (no EOS); the clock is ``time.monotonic``.
+    ``device`` is where the pool lives and the model runs (``"cuda"``
+    unless the caller asks for the CPU)."""
+
+    def __init__(
+        self,
+        model: ModelAPI,
+        params: dict,
+        *,
+        num_slots: int = 4,
+        max_seq: int = 128,
+        page_size: int = 16,
+        num_pages: int = 0,
+        watermark_pages: int = 0,
+        prefix_cache: bool = False,
+        device="cuda",
+        window: int = 0,
+        prefill: str = "chunked",
+        paged_cache: bool = True,
+        kv_dtype: str = "fp",
+        host_pages: int = 0,
+        draft_model=None,
+        spec_tokens: int = 0,
+        mesh=None,
+    ):
+        later = {
+            "window > 0 (sliding-window rings)": window != 0,
+            "prefill != 'chunked' (interleaved prefill)": prefill != "chunked",
+            "paged_cache=False (per-slot contiguous rings)": not paged_cache,
+            "kv_dtype != 'fp' (int8 pages)": kv_dtype != "fp",
+            "host_pages > 0 (host tier)": host_pages != 0,
+            "a draft model (speculative decoding)": draft_model is not None or spec_tokens != 0,
+            "a mesh (tensor-parallel serving)": mesh is not None,
+        }
+        blocked = [name for name, hit in later.items() if hit]
+        if blocked:
+            raise NotImplementedError(
+                "not in the port yet (a later slice): " + "; ".join(blocked)
+            )
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if max_seq < 1:
+            raise ValueError(f"max_seq must be >= 1, got {max_seq}")
+        self.cfg = model.cfg
+        self.model = model
+        self.device = torch.device(device)
+        # lm_logits multiplies in fp32: upcast the unembedding once here
+        # instead of once per step
+        if not self.cfg.tie_embeddings:
+            params = {**params, "embed": {
+                **params["embed"], "unembed": params["embed"]["unembed"].float(),
+            }}
+        self.params = params
+        self.num_slots = num_slots
+        self.max_seq = max_seq
+        self._t0 = time.monotonic()
+
+        pages_per_ring = -(-max_seq // page_size)
+        if num_pages <= 0:
+            num_pages = num_slots * pages_per_ring + 1
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.table_width = num_slots * pages_per_ring
+        self.cap = self.table_width * page_size
+        self.pool = PagePool(num_pages, page_size)
+        self.watermark_pages = watermark_pages
+        self._table_np = np.zeros((num_slots, self.table_width), np.int32)
+        self._table_dirty = False
+        self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
+        self.cache = model.init_paged_cache(
+            num_slots, num_pages, page_size, self.table_width, device=self.device,
+        )
+        self.prefix = PrefixCache(self.pool) if prefix_cache else None
+        self.prefix_cache = prefix_cache
+
+        self._resume: dict[int, _ResumeState] = {}
+        self._admit_seq = 0
+        self.waiting: collections.deque[Request] = collections.deque()
+        self.slots: list[_Slot | None] = [None] * num_slots
+        self.finished: list[RequestOutput] = []
+        self._warmed: set[tuple] = set()
+        self.reset_metrics()
+
+    # ------------------------------------------------------------- plumbing
+    def _now(self) -> float:
+        return time.monotonic() - self._t0
+
+    def reset_clock(self) -> None:
+        self._t0 = time.monotonic()
+
+    def reset_metrics(self) -> None:
+        """Drop outputs and counters and restart the clock."""
+        self.finished.clear()
+        self.steps = 0
+        self.prefill_dispatches = 0
+        self.suffix_dispatches = 0
+        self.cold_dispatches = 0
+        self.preemptions = 0
+        self.occupancy: list[float] = []
+        self.prefix_hit_pages = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+        self.prefix_resume_hit_tokens = 0
+        self.prefill_tokens = 0
+        self.cow_copies = 0
+        self.pool.peak_in_use = self.pool.in_use
+        self.reset_clock()
+
+    def warm(self, prompt_lens, *, gen_tokens: int = 2) -> None:
+        """Run every (width, length) bucket a trace of ``prompt_lens`` can
+        dispatch once (first-use costs: kernel builds and loads, allocator
+        growth), then clear the prefix index and reset metrics."""
+        for p in sorted(set(prompt_lens)):
+            for w in range(1, self.num_slots + 1):
+                key = (bucket_width(w, self.num_slots), bucket_length(p))
+                if key in self._warmed:
+                    continue
+                self._warmed.add(key)
+                self.run([
+                    Request(uid=-1 - j, prompt=np.zeros(p, np.int32),
+                            max_new_tokens=max(gen_tokens, 1))
+                    for j in range(w)
+                ])
+        if self.prefix is not None:
+            self.prefix.clear()
+        self.reset_metrics()
+
+    @property
+    def pool_stats(self) -> dict:
+        occ = self.occupancy
+        return {
+            "page_size": self.page_size,
+            "num_pages": self.num_pages,
+            "allocatable_pages": self.pool.capacity,
+            "pages_in_use": self.pool.in_use,
+            "peak_pages_in_use": self.pool.peak_in_use,
+            "preemptions": self.preemptions,
+            "occupancy_mean": float(np.mean(occ)) if occ else 0.0,
+            "occupancy_max": float(np.max(occ)) if occ else 0.0,
+            "prefix_cache": self.prefix_cache,
+            "prefix_hit_pages": self.prefix_hit_pages,
+            # over fresh lookups only: resume re-admissions replay tokens the
+            # engine itself published
+            "prefix_hit_rate": (
+                self.prefix_hit_tokens / self.prefix_lookup_tokens
+                if self.prefix_lookup_tokens else 0.0
+            ),
+            "prefix_resume_hit_tokens": self.prefix_resume_hit_tokens,
+            "prefix_lookup_tokens": self.prefix_lookup_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "cow_copies": self.cow_copies,
+            "suffix_dispatches": self.suffix_dispatches,
+            "cold_dispatches": self.cold_dispatches,
+            "prefix_pages_cached": self.prefix.size if self.prefix is not None else 0,
+            "prefix_evicted_pages": self.prefix.evicted_pages if self.prefix is not None else 0,
+            "kv_dtype": "fp",
+        }
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting) or any(s is not None for s in self.slots)
+
+    def capacity_shortfall(self, req: Request) -> int:
+        """Tokens by which ``req`` exceeds the table width or the physical
+        pool (0 = servable)."""
+        limit = min(self.cap, self.pool.capacity * self.page_size)
+        return max(0, len(req.prompt) + req.max_new_tokens - limit)
+
+    def submit(self, req: Request) -> None:
+        """Enqueue a request, or raise ``AdmissionError`` if the engine could
+        never hold it (it would wedge the head of the queue)."""
+        short = self.capacity_shortfall(req)
+        if short > 0:
+            raise AdmissionError(
+                req.uid, "exceeds_pool",
+                f"request {req.uid}: prompt {len(req.prompt)} + gen {req.max_new_tokens} "
+                f"exceeds pool capacity by {short} tokens (table {self.table_width} pages "
+                f"× {self.page_size}, pool {self.pool.capacity} allocatable pages)",
+            )
+        self.waiting.append(req)
+
+    # ------------------------------------------------------------ scheduling
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _greedy(self, logits: torch.Tensor) -> list[int]:
+        """Argmax over the real vocabulary, one host transfer per batch."""
+        return logits[:, : self.cfg.vocab_size].argmax(dim=-1).tolist()
+
+    def _admit(self, now: float) -> None:
+        """Fill free slots from the queue in submission order, one batched
+        prefill per round. Each claim takes its prompt pages up front (cached
+        prefix pages shared, the rest fresh); claiming stops, without
+        dequeuing, when the pool cannot cover the next request plus the
+        watermark (waived when no other slot is live). A request that
+        finishes on its first token frees its slot for the next round."""
+        while True:
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            claimed: list[int] = []
+            while free and self.waiting:
+                req = self.waiting[0]
+                resume = self._resume.get(req.uid)
+                feed = req.prompt
+                if resume is not None and resume.generated:
+                    feed = np.concatenate([req.prompt, np.asarray(resume.generated[:-1], np.int32)])
+                total_pages = min(-(-len(feed) // self.page_size), self.table_width)
+                hits: list[int] = []
+                suffix_start = 0
+                cow = False
+                if self.prefix is not None:
+                    # share the hits first so eviction below cannot recycle them
+                    hits = self.prefix.match(feed)
+                    for p in hits:
+                        self.pool.share(p)
+                    # at least one token must run through prefill (its logits
+                    # give the first emission): a fully cached prompt
+                    # re-prefills its last token into a copy of its last page
+                    suffix_start = min(len(hits) * self.page_size, len(feed) - 1)
+                    cow = len(hits) * self.page_size > suffix_start
+                n_fresh = total_pages - len(hits) + (1 if cow else 0)
+                hold = self.watermark_pages if any(s is not None for s in self.slots) else 0
+                if self.pool.available < n_fresh + hold:
+                    if self.prefix is not None:
+                        self.prefix.evict(n_fresh + hold - self.pool.available)
+                    if self.pool.available < n_fresh + hold:
+                        self.pool.free(hits)
+                        break  # stays queued
+                self.waiting.popleft()
+                i = free.pop(0)
+                self.cache["pos"][i] = 0
+                slot = _Slot(req=req, generated=[], next_feed=-1, admit_time=now, feed=feed,
+                             prefix_len=suffix_start)
+                self._admit_seq += 1
+                slot.seq = self._admit_seq
+                pages = list(hits)
+                if cow:
+                    src, dst = pages[-1], self.pool.alloc(1)[0]
+                    for name in ("k", "v"):
+                        self.cache[name][:, dst] = self.cache[name][:, src]
+                    self.pool.free([src])
+                    pages[-1] = dst
+                    self.cow_copies += 1
+                pages.extend(self.pool.alloc(total_pages - len(pages)))
+                self._slot_pages[i] = pages
+                self._table_np[i, :] = 0
+                self._table_np[i, : len(pages)] = pages
+                self._table_dirty = True
+                if resume is None:
+                    self.prefix_hit_pages += len(hits)
+                    self.prefix_hit_tokens += suffix_start
+                    self.prefix_lookup_tokens += len(feed)
+                else:
+                    self.prefix_resume_hit_tokens += suffix_start
+                    del self._resume[req.uid]
+                    slot.generated = list(resume.generated)
+                    slot.first_token_time = resume.first_token_time
+                    slot.admit_time = resume.admit_time
+                    slot.resumed = bool(resume.generated)
+                self.slots[i] = slot
+                slot.pos_host = len(feed)
+                claimed.append(i)
+            if not claimed:
+                return
+            if not self._prefill_claimed(claimed):
+                return
+
+    def _prefill_claimed(self, claimed: list[int]) -> bool:
+        """Prefill the claimed slots; returns True if any retired. The round
+        splits into a cold group (no cached prefix: flash prefill) and a hit
+        group (suffix prefill), each one dispatch padded to its bucket."""
+        self._sync_table()
+        first: dict[int, int] = {}
+        cold = [i for i in claimed if self.slots[i].prefix_len == 0]
+        hits = [i for i in claimed if self.slots[i].prefix_len > 0]
+        for group, suffix in ((cold, False), (hits, True)):
+            if not group:
+                continue
+            sufs = [self.slots[i].feed[self.slots[i].prefix_len:] for i in group]
+            width = bucket_width(len(group), self.num_slots)
+            padded_len = bucket_length(max(p.size for p in sufs))
+            tokens = np.zeros((width, padded_len), np.int32)
+            lengths = np.zeros(width, np.int32)
+            starts = np.zeros(width, np.int32)
+            slot_ids = np.zeros(width, np.int32)
+            for j, (i, p) in enumerate(zip(group, sufs)):
+                tokens[j, : p.size] = p
+                lengths[j] = p.size
+                starts[j] = self.slots[i].prefix_len
+                slot_ids[j] = i
+            if width > len(group):
+                # padding rows (length 0 writes nothing) aimed at distinct
+                # slots outside this dispatch: outside the round first
+                in_group = set(group)
+                spare = [i for i in range(self.num_slots)
+                         if i not in in_group and i not in claimed]
+                spare += [i for i in claimed if i not in in_group]
+                slot_ids[len(group):] = spare[: width - len(group)]
+            if suffix:
+                pw = bucket_pages(-(-int(starts.max()) // self.page_size), self.table_width)
+                self.cache, logits = self.model.prefill_slots(
+                    self.params, self.cache, self._tensor(tokens), self._tensor(lengths),
+                    self._tensor(slot_ids), starts=self._tensor(starts), prefix_pages=pw,
+                )
+                self.suffix_dispatches += 1
+            else:
+                self.cache, logits = self.model.prefill_slots(
+                    self.params, self.cache, self._tensor(tokens), self._tensor(lengths),
+                    self._tensor(slot_ids),
+                )
+                self.cold_dispatches += 1
+            self.prefill_dispatches += 1
+            self.prefill_tokens += int(sum(p.size for p in sufs))
+            first.update(zip(group, self._greedy(logits)))
+
+        retired = False
+        for i in claimed:  # emit in admission order
+            slot = self.slots[i]
+            if slot.resumed:
+                # every generated token survived preemption: continue by
+                # re-feeding the last one
+                slot.resumed = False
+                slot.next_feed = slot.generated[-1]
+                continue
+            g = first[i]
+            slot.first_token_time = self._now()
+            slot.generated.append(g)
+            slot.next_feed = g
+            if len(slot.generated) >= slot.req.max_new_tokens:
+                self._retire(i, slot)
+                retired = True
+        return retired
+
+    def _retire(self, i: int, slot: _Slot) -> None:
+        self.finished.append(RequestOutput(
+            uid=slot.req.uid, prompt=slot.req.prompt.tolist(), tokens=list(slot.generated),
+            slot=i, admit_time=slot.admit_time,
+            first_token_time=slot.first_token_time, finish_time=self._now(),
+        ))
+        self.slots[i] = None
+        if self.prefix is not None:
+            # publish the FULL prompt pages (the index takes its own refs)
+            # before the slot's refs drop
+            n_pub = min(len(slot.req.prompt) // self.page_size, len(self._slot_pages[i]))
+            if n_pub > 0:
+                self.prefix.insert(slot.req.prompt, self._slot_pages[i][:n_pub])
+        self.pool.free(self._slot_pages[i])
+        self._slot_pages[i] = []
+        self._table_np[i, :] = 0
+        self._table_dirty = True
+
+    # ----------------------------------------------------------- paged pool
+    def _sync_table(self) -> None:
+        """Push the host page-table mirror (authoritative) to the device."""
+        if self._table_dirty:
+            self.cache["table"].copy_(torch.from_numpy(self._table_np))
+            self._table_dirty = False
+
+    def _preempt(self, i: int) -> None:
+        """Send slot ``i`` back to the HEAD of the queue, freeing its pages;
+        re-admission re-prefills prompt + generated and continues."""
+        slot = self.slots[i]
+        self.pool.free(self._slot_pages[i])
+        self._slot_pages[i] = []
+        self._table_np[i, :] = 0
+        self._table_dirty = True
+        self._resume[slot.req.uid] = _ResumeState(
+            generated=list(slot.generated), first_token_time=slot.first_token_time,
+            admit_time=slot.admit_time,
+        )
+        self.waiting.appendleft(slot.req)
+        self.slots[i] = None
+        self.preemptions += 1
+
+    def _ensure_decode_pages(self, live: list[int]) -> None:
+        """Before a decode step, give every live slot whose next write
+        crosses into an unallocated logical page one page; when the pool is
+        dry, evict prefix-index pages, then preempt the youngest slot."""
+        for i in live:
+            slot = self.slots[i]
+            if slot is None:
+                continue  # preempted for an earlier slot's page
+            pi = (slot.pos_host % self.cap) // self.page_size
+            if self._table_np[i, pi] != 0:
+                continue
+            while True:
+                pages = self.pool.alloc(1)
+                if pages is not None:
+                    self._slot_pages[i].append(pages[0])
+                    self._table_np[i, pi] = pages[0]
+                    self._table_dirty = True
+                    break
+                if self.prefix is not None and self.prefix.evict(1) > 0:
+                    continue
+                victim = max(
+                    (j for j, s in enumerate(self.slots) if s is not None),
+                    key=lambda j: self.slots[j].seq,
+                )
+                self._preempt(victim)
+                if victim == i:
+                    break
+
+    def step(self) -> list[RequestOutput]:
+        """One iteration: admit → lazy pages → one batched decode step →
+        retire. Returns the requests that finished in it."""
+        n_done = len(self.finished)
+        self._admit(self._now())
+        live = [i for i, s in enumerate(self.slots) if s is not None]
+        if live:
+            self._ensure_decode_pages(live)
+            live = [i for i, s in enumerate(self.slots) if s is not None]
+        if live:
+            self._sync_table()
+            feed = np.zeros((self.num_slots, 1), np.int32)
+            for i in live:
+                feed[i, 0] = self.slots[i].next_feed
+            self.cache, logits = self.model.decode(self.params, self.cache, self._tensor(feed))
+            self.steps += 1
+            self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
+            greedy = self._greedy(logits)
+            now = self._now()
+            for i in live:
+                slot = self.slots[i]
+                slot.pos_host += 1
+                g = greedy[i]
+                if slot.first_token_time < 0:
+                    slot.first_token_time = now
+                slot.generated.append(g)
+                slot.next_feed = g
+                if len(slot.generated) >= slot.req.max_new_tokens:
+                    self._retire(i, slot)
+        return self.finished[n_done:]
+
+    def run(self, requests=()) -> list[RequestOutput]:
+        """Drain ``requests`` (plus anything queued) to completion."""
+        for req in requests:
+            self.submit(req)
+        outs: list[RequestOutput] = []
+        while self.has_work:
+            outs.extend(self.step())
+        return sorted(outs, key=lambda o: o.uid)
+
+
+# ----------------------------------------------------------------- helpers
+def make_requests(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
+                  seed: int = 0) -> list[Request]:
+    """Synthetic trace: uniform random prompts from ``seed``."""
+    rng = np.random.default_rng(seed + 1)
+    prompts = rng.integers(0, cfg.vocab_size, (n_requests, prompt_len), dtype=np.int32)
+    return [
+        Request(uid=r, prompt=prompts[r], max_new_tokens=gen_tokens)
+        for r in range(n_requests)
+    ]
+
+
+def serve_continuous(
+    arch: str, *, smoke: bool = True, num_slots: int = 4, n_requests: int = 8,
+    prompt_len: int = 32, gen_tokens: int = 32, page_size: int = 16, num_pages: int = 0,
+    watermark_pages: int = 0, prefix_cache: bool = True, seed: int = 0,
+    device="cuda", log_fn=print,
+) -> dict:
+    """Build a model with seeded random weights and an engine, serve a
+    synthetic trace after a warm-up run, report throughput and latency."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    model = build_model(cfg)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    params = model.init(generator, device)
+    engine = ServeEngine(
+        model, params, num_slots=num_slots, max_seq=prompt_len + gen_tokens,
+        page_size=page_size, num_pages=num_pages, watermark_pages=watermark_pages,
+        prefix_cache=prefix_cache, device=device,
+    )
+    reqs = make_requests(cfg, n_requests=n_requests, prompt_len=prompt_len,
+                         gen_tokens=gen_tokens, seed=seed)
+    engine.warm([prompt_len], gen_tokens=min(2, gen_tokens))
+    t0 = time.time()
+    outs = engine.run(reqs)
+    wall = time.time() - t0
+    total = sum(len(o.tokens) for o in outs)
+    lat = [o.latency for o in outs] or [0.0]
+    ttft = [o.ttft for o in outs] or [0.0]
+    ps = engine.pool_stats
+    result = {
+        "arch": cfg.name,
+        "device": str(engine.device),
+        "num_slots": num_slots,
+        "n_requests": n_requests,
+        "prompt_len": prompt_len,
+        "gen_tokens": gen_tokens,
+        "prefix_cache": engine.prefix_cache,
+        "prefill_tokens": engine.prefill_tokens,
+        "engine_steps": engine.steps,
+        "prefill_dispatches": engine.prefill_dispatches,
+        "pool": ps,
+        "wall_seconds": wall,
+        "tokens_per_second": total / max(wall, 1e-9),
+        "generated": [o.tokens for o in outs],
+        "slots": [o.slot for o in outs],
+        "latency_p50": float(np.percentile(lat, 50)),
+        "latency_p95": float(np.percentile(lat, 95)),
+        "ttft_p50": float(np.percentile(ttft, 50)),
+    }
+    pool_line = (
+        f", pool occ mean {ps['occupancy_mean']:.0%} / max {ps['occupancy_max']:.0%} over "
+        f"{ps['allocatable_pages']} pages, {ps['preemptions']} preemptions"
+    )
+    if engine.prefix_cache:
+        pool_line += (
+            f", prefix hit {ps['prefix_hit_rate']:.0%} "
+            f"({ps['prefix_hit_pages']} pages, {ps['cow_copies']} CoW)"
+        )
+    log_fn(
+        f"{cfg.name}: {n_requests} reqs × {gen_tokens} tok over {num_slots} slots in "
+        f"{engine.steps} steps + {engine.prefill_dispatches} prefill dispatches, {wall:.2f}s "
+        f"({result['tokens_per_second']:.1f} tok/s, p50 {result['latency_p50']:.2f}s "
+        f"p95 {result['latency_p95']:.2f}s{pool_line})"
+    )
+    return result
