@@ -29,7 +29,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    rate > 0 and that every kernel launched; re-runs a cold round, a decode
    step and a suffix round through the plain versions (and through the
    planted faults) from the kernel run's cache and compares logits;
-6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+6. channel kernels: top-k, int8, the DP norm and clip/noise against their
+   plain versions on the card at the training path's leaves (the embedding,
+   100352 x 2048, and one stacked MLP leaf, 24 x 2048 x 5632, fp32, k = 3):
+   bitwise (the norm within 1e-6 relative), each with a planted fault that
+   must fail its check; times at the embedding leaf;
+7. training: ``run_training`` over stablelm-1.6b at its published widths
+   (2 clouds, H = 2, 4 steps, batch 8 x 256 per cloud, topk+int8 with error
+   feedback, DP clip 1.0 and noise 0.1, FedAvg): finite losses, every
+   channel kernel launched, local-step and sync-round times, the sync's
+   device time by stage, the idle share of a local step, peak memory; then
+   one sync round from a copy of the trained state through the kernels and
+   through the plain versions (and a planted fault) with the same noise
+   seed, whose new global parameters must agree;
+8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -65,12 +78,38 @@ REPLACES = {
     "paged_decode": "src/repro/kernels/paged_decode.py:208",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:106",
     "suffix_prefill": "src/repro/kernels/flash_suffix_prefill.py:152",
+    "int8_roundtrip": "src/repro/kernels/quantize.py:96",
+    "topk_sparsify": "src/repro/kernels/topk_compress.py:50",
+    "sq_norm": "src/repro/kernels/dp_clip.py:36",
+    "clip_noise": "src/repro/kernels/dp_clip.py:58",
 }
 SOURCES = {
     "paged_decode": "src/repro_torch/csrc/paged_decode.cu",
     "flash_prefill": "src/repro_torch/csrc/flash_prefill.cu",
     "suffix_prefill": "src/repro_torch/csrc/flash_suffix_prefill.cu",
+    "int8_roundtrip": "src/repro_torch/csrc/quantize.cu",
+    "topk_sparsify": "src/repro_torch/csrc/topk_compress.cu",
+    "sq_norm": "src/repro_torch/csrc/dp_clip.cu",
+    "clip_noise": "src/repro_torch/csrc/dp_clip.cu",
 }
+SERVING = ("paged_decode", "flash_prefill", "suffix_prefill")
+CHANNEL = ("int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise")
+FP32_FLOPS = 67e12             # H100 SXM fp32 peak outside the tensor cores
+# The DP norm, kernel vs plain: both sum in fp32 in other orders (two fixed
+# passes vs PyTorch's reduction); over 2e8 squares the relative error of
+# either is ~1e-7. A dropped 2048-element chunk or ragged tail moves it by
+# far more than 1e-6.
+SQ_NORM_RTOL = 1e-6
+# The training path's settings.
+TOPK_RATIO, DP_CLIP, DP_NOISE, NOISE_SEED = 0.01, 1.0, 0.1, 1234
+# Sync round, kernels vs plain versions: they differ only in the norm's
+# summation order, so the clip scale may differ in its last ulp; that moves
+# a transmitted delta by ~1e-7 of itself, and a new bf16 parameter only
+# where g + aggregate sat at a rounding boundary: ~1 element in 1e9. A
+# sound run may differ in at most 1e-6 of the parameters, each by at most
+# one bf16 ulp (2**-7 relative); a planted fault (top-k keeping k - 1 per
+# block) changes ~1e-3 of them.
+SYNC_DIFF_FRAC = 1e-6
 
 
 def log(msg: str) -> None:
@@ -186,6 +225,47 @@ def plain_kernels(**swap):
     finally:
         for k, attr in names.items():
             setattr(ops, attr, saved[k])
+
+
+@contextlib.contextmanager
+def plain_channel(**swap):
+    """Route the channel kernels' wrappers to their plain versions on
+    whatever device the tensors are; ``swap`` replaces some of them
+    (``topk_sparsify=``, ``int8_roundtrip=``, ``sq_norm=``, ``clip_noise=``),
+    e.g. with a planted fault."""
+    from repro_torch.kernels import dp_clip, quantize, ref, topk_compress
+
+    where = {"topk_sparsify": topk_compress, "int8_roundtrip": quantize,
+             "sq_norm": dp_clip, "clip_noise": dp_clip}
+    plain = {"topk_sparsify": ref.topk_sparsify_ref, "int8_roundtrip": ref.int8_roundtrip_ref,
+             "sq_norm": ref.sq_norm_ref, "clip_noise": ref.clip_noise_ref, **swap}
+    saved = {k: getattr(mod, k) for k, mod in where.items()}
+    for k, mod in where.items():
+        setattr(mod, k, plain[k])
+    try:
+        yield
+    finally:
+        for k, mod in where.items():
+            setattr(mod, k, saved[k])
+
+
+def _topk_short(x, k):
+    """Planted fault: top-k keeping k - 1 per block."""
+    from repro_torch.kernels import ref
+
+    return ref.topk_sparsify_ref(x, k - 1)
+
+
+def _int8_div128(x):
+    """Planted fault: the int8 scale with 128 in place of 127."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    rows = ref._blocks(x)
+    amax = rows.abs().amax(dim=1, keepdim=True)
+    scale = (amax / amax.new_tensor(128.0)).clamp(min=1e-12)
+    return ref._unblocks(torch.round(rows / scale).clamp(-127, 127) * scale, x)
 
 
 # ------------------------------------------------------------------ phase 1
@@ -429,7 +509,7 @@ def phase_golden():
     outs = eng.run([Request(uid=u, prompt=p, max_new_tokens=g["max_new_tokens"])
                     for u, p in enumerate(g["prompts"])])
     torch.cuda.synchronize()
-    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in SERVING}
     got = [o.tokens for o in outs]
     check(got == g["tokens"], f"golden fp32 tokens differ from the reference:\n{got}\n"
                               f"{g['tokens']}")
@@ -554,6 +634,15 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
+def _kernel_rows(prof):
+    """The profiler's kernel rows only: an operator's row repeats the time of
+    the kernels it launched."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+
+
 def _profile_decode(eng, smi, n=5):
     """Host wall time and device time of one batched decode step (8 slots,
     the engine's cache as the trace left it), and the kernels it launches."""
@@ -576,11 +665,7 @@ def _profile_decode(eng, smi, n=5):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    # kernel rows only: an operator's row repeats the time of the kernels it
-    # launched
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = _kernel_rows(prof)
     if not events:
         log(f"[profile] {smi}: decode step host wall {host_ms:.2f} ms; device time not "
             "measured (the profiler saw no kernels)")
@@ -641,7 +726,7 @@ def phase_main_path(smi):
         outs += eng.run(group)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = {k: ops.LAUNCHES[k] for k in SERVING}
     ps = eng.pool_stats
     check(len(outs) == 16 and all(len(o.tokens) == 32 for o in outs),
           "not every request finished with 32 tokens")
@@ -662,6 +747,291 @@ def phase_main_path(smi):
     return launches
 
 
+# ------------------------------------------------------------------ phase 6
+def phase_channel_kernels(smi):
+    """The four channel kernels against their plain versions at the
+    training path's leaves, each with a planted fault; times at the
+    embedding leaf."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dp_clip import CHUNK
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    k = ops.topk_k(TOPK_RATIO)
+    one = torch.ones((), device=DEVICE)
+    scale = torch.tensor(0.37, device=DEVICE)
+    sigma = 0.05
+    rows = {}
+
+    def bitwise(name, what, out, plain, faults):
+        e = (out.float() - plain.float()).abs().max().item()
+        expect(torch.equal(out, plain), f"{name} {what}: kernel differs from plain (max {e})")
+        msg = f"[channel] {name} {what}: bitwise equal {torch.equal(out, plain)}, max_abs_err {e:.3e}"
+        for fname, fout in faults:
+            bad = torch.equal(out, fout)
+            expect(not bad, f"{name} {what}: planted fault '{fname}' not caught")
+            msg += f"; planted fault '{fname}' differs: {not bad}"
+        log(msg)
+        return e
+
+    def rel(a, b):
+        return abs(a.item() - b.item()) / abs(b.item())
+
+    for lname, shape in (("embed 100352x2048", (100352 * 2048,)),
+                         ("mlp 24x2048x5632", (24, 2048, 5632))):
+        x = torch.randn(shape, generator=gen, device=DEVICE) * 1e-3
+        noise = torch.randn(shape, generator=gen, device=DEVICE)
+        n = x.numel()
+        errs = {
+            "topk_sparsify": bitwise("topk_sparsify", f"{lname} k={k}",
+                                     ops.topk_sparsify_leaf(x, TOPK_RATIO),
+                                     ref.topk_sparsify_ref(x, k),
+                                     [("keeps k-1 per block", _topk_short(x, k))]),
+            "int8_roundtrip": bitwise("int8_roundtrip", lname, ops.int8_roundtrip_leaf(x),
+                                      ref.int8_roundtrip_ref(x),
+                                      [("divisor 128", _int8_div128(x))]),
+            "clip_noise": bitwise("clip_noise", f"{lname} scale 1, sigma {sigma}",
+                                  ops.clip_noise(x, one, noise, sigma),
+                                  ref.clip_noise_ref(x, one, noise, sigma),
+                                  [("noise term left out", ref.clip_noise_ref(x, one))]),
+        }
+        bitwise("clip_noise", f"{lname} clip scale 0.37, no noise", ops.clip_noise(x, scale),
+                ref.clip_noise_ref(x, scale), [("scale left out", x)])
+        flat = x.reshape(-1)
+        ragged = flat[: 1_000_077]
+        got, want = ops.sq_norm(x), ref.sq_norm_ref(x)
+        got_r, want_r = ops.sq_norm(ragged), ref.sq_norm_ref(ragged)
+        f_chunk = rel(got, ref.sq_norm_ref(flat[:-CHUNK]))
+        f_tail = rel(got_r, ref.sq_norm_ref(ragged[:1_000_000]))
+        errs["sq_norm"] = abs(got.item() - want.item())
+        expect(rel(got, want) <= SQ_NORM_RTOL, f"sq_norm {lname}: rel err {rel(got, want)}")
+        expect(rel(got_r, want_r) <= SQ_NORM_RTOL, f"sq_norm ragged: {rel(got_r, want_r)}")
+        expect(f_chunk > SQ_NORM_RTOL and f_tail > SQ_NORM_RTOL,
+               f"sq_norm planted faults not caught: {f_chunk}, {f_tail}")
+        log(f"[channel] sq_norm {lname}: rel err {rel(got, want):.3e} (tol {SQ_NORM_RTOL:g}); "
+            f"ragged n=1000077 rel err {rel(got_r, want_r):.3e}; planted faults: last "
+            f"{CHUNK}-element chunk dropped {f_chunk:.3e}, ragged tail dropped {f_tail:.3e}")
+        if lname.startswith("embed"):
+            nb_rounds = k  # continuous data: no ties, so exactly k rounds per block
+            timing = {
+                "topk_sparsify": (lambda: ops.topk_sparsify_leaf(x, TOPK_RATIO),
+                                  lambda: ref.topk_sparsify_ref(x, k), None,
+                                  8 * n, n * (2 + 2 * nb_rounds)),
+                "int8_roundtrip": (lambda: ops.int8_roundtrip_leaf(x),
+                                   lambda: ref.int8_roundtrip_ref(x), None, 8 * n, 6 * n),
+                "sq_norm": (lambda: ops.sq_norm(x), lambda: ref.sq_norm_ref(x),
+                            lambda: torch.dot(flat, flat), 4 * n + 4, 2 * n),
+                "clip_noise": (lambda: ops.clip_noise(x, one, noise, sigma),
+                               lambda: ref.clip_noise_ref(x, one, noise, sigma),
+                               lambda: torch.add(x, noise, alpha=sigma), 12 * n + 4, 3 * n),
+            }
+            for name, (kern, plain, lib, nbytes, flops) in timing.items():
+                ms, wall = timed_ms(kern)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / FP32_FLOPS * 1e3
+                rows[name] = dict(
+                    max_abs_err=errs[name], ms=ms, wrapper_ms=wall,
+                    plain_ms=timed_ms(plain, iters=5)[0],
+                    library_ms=None if lib is None else timed_ms(lib)[0],
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                )
+                r = rows[name]
+                log(f"[channel] {name} {lname} ({smi}): kernel device ms {r['ms']:.4f} "
+                    f"(wrapper wall {r['wrapper_ms']:.4f}) plain_ms {r['plain_ms']:.4f} "
+                    f"library_ms {r['library_ms'] if lib is None else format(r['library_ms'], '.4f')} "
+                    f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: {nbytes / 1e9:.3f} GB)")
+        else:
+            for name, e in errs.items():
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+        del x, noise, flat, ragged
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------------ phase 7
+def _stage(kernel_name: str) -> str:
+    """The sync-round stage a device kernel belongs to, by its name."""
+    n = kernel_name.lower()
+    if "clip_noise_kernel" in n:
+        return "noise" if "true" in n else "clip"
+    if "sq_norm" in n:
+        return "clip"
+    if "topk" in n:
+        return "top-k"
+    if "int8" in n:
+        return "int8"
+    if "normal" in n or "philox" in n:
+        return "noise"
+    return "delta/EF/aggregate"
+
+
+def phase_training(smi):
+    """Federated training of stablelm-1.6b at its published widths, then a
+    kernel-vs-plain sync round from a copy of the trained state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run_training
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    clouds, batch, seq = 2, 8, 256
+    walls = {"local": [], "sync": []}
+
+    def step_fn(trainer, state, b, arrived, alphas):
+        if "untimed_sync" not in trainer.__dict__:   # time the sync round on its own
+            sync = trainer._sync
+
+            def timed_sync(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = sync(*a)
+                torch.cuda.synchronize()
+                walls["sync"].append(time.perf_counter() - t)
+                return out
+            trainer.__dict__["untimed_sync"] = sync
+            trainer._sync = timed_sync
+        n_sync = len(walls["sync"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = trainer.train_step(state, b, arrived, alphas)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        walls["local"].append(wall - (walls["sync"][-1] if len(walls["sync"]) > n_sync else 0))
+        return out
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = run_training("stablelm-1.6b", smoke=False, steps=4, seq_len=seq,
+                       per_cloud_batch=batch, n_clouds=clouds, local_steps=2,
+                       aggregation="fedavg", compression="topk+int8", topk_ratio=TOPK_RATIO,
+                       dp_clip=DP_CLIP, dp_noise=DP_NOISE, log_every=1, device=DEVICE,
+                       log_fn=lambda m: log(f"[train] {m}"), step_fn=step_fn)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x for h in res["history"] for x in h["per_cloud_loss"]]
+    check(len(res["history"]) == 4 and all(np.isfinite(losses)), f"non-finite losses: {losses}")
+    check(all(launches[k] > 0 for k in CHANNEL), f"a channel kernel never launched: {launches}")
+    tokens = clouds * batch * seq
+    steady = walls["local"][1:]
+    local = sum(steady) / len(steady)
+    log(f"[train] {smi}: {res['params']:,} parameters, {clouds} clouds x "
+        f"{res['trainer'].model.cfg.n_layers} layers, 4 steps (2 sync "
+        f"rounds) in {total:.3f} s incl. init; local step walls (both clouds) "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls['local'])} ms, steady {local * 1e3:.1f} ms "
+        f"= {tokens / local:.0f} tokens/s; sync round walls "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls['sync'])} ms; peak memory {peak:.2f} GB "
+        f"(max_memory_allocated), {torch.cuda.memory_allocated() / 1e9:.2f} GB held after the "
+        f"run; uplink {res['bytes_per_cloud_per_sync']:,} B per cloud per sync (wire model); "
+        f"losses {losses}; launches {launches}")
+
+    trainer, state = res["trainer"], res["state"]
+    del res
+    # the device idle share of one local step (cloud 0, one fresh batch)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    toks = torch.randint(0, trainer.model.cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    b0 = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    cloud = state["clouds"][0]
+    trainer._local_step(cloud, b0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer._local_step(cloud, b0)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer._local_step(cloud, b0)
+        torch.cuda.synchronize()
+    ev = _kernel_rows(prof)
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"[train] {smi}: one local step (1 cloud, {batch} x {seq}) host wall {host_ms:.1f} ms, "
+        f"device time {dev_ms:.1f} ms in {sum(e.count for e in ev)} kernel launches, device "
+        f"idle share {max(0.0, 1 - dev_ms / host_ms):.3f}; top: " + "; ".join(
+            f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
+
+    # one sync round from a copy of the trained state: kernels, plain, fault
+    for c in state["clouds"]:
+        c["opt"] = None                      # the sync reads no optimizer state
+    torch.cuda.empty_cache()
+    like = state["global"]["params"]
+    def host(leaves):
+        return [x.to("cpu", copy=True) for x in leaves]
+
+    snap = {"clouds": [host(tree_leaves(c["params"])) for c in state["clouds"]],
+            "ef": [host(tree_leaves(t)) for t in state["ef"]],
+            "global": host(tree_leaves(like))}
+    arrived = torch.ones(clouds, dtype=torch.bool, device=DEVICE)
+    alphas = torch.full((clouds,), 0.5, device=DEVICE)
+
+    def restore():
+        for c, saved in zip(state["clouds"], snap["clouds"]):
+            for p, s in zip(tree_leaves(c["params"]), saved):
+                p.copy_(s)
+        for t, saved in zip(state["ef"], snap["ef"]):
+            for e, s in zip(tree_leaves(t), saved):
+                e.copy_(s)
+        state["global"]["params"] = tree_unflatten(like, [s.to(DEVICE) for s in snap["global"]])
+        state["loss_accum"] = torch.zeros(clouds, device=DEVICE)
+        state["rng"] = torch.Generator(device=DEVICE).manual_seed(NOISE_SEED)
+        torch.cuda.synchronize()
+
+    def sync_from_copy():
+        restore()
+        trainer.__dict__["untimed_sync"](state, arrived, alphas)
+        torch.cuda.synchronize()
+        return tree_leaves(state["global"]["params"])
+
+    restore()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.__dict__["untimed_sync"](state, arrived, alphas)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t) * 1e3
+    got = host(tree_leaves(state["global"]["params"]))
+    stages: dict[str, float] = {}
+    for e in _kernel_rows(prof):
+        stages[_stage(e.key)] = stages.get(_stage(e.key), 0.0) + e.self_device_time_total / 1e3
+    log(f"[train] {smi}: profiled sync round wall {prof_wall:.1f} ms, device time "
+        f"{sum(stages.values()):.2f} ms by stage: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(stages.items(), key=lambda x: -x[1])))
+
+    def compare(what, faults=False):
+        differ = total_n = beyond = 0
+        worst = 0.0
+        for a, b in zip(sync_from_copy(), got):
+            b = b.to(DEVICE).float()
+            d = (a.float() - b).abs()
+            differ += int((d > 0).sum())
+            beyond += int((d > 2.0**-7 * b.abs()).sum())
+            total_n += d.numel()
+            worst = max(worst, d.max().item())
+        frac = differ / total_n
+        sound = frac <= SYNC_DIFF_FRAC and beyond == 0
+        if faults:
+            expect(not sound, f"sync round: planted fault '{what}' not caught ({frac})")
+        else:
+            expect(sound, f"sync round kernels vs {what}: {differ} of {total_n} differ, "
+                          f"{beyond} by more than one bf16 ulp")
+        log(f"[train] sync round, new global params, kernels vs {what}: {differ} of {total_n} "
+            f"differ (fraction {frac:.3e}, tol {SYNC_DIFF_FRAC:g}), {beyond} by more than one "
+            f"bf16 ulp, max |diff| {worst:.3e}")
+
+    with plain_channel():
+        compare("plain versions")
+    with plain_channel(topk_sparsify=_topk_short):
+        compare("planted fault: top-k keeps k-1 per block", faults=True)
+    del state, trainer, snap, got
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -670,6 +1040,9 @@ def main() -> int:
     rows = phase_kernels(smi)
     phase_golden()
     launches = phase_main_path(smi)
+    rows.update(phase_channel_kernels(smi))
+    train_launches = phase_training(smi)
+    launches.update({k: train_launches[k] for k in CHANNEL})
     check(not FAILED, f"{len(FAILED)} numeric checks failed: {FAILED}")
     kernels = []
     for name, r in rows.items():

@@ -1,4 +1,5 @@
-"""Weights carried between the reference package and the port.
+"""Weights and federated trainer state carried between the reference package
+and the port.
 
 Both packages use one parameter tree: ``embed/tok`` (Vp, D),
 ``embed/unembed`` (D, Vp), per-layer leaves stacked on a leading L axis —
@@ -62,7 +63,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device, dtype=None) -> dict:
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        return torch.from_numpy(np.asarray(node, np.float32)).to(device=device, dtype=dtype)
+        # a copy: the port updates tensors in place, and must never write
+        # into the caller's arrays
+        return torch.from_numpy(np.array(node, np.float32)).to(device=device, dtype=dtype)
 
     return conv(tree)
 
@@ -72,3 +75,71 @@ def numpy_from_params(params: dict) -> dict:
     if isinstance(params, dict):
         return {k: numpy_from_params(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy()
+
+
+def _stack_clouds(trees: list) -> dict:
+    """Per-cloud trees → one numpy tree with a leading cloud axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_clouds([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([numpy_from_params(t) for t in trees])
+
+
+def _unstack_cloud(tree: dict, c: int) -> dict:
+    if isinstance(tree, dict):
+        return {k: _unstack_cloud(v, c) for k, v in tree.items()}
+    return tree[c]
+
+
+def trainer_state_from_numpy(tree: dict, cfg: ModelConfig, device, *,
+                             noise_seed: int = 0xFED) -> dict:
+    """The port's ``FederatedTrainer`` state from the reference trainer's
+    state as numpy arrays (``jax.tree_util.tree_map(np.asarray, state)``):
+    the stacked cloud params and AdamW m, v and count, the global params,
+    the outer momentum, ``ef``, ``loss_accum``, ``step`` and
+    ``sample_counts``. The reference's PRNG key is not carried: the DP noise
+    generator is seeded with ``noise_seed``."""
+    n = len(tree["sample_counts"])
+
+    def f32(x):
+        return params_from_numpy(x, cfg, device, torch.float32)
+
+    opt = tree["clouds"]["opt"]
+    state = {
+        "clouds": [{
+            "params": params_from_numpy(_unstack_cloud(tree["clouds"]["params"], c), cfg,
+                                        device),
+            "opt": {"m": f32(_unstack_cloud(opt["m"], c)), "v": f32(_unstack_cloud(opt["v"], c)),
+                    "count": int(np.asarray(opt["count"])[c])},
+        } for c in range(n)],
+        "global": {"params": params_from_numpy(tree["global"]["params"], cfg, device),
+                   "outer": f32(tree["global"]["outer"])},
+        "sample_counts": f32(tree["sample_counts"]),
+        "loss_accum": f32(tree["loss_accum"]),
+        "step": int(np.asarray(tree["step"])),
+        "rng": torch.Generator(device=device).manual_seed(noise_seed),
+    }
+    if "ef" in tree:
+        state["ef"] = [f32(_unstack_cloud(tree["ef"], c)) for c in range(n)]
+    return state
+
+
+def numpy_from_trainer_state(state: dict) -> dict:
+    """The inverse of ``trainer_state_from_numpy``: float32 numpy arrays in
+    the reference trainer's layout (cloud axis leading), without ``rng``."""
+    clouds = state["clouds"]
+    out = {
+        "clouds": {
+            "params": _stack_clouds([c["params"] for c in clouds]),
+            "opt": {"m": _stack_clouds([c["opt"]["m"] for c in clouds]),
+                    "v": _stack_clouds([c["opt"]["v"] for c in clouds]),
+                    "count": np.asarray([c["opt"]["count"] for c in clouds], np.int32)},
+        },
+        "global": {"params": numpy_from_params(state["global"]["params"]),
+                   "outer": numpy_from_params(state["global"]["outer"])},
+        "sample_counts": numpy_from_params(state["sample_counts"]),
+        "loss_accum": numpy_from_params(state["loss_accum"]),
+        "step": np.asarray(state["step"], np.int32),
+    }
+    if "ef" in state:
+        out["ef"] = _stack_clouds(state["ef"])
+    return out

@@ -1,7 +1,9 @@
-"""Model architecture config: the port's own copy of the reference
-``ModelConfig`` (same fields, same defaults, same derived quantities), so
-the two packages agree on every shape without the port importing the
-reference."""
+"""Configs: the port's own copies of the reference ``ModelConfig`` (same
+fields, same defaults, same derived quantities), ``FederatedConfig`` and
+``TrainConfig``, so the two packages agree on every shape and knob without
+the port importing the reference. The federated and training configs leave
+out the fields of parts the port does not have yet (``wire_int8``,
+``secure_agg``, the checkpoint and eval cadences)."""
 from __future__ import annotations
 
 import dataclasses
@@ -105,3 +107,42 @@ class ModelConfig:
         emb = self.vocab_size * d
         unemb = 0 if self.tie_embeddings else self.vocab_size * d
         return total + emb + unemb + d
+
+
+@dataclasses.dataclass(frozen=True)
+class FederatedConfig:
+    """The paper's knobs (§3.1-§3.3)."""
+    n_clouds: int = 3
+    local_steps: int = 4                  # H local steps between sync rounds (§3.2)
+    aggregation: str = "fedavg"           # fedavg | dynamic | gradient | async
+    # dynamic weighting temperature for softmax(-L_i/τ) (formula 2; τ=1 in paper)
+    dynamic_temp: float = 1.0
+    async_alpha: float = 0.5              # α in formula 4
+    # sample counts per cloud (n_i in formula 1); None → uniform
+    cloud_sample_counts: tuple[int, ...] | None = None
+    # --- §3.2 communication optimization ---
+    compression: str = "none"             # none | topk | int8 | topk+int8
+    topk_ratio: float = 0.01              # keep-fraction for top-k sparsification
+    error_feedback: bool = True
+    # --- privacy (§3.1 "Ensure Data Security") ---
+    dp_clip: float = 0.0                  # 0 disables DP
+    dp_noise_mult: float = 0.0
+    # --- outer optimizer applied to the aggregated delta (beyond-paper) ---
+    outer_optimizer: str = "none"         # none | sgd | nesterov
+    outer_lr: float = 1.0
+    outer_momentum: float = 0.9
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 256
+    global_batch: int = 8
+    steps: int = 100
+    lr: float = 3e-4
+    warmup_steps: int = 20
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0

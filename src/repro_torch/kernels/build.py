@@ -23,7 +23,10 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("paged_decode", "flash_prefill", "flash_suffix_prefill")
+KERNELS = (
+    "paged_decode", "flash_prefill", "flash_suffix_prefill", "quantize", "topk_compress",
+    "dp_clip",
+)
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,21 +36,30 @@ FLAGS = (
 # last reset): the proof that a run went through the kernels.
 LAUNCHES: dict[str, int] = {
     "paged_decode": 0, "flash_prefill": 0, "suffix_prefill": 0,
+    "int8_roundtrip": 0, "topk_sparsify": 0, "sq_norm": 0, "clip_noise": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of every C entry point: pointers and the stream are c_void_p
 SIGNATURES = {
     "paged_decode": (P,) * 6 + (I,) * 8 + (F, P),
     "flash_prefill": (P,) * 4 + (I,) * 8 + (F, P),
     "suffix_prefill": (P,) * 8 + (I,) * 9 + (F, P),
+    "int8_roundtrip": (P, P, L, P),
+    "topk_sparsify": (P, P, L, I, P),
+    "sq_norm": (P, P, P, L, I, P),
+    "clip_noise": (P, P, P, P, L, F, I, P),
 }
 ENTRY = {
     "paged_decode": "paged_decode",
     "flash_prefill": "flash_prefill",
     "suffix_prefill": "flash_suffix_prefill",
+    "int8_roundtrip": "quantize",
+    "topk_sparsify": "topk_compress",
+    "sq_norm": "dp_clip",
+    "clip_noise": "dp_clip",
 }
 
 
@@ -60,7 +72,7 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> pathlib.Path:
     h = hashlib.sha256()
-    for path in (CSRC / f"{source}.cu", CSRC / "common.cuh"):
+    for path in (CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(path.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{source}-{h.hexdigest()[:16]}.so"
@@ -101,9 +113,11 @@ def _lib(name: str) -> ctypes.CDLL:
         if not so.exists():
             build_all((source,))
         lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for entry, src in ENTRY.items():
+            if src == source:
+                fn = getattr(lib, entry)
+                fn.argtypes = SIGNATURES[entry]
+                fn.restype = ctypes.c_int
         _LIBS[source] = lib
     return _LIBS[source]
 

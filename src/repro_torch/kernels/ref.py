@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the port's attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-One function per hand-written kernel on the serving path. Each computes the
+One function per hand-written kernel: the attention kernels of the serving
+path and the channel kernels of the federated uplink. Each computes the
 kernel's function the straightforward way, in fp32, and casts to q's dtype,
 as the reference package's oracles (``repro/kernels/ref.py``) do. They are
 what a wrapper runs for a CPU tensor, and what the kernels are held against
@@ -106,3 +107,61 @@ def suffix_prefill_ref(
     kv_pos = torch.cat([prefix_pos, qpos], dim=1)
     mask = qpos[:, None, None, :, None] >= kv_pos[:, None, None, None, :]
     return _attend(q, k, v, mask)
+
+
+# ------------------------------------------------- federated uplink channel
+BLOCK = 256
+
+
+def _blocks(x: torch.Tensor) -> torch.Tensor:
+    """x as fp32 (nb, 256) rows of its flat elements, the ragged last row
+    zero-padded."""
+    flat = x.reshape(-1).float()
+    pad = (-flat.numel()) % BLOCK
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, BLOCK)
+
+
+def _unblocks(rows: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return rows.reshape(-1)[: x.numel()].reshape(x.shape).to(x.dtype)
+
+
+def topk_sparsify_ref(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Per 256-element block of the flat tensor, keep |x| >= the k-th
+    largest magnitude (ties kept), zero the rest. Mirrors
+    ``topk_sparsify_ref`` on (nb, 256) rows."""
+    rows = _blocks(x)
+    mag = rows.abs()
+    kth = torch.topk(mag, k, dim=1).values[:, -1:]
+    return _unblocks(torch.where(mag >= kth, rows, torch.zeros_like(rows)), x)
+
+
+def int8_roundtrip_ref(x: torch.Tensor) -> torch.Tensor:
+    """Per 256-element block symmetric int8 quantize→dequantize. Mirrors
+    ``int8_roundtrip_ref``."""
+    rows = _blocks(x)
+    amax = rows.abs().amax(dim=1, keepdim=True)
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient
+    scale = (amax / amax.new_tensor(127.0)).clamp(min=1e-12)
+    q = torch.round(rows / scale).clamp(-127, 127)
+    return _unblocks(q * scale, x)
+
+
+def sq_norm_ref(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² over everything → () fp32. Mirrors ``sq_norm_ref``."""
+    return x.float().square().sum()
+
+
+def clip_noise_ref(
+    x: torch.Tensor, scale: torch.Tensor, noise: torch.Tensor | None = None,
+    stddev: float = 0.0,
+) -> torch.Tensor:
+    """x·scale + stddev·noise in fp32, cast to x's dtype (the fused DP
+    transmit transform); without noise, x·scale. Mirrors
+    ``clip_noise_ref``."""
+    y = x.float() * scale
+    if noise is not None:
+        y = y + stddev * noise
+    return y.to(x.dtype)

@@ -1,5 +1,6 @@
-"""GQA attention of the serving path: cold prefill, suffix prefill over a
-cached prefix, and decode over the shared paged KV pool.
+"""GQA attention: the training forward, and the serving path's cold
+prefill, suffix prefill over a cached prefix, and decode over the shared
+paged KV pool.
 
 Keys are stored rotated (RoPE at write time), so a read needs no position
 bookkeeping beyond the validity mask. The pool is one (P, page, Hkv, hd)
@@ -14,6 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages_ref
+from repro_torch.models.common import NEG_INF, default_q_chunk
 from repro_torch.models.layers import apply_rope
 
 
@@ -51,6 +53,34 @@ def attend_full(
     k, v = kv if kv is not None else compute_kv_for_prefill(params, x, positions, cfg)
     out = ops.flash_prefill_attention(_queries(params, x, positions, cfg), k, v, window=window)
     return out.reshape(b, s, -1) @ params["wo"]
+
+
+def attend_causal(
+    params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
+    window: int = 0,
+) -> torch.Tensor:
+    """Causal self-attention of the training forward, in plain PyTorch under
+    autograd: the reference's chunked jnp path (its training forward never
+    reaches a kernel, and its flash-prefill kernel has no backward). Scores
+    and softmax in fp32, probabilities cast to the value dtype for the PV
+    product; queries in chunks of ``default_q_chunk(S)``. x: (B, S, D)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = _queries(params, x, positions, cfg)                        # (B, S, Hkv, G, hd)
+    k, v = compute_kv_for_prefill(params, x, positions, cfg)       # (B, S, Hkv, hd)
+    chunk = default_q_chunk(s)
+    outs = []
+    for c0 in range(0, s, chunk):
+        qc, pc = q[:, c0:c0 + chunk], positions[:, c0:c0 + chunk]
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), k.float()) * (hd**-0.5)
+        mask = pc[:, None, None, :, None] >= positions[:, None, None, None, :]
+        if window > 0:
+            mask &= (pc[:, None, None, :, None] - positions[:, None, None, None, :]) < window
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, qc.shape[1], -1))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.to(x.dtype) @ params["wo"]
 
 
 def attend_suffix(

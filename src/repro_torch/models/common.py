@@ -36,3 +36,13 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def positions_for(tokens: torch.Tensor) -> torch.Tensor:
     b, s = tokens.shape[:2]
     return torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :].expand(b, s)
+
+
+def default_q_chunk(seq_len: int) -> int:
+    """Query-chunk size for blockwise attention: bound live score memory."""
+    if seq_len <= 2048:
+        return seq_len
+    for c in (1024, 512, 256):
+        if seq_len % c == 0:
+            return c
+    return seq_len

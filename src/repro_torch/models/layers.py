@@ -1,4 +1,5 @@
-"""Shared layers: RMS norm, rotary embedding, SwiGLU MLP, initializers.
+"""Shared layers: RMS norm, rotary embedding, SwiGLU MLP, the training loss,
+initializers.
 
 Plain functions on tensors with the reference package's conventions:
 parameters are dicts of tensors, layer math runs in the model dtype with
@@ -50,3 +51,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
     return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-mean cross entropy and top-1 accuracy. logits fp32 (B, S, V)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    acc = (logits.argmax(dim=-1) == labels.long()).float()
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / denom, (acc * mask).sum() / denom

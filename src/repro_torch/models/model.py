@@ -1,6 +1,6 @@
 """Model API of the port: ``build_model(cfg)`` returns a ``ModelAPI`` whose
 members close over the config — the dense-transformer part of the
-reference's ``ModelAPI`` that the serving engine uses."""
+reference's ``ModelAPI`` that the trainer and the serving engine use."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +15,10 @@ class ModelAPI:
     cfg: ModelConfig
     # init(generator, device) -> params
     init: Callable[..., dict]
+    # loss(params, batch {"tokens", "labels"} (B, S)) -> (loss, metrics)
+    loss: Callable[..., tuple[Any, dict]]
+    # forward(params, batch) -> logits fp32 (B, S, Vp)
+    forward: Callable[..., Any]
     # decode(params, cache, tokens (B, 1), window=) -> (cache, logits (B, Vp))
     decode: Callable[..., tuple[dict, Any]]
     # prefill_slots(params, cache, tokens (n, S), lengths (n,), slots (n,),
@@ -37,6 +41,12 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
     def init(generator, device):
         return transformer.init_params(cfg, generator, device)
 
+    def loss(params, batch):
+        return transformer.loss_fn(cfg, params, batch, window=cfg.window)
+
+    def forward(params, batch):
+        return transformer.forward(cfg, params, batch["tokens"], window=cfg.window)[0]
+
     def decode(params, cache, tokens, *, window=0):
         return transformer.decode_step(cfg, params, cache, tokens, window=window)
 
@@ -54,4 +64,4 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             kv_dtype=kv_dtype,
         )
 
-    return ModelAPI(cfg, init, decode, prefill_slots, init_paged_cache)
+    return ModelAPI(cfg, init, loss, forward, decode, prefill_slots, init_paged_cache)

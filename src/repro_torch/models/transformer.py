@@ -1,5 +1,6 @@
-"""Dense decoder transformer of the serving path: parameters, the shared
-paged KV cache, batched prefill (cold and suffix) and one decode step.
+"""Dense decoder transformer: parameters, the training forward and loss,
+the shared paged KV cache, batched prefill (cold and suffix) and one decode
+step.
 
 Parameters are the reference package's pytree as a dict of tensors with the
 same leaf paths, per-layer leaves stacked on a leading L axis; the layer
@@ -8,11 +9,14 @@ reference donated it through ``jit``) and returned."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import embed_tokens, lm_logits, padded_vocab, positions_for
-from repro_torch.models.layers import apply_mlp, embed_init, he_init, rms_norm
+from repro_torch.models.layers import (
+    apply_mlp, cross_entropy_loss, embed_init, he_init, rms_norm,
+)
 
 LAYER_LEAVES = ("ln1", "attn", "ln2", "ffn")
 
@@ -59,6 +63,41 @@ def layer_params(params: dict, i: int) -> dict:
         name: {leaf: t[i] for leaf, t in params["layers"][name].items()}
         for name in LAYER_LEAVES
     }
+
+
+def _train_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor,
+                 window: int) -> torch.Tensor:
+    a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
+    h = h + attn.attend_causal(lp["attn"], a, positions, cfg, window=window)
+    return _mlp_residual(cfg, lp, h)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: tokens (B, S) → (logits fp32 (B, S, Vp), aux loss
+    (0 for the dense FFN)). With ``cfg.remat`` each layer is recomputed in
+    the backward pass (``torch.utils.checkpoint``), as the reference's
+    ``scan_layers`` does with ``jax.checkpoint``."""
+    h = embed_tokens(params["embed"], tokens)
+    pos = positions_for(tokens)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        if cfg.remat and torch.is_grad_enabled():
+            h = checkpoint(_train_layer, cfg, lp, h, pos, window, use_reentrant=False)
+        else:
+            h = _train_layer(cfg, lp, h, pos, window)
+    h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
+    return lm_logits(params["embed"], h, cfg), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            window: int = 0) -> tuple[torch.Tensor, dict]:
+    """(total loss, {"loss", "accuracy", "aux_loss"}) of a batch
+    {"tokens", "labels"[, "mask"]} (B, S)."""
+    logits, aux = forward(cfg, params, batch["tokens"], window=window)
+    loss, acc = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"loss": loss, "accuracy": acc, "aux_loss": aux}
 
 
 def init_paged_cache(

@@ -1,4 +1,4 @@
-"""The port's attention kernels: plain versions against the reference.
+"""The port's kernels: plain versions against the reference.
 
 Each plain version (``repro_torch.kernels.ref``) is held against the
 reference package's oracle (``repro.kernels.ref``) and against its Pallas
@@ -178,7 +178,14 @@ def test_cpu_tensors_take_the_plain_versions_without_a_launch():
     q, kp, vp, pos, table = (_to_torch(a, np.float32) for a in _decode_inputs(8, 2, 1, 32))
     out = ops.paged_decode_attention(q, kp, vp, pos, table)
     torch.testing.assert_close(out, ref.paged_decode_ref(q, kp, vp, pos, table), rtol=0, atol=0)
-    assert ops.LAUNCHES == {"paged_decode": 0, "flash_prefill": 0, "suffix_prefill": 0}
+    x = torch.randn(700)
+    torch.testing.assert_close(ops.topk_sparsify_leaf(x, 0.01), ref.topk_sparsify_ref(x, 3))
+    torch.testing.assert_close(ops.int8_roundtrip_leaf(x), ref.int8_roundtrip_ref(x))
+    torch.testing.assert_close(ops.tree_sq_norm({"a": x}), ref.sq_norm_ref(x))
+    torch.testing.assert_close(ops.clip_noise(x, 0.5), ref.clip_noise_ref(x, torch.tensor(0.5)))
+    assert set(ops.LAUNCHES) == {"paged_decode", "flash_prefill", "suffix_prefill",
+                                 "int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise"}
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -196,6 +203,117 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_prefill(x, kv, kv)
     with pytest.raises(ValueError, match="CUDA"):
         suffix_prefill(x, kv, kv, kp, vp, table[:1], pos[:1], prefix_width=1)
+    from repro_torch.kernels.dp_clip import clip_noise, sq_norm
+    from repro_torch.kernels.quantize import int8_roundtrip
+    from repro_torch.kernels.topk_compress import topk_sparsify
+
+    flat = torch.zeros(300)
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_sparsify(flat, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_roundtrip(flat)
+    with pytest.raises(ValueError, match="CUDA"):
+        sq_norm(flat)
+    with pytest.raises(ValueError, match="CUDA"):
+        clip_noise(flat, torch.ones(()), flat, 0.1)
+
+
+# ------------------------------------------------- federated uplink channel
+# Leaf sizes: one whole 2048-element tile of the reference's layout, and two
+# ragged ones (the reference pads them with zeros; the port's kernels mask
+# the tail). The plain versions do the reference's fp32 operations in the
+# same order, so top-k, int8 and the clip are held bitwise; the norm is a
+# sum taken in another order: 1e-6 relative. With noise, XLA's CPU compiler
+# contracts x·scale + (σ·noise) into one FMA where the port (kernel and
+# plain version alike) rounds the product first: within one ulp of x·scale
+# plus one of the result.
+CHANNEL_SIZES = (2048, 1000, 300)
+
+
+def _channel_input(n, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * scale).astype(np.float32)
+    x[5:9] = x[4]                    # ties
+    x[256:300] = 0.0                 # a run of zeros (a whole block at n >= 512)
+    if n > 768:
+        x[512:768] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("n", CHANNEL_SIZES)
+@pytest.mark.parametrize("k", [1, 3, 26, 256])
+def test_topk_plain_matches_reference_and_pallas(n, k):
+    from repro.core.compression import topk_block_sparsify
+    from repro.kernels import ops as jops
+
+    x = _channel_input(n, k)
+    got = ops.topk_sparsify_leaf(torch.from_numpy(x), k / 256).numpy()
+    for use_kernel in (False, True):
+        want = jops.topk_sparsify_leaf(_to_jax(x, np.float32), k / 256,
+                                       use_kernel=use_kernel, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, np.asarray(topk_block_sparsify(_to_jax(x, np.float32),
+                                                                      k / 256)))
+
+
+@pytest.mark.parametrize("n", CHANNEL_SIZES)
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_int8_roundtrip_plain_matches_reference_and_pallas(n, scale):
+    from repro.core.compression import int8_roundtrip
+    from repro.kernels import ops as jops
+
+    x = _channel_input(n, 3, scale)
+    got = ops.int8_roundtrip_leaf(torch.from_numpy(x)).numpy()
+    for use_kernel in (False, True):
+        want = jops.int8_roundtrip_leaf(_to_jax(x, np.float32), use_kernel=use_kernel,
+                                        interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, np.asarray(int8_roundtrip(_to_jax(x, np.float32))))
+
+
+@pytest.mark.parametrize("n", CHANNEL_SIZES)
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_sq_norm_plain_matches_reference_and_pallas(n, dtype):
+    from repro.kernels import ops as jops
+
+    tree = {"a": _channel_input(n, 4), "b": _channel_input(n + 17, 5, 0.1)}
+    got = ops.tree_sq_norm({k: _to_torch(v, dtype) for k, v in tree.items()}).item()
+    for use_kernel in (False, True):
+        want = float(jops.tree_sq_norm({k: _to_jax(v, dtype) for k, v in tree.items()},
+                                       use_kernel=use_kernel, interpret=True))
+        assert got == pytest.approx(want, rel=1e-6, abs=0)
+
+
+@pytest.mark.parametrize("n", CHANNEL_SIZES)
+@pytest.mark.parametrize("stddev", [0.0, 0.3])
+def test_clip_noise_plain_matches_reference_and_pallas(n, stddev):
+    from repro.kernels import dp_clip as jdp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+
+    x = _channel_input(n, 6)
+    noise = np.random.default_rng(7).standard_normal(n).astype(np.float32)
+    scale = np.float32(0.37)
+    got = ops.clip_noise(torch.from_numpy(x), torch.tensor(scale), torch.from_numpy(noise),
+                         stddev).numpy()
+    tiles, _ = jops._to_tiles(_to_jax(x, np.float32))
+    ntiles, _ = jops._to_tiles(_to_jax(noise, np.float32))
+    for fn in (lambda *a: jdp.clip_noise(*a, interpret=True), jref.clip_noise_ref):
+        want = np.asarray(fn(tiles, jnp_f32(scale), ntiles, stddev)).ravel()[:n]
+        if stddev == 0.0:
+            np.testing.assert_array_equal(got, want)
+        else:  # XLA's CPU compiler fuses x·scale + (σ·noise) into one FMA
+            ulp = np.spacing(np.abs(x * scale)) + np.spacing(np.abs(want))
+            assert np.all(np.abs(got - want) <= ulp)
+    if stddev == 0.0:      # the clip alone reads no noise: x·scale, as privacy.clip_update
+        clip = ops.clip_noise(torch.from_numpy(x), torch.tensor(scale)).numpy()
+        np.testing.assert_array_equal(clip, np.asarray(_to_jax(x, np.float32) * scale))
+
+
+def jnp_f32(v):
+    import jax.numpy as jnp
+
+    return jnp.float32(v)
 
 
 # ---------------------------------------------------------------- card
@@ -251,3 +369,41 @@ def test_launch_counters_count_kernel_launches_cuda(sm90):
                                    torch.randn(4, 16, 2, 48, device="cuda"),
                                    torch.randn(4, 16, 2, 48, device="cuda"), pos, table)
     assert ops.LAUNCHES["paged_decode"] == 2
+
+
+@pytest.mark.parametrize("n", [300, 2048 * 5 + 3, 1 << 20])
+def test_channel_kernels_match_plain_versions_cuda(sm90, n):
+    """The four channel kernels against their plain versions on the card:
+    top-k, int8 and clip/noise bitwise, the norm within 1e-6 relative."""
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=gen)
+    x[5:9] = x[4]
+    x = x.cuda()
+    for k in (1, 3, 26, 256):
+        assert torch.equal(ops.topk_sparsify_leaf(x, k / 256), ref.topk_sparsify_ref(x, k))
+    for scale in (1e-3, 1.0, 1e3):
+        assert torch.equal(ops.int8_roundtrip_leaf(x * scale), ref.int8_roundtrip_ref(x * scale))
+    noise = torch.randn(n, generator=gen).cuda()
+    s = torch.tensor(0.37, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        want = ref.sq_norm_ref(xd).item()
+        assert ops.sq_norm(xd).item() == pytest.approx(want, rel=1e-6, abs=0)
+        assert torch.equal(ops.clip_noise(xd, s, noise, 0.3), ref.clip_noise_ref(xd, s, noise, 0.3))
+        assert torch.equal(ops.clip_noise(xd, s), ref.clip_noise_ref(xd, s))
+
+
+def test_channel_launch_counters_cuda(sm90):
+    build.reset_launches()
+    x = torch.randn(5000, device="cuda")
+    ops.topk_sparsify_leaf(x, 0.01)
+    ops.int8_roundtrip_leaf(x)
+    ops.tree_sq_norm({"a": x, "b": x})
+    ops.clip_noise(x, 0.5)
+    assert {k: ops.LAUNCHES[k] for k in ("topk_sparsify", "int8_roundtrip", "sq_norm",
+                                         "clip_noise")} == {
+        "topk_sparsify": 1, "int8_roundtrip": 1, "sq_norm": 2, "clip_noise": 1}
+    with pytest.raises(TypeError, match="float32"):
+        from repro_torch.kernels.topk_compress import topk_sparsify
+
+        topk_sparsify(x.bfloat16(), 3)
