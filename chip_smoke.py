@@ -19,9 +19,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    over the same K/V, gathered up to each row's live span — a yardstick
    only, the port never calls it) as device time from the profiler's
    kernel rows, and the wrapper's wall time per call;
+3b. int8 kernels: the int8-pool decode and suffix kernels at the same
+   shapes over int8 pools, within the tolerance of their plain versions
+   AND bitwise equal to the fp kernels over the dequantized pool; planted
+   faults (a scale read from the wrong token slot; the pool dequantized
+   without rounding to q's dtype where that moves the output beyond the
+   tolerance, else every scale read from the wrong kv head; the last live
+   page dropped) must land outside it. ``int8_encode`` bitwise equal to its
+   plain version (q and scale) at the pool writes (rows of 64: a decode
+   step's, and the int8 main path's suffix round's) and at the
+   embedding leaf (205,520,896 elements, rows of 256), with a planted fault
+   (divisor 128). Times as in 3; the library call is
+   ``scaled_dot_product_attention`` over the K/V dequantized beforehand;
 4. golden: the port's engine replays the reference engine's float32 greedy
    trace (``src/repro_torch/testdata/golden_stablelm_smoke.json``) and must
    reproduce its tokens exactly;
+4b. golden int8: the same for the reference's int8 + host-tier trace
+   (``golden_stablelm_smoke_int8_swap.json``: int8 pages, prefix cache, a
+   pool that preempts, a host tier that swaps and demotes/promotes); tokens
+   and the counters (preemptions, pages swapped out and in, pages demoted,
+   promote hits, prefill tokens, CoW copies) must be the reference's;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -29,6 +46,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    rate > 0 and that every kernel launched; re-runs a cold round, a decode
    step and a suffix round through the plain versions (and through the
    planted faults) from the kernel run's cache and compares logits;
+5b. int8 main path: the same model over an int8 pool with a host tier; 8
+   cold prompts of 256-384 tokens x 64 tokens in a pool tight enough that
+   slots are preempted and swapped out, then 8 shared-prefix prompts x 32
+   tokens. Checks every request's budget, swapped-in == swapped-out pages
+   > 0, no re-prefill of a swapped slot (prefill tokens == lookup tokens -
+   hit tokens), more prefill without the tier, no swap entry left on the
+   tier, cold and suffix dispatches, every int8 kernel launched, and
+   kernel-vs-plain logits on an int8 cache (with planted faults). Prints,
+   without a gate, a second tier / no-tier pair (alternating with the
+   first), the same trace over an ample int8 pool and an fp pool (token
+   agreement, pool bytes per token, resident sequences at equal bytes),
+   each run's throughput/TTFT/latency, and the int8 decode step's host
+   wall, device time, launches and idle share. The kernels line's
+   ``int8_encode`` row is the decode step's pool write (256 rows of 64),
+   the shape of almost all its launches;
 6. channel kernels: top-k, int8, the DP norm and clip/noise against their
    plain versions on the card at the training path's leaves (the embedding,
    100352 x 2048, and one stacked MLP leaf, 24 x 2048 x 5632, fp32, k = 3):
@@ -42,12 +74,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    one sync round from a copy of the trained state through the kernels and
    through the plain versions (and a planted fault) with the same noise
    seed, whose new global parameters must agree;
-8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+8. a ``{"kernels": [...]}`` line (ten kernels: launches from the fp main
+   path, the int8 main path and the training run), then
+   ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -78,6 +113,9 @@ REPLACES = {
     "paged_decode": "src/repro/kernels/paged_decode.py:208",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:106",
     "suffix_prefill": "src/repro/kernels/flash_suffix_prefill.py:152",
+    "paged_decode_int8": "src/repro/kernels/paged_decode.py:208",
+    "suffix_prefill_int8": "src/repro/kernels/flash_suffix_prefill.py:152",
+    "int8_encode": "src/repro/kernels/quantize.py:74",
     "int8_roundtrip": "src/repro/kernels/quantize.py:96",
     "topk_sparsify": "src/repro/kernels/topk_compress.py:50",
     "sq_norm": "src/repro/kernels/dp_clip.py:36",
@@ -87,12 +125,18 @@ SOURCES = {
     "paged_decode": "src/repro_torch/csrc/paged_decode.cu",
     "flash_prefill": "src/repro_torch/csrc/flash_prefill.cu",
     "suffix_prefill": "src/repro_torch/csrc/flash_suffix_prefill.cu",
+    "paged_decode_int8": "src/repro_torch/csrc/paged_decode.cu",
+    "suffix_prefill_int8": "src/repro_torch/csrc/flash_suffix_prefill.cu",
+    "int8_encode": "src/repro_torch/csrc/quantize.cu",
     "int8_roundtrip": "src/repro_torch/csrc/quantize.cu",
     "topk_sparsify": "src/repro_torch/csrc/topk_compress.cu",
     "sq_norm": "src/repro_torch/csrc/dp_clip.cu",
     "clip_noise": "src/repro_torch/csrc/dp_clip.cu",
 }
 SERVING = ("paged_decode", "flash_prefill", "suffix_prefill")
+# the int8 serving path: cold prefill attends fp k/v (flash_prefill), every
+# pool write is quantized (int8_encode), decode and suffix read int8 pages
+SERVING_INT8 = ("flash_prefill", "paged_decode_int8", "suffix_prefill_int8", "int8_encode")
 CHANNEL = ("int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise")
 FP32_FLOPS = 67e12             # H100 SXM fp32 peak outside the tensor cores
 # The DP norm, kernel vs plain: both sum in fp32 in other orders (two fixed
@@ -158,21 +202,59 @@ def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
     return dev / iters / 1e3, wall
 
 
+# The plain versions behind the ops entry points, fp or int8 pools by
+# whether scales are given.
+def _plain_decode(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None):
+    from repro_torch.kernels import ref
+
+    if k_scale is None:
+        return ref.paged_decode_ref(q, kp, vp, pos, table, window)
+    return ref.paged_decode_int8_ref(q, kp, vp, k_scale, v_scale, pos, table, window)
+
+
+def _plain_suffix(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_scale=None,
+                  pool_v_scale=None):
+    from repro_torch.kernels import ref
+
+    if pool_k_scale is None:
+        return ref.suffix_prefill_ref(q, ks, vs, pk, pv, table, starts,
+                                      prefix_width=prefix_width)
+    return ref.suffix_prefill_int8_ref(q, ks, vs, pk, pv, pool_k_scale, pool_v_scale, table,
+                                       starts, prefix_width=prefix_width)
+
+
 # Planted faults: the plain versions with one deliberate error each, which
 # the kernel-vs-plain comparisons must tell from the sound plain versions.
-def _decode_shift(q, kp, vp, pos, table, window=0):
+def _decode_shift(q, kp, vp, pos, table, window=0, **scales):
     """Mask shifted by one: the newest key (at ``pos``) is left out."""
-    from repro_torch.kernels import ref
-
-    return ref.paged_decode_ref(q, kp, vp, pos - 1, table, window)
+    return _plain_decode(q, kp, vp, pos - 1, table, window, **scales)
 
 
-def _decode_drop_page(q, kp, vp, pos, table, window=0):
+def _decode_drop_page(q, kp, vp, pos, table, window=0, **scales):
     """The row's last live page (the one holding ``pos``) is left out."""
+    page = kp.shape[1]
+    return _plain_decode(q, kp, vp, pos // page * page - 1, table, window, **scales)
+
+
+def _decode_scale_slot(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None):
+    """int8: every key's scale read from the next token slot of its page."""
+    return _plain_decode(q, kp, vp, pos, table, window, k_scale.roll(1, dims=1),
+                         v_scale.roll(1, dims=1))
+
+
+def _decode_scale_head(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None):
+    """int8: every key's scale read from the next kv head."""
+    return _plain_decode(q, kp, vp, pos, table, window, k_scale.roll(1, dims=2),
+                         v_scale.roll(1, dims=2))
+
+
+def _decode_no_round(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None):
+    """int8: the pool dequantized in f32 and not rounded to q's dtype."""
     from repro_torch.kernels import ref
 
-    page = kp.shape[1]
-    return ref.paged_decode_ref(q, kp, vp, pos // page * page - 1, table, window)
+    out = ref.paged_decode_ref(q.float(), ref.dequant_pool_ref(kp, k_scale),
+                               ref.dequant_pool_ref(vp, v_scale), pos, table, window)
+    return out.to(q.dtype)
 
 
 def _prefill_shift(q, k, v, *, window=0):
@@ -187,36 +269,63 @@ def _prefill_shift(q, k, v, *, window=0):
     return torch.cat([head, rest], 1)
 
 
-def _suffix_shift(q, ks, vs, pk, pv, table, starts, *, prefix_width):
+def _suffix_shift(q, ks, vs, pk, pv, table, starts, *, prefix_width, **scales):
     """The last cached prefix key is left out."""
-    from repro_torch.kernels import ref
-
-    return ref.suffix_prefill_ref(q, ks, vs, pk, pv, table, (starts - 1).clamp(min=0),
-                                  prefix_width=prefix_width)
+    return _plain_suffix(q, ks, vs, pk, pv, table, (starts - 1).clamp(min=0),
+                         prefix_width=prefix_width, **scales)
 
 
-def _suffix_drop_page(q, ks, vs, pk, pv, table, starts, *, prefix_width):
+def _suffix_drop_page(q, ks, vs, pk, pv, table, starts, *, prefix_width, **scales):
     """The last cached prefix page is left out."""
-    from repro_torch.kernels import ref
-
     page = pk.shape[1]
     cut = (starts - (starts - 1) % page - 1).clamp(min=0)
-    return ref.suffix_prefill_ref(q, ks, vs, pk, pv, table, cut, prefix_width=prefix_width)
+    return _plain_suffix(q, ks, vs, pk, pv, table, cut, prefix_width=prefix_width, **scales)
+
+
+def _suffix_scale_slot(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_scale,
+                       pool_v_scale):
+    """int8: every prefix key's scale read from the next token slot."""
+    return _plain_suffix(q, ks, vs, pk, pv, table, starts, prefix_width=prefix_width,
+                         pool_k_scale=pool_k_scale.roll(1, dims=1),
+                         pool_v_scale=pool_v_scale.roll(1, dims=1))
+
+
+def _suffix_scale_head(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_scale,
+                       pool_v_scale):
+    """int8: every prefix key's scale read from the next kv head."""
+    return _plain_suffix(q, ks, vs, pk, pv, table, starts, prefix_width=prefix_width,
+                         pool_k_scale=pool_k_scale.roll(1, dims=2),
+                         pool_v_scale=pool_v_scale.roll(1, dims=2))
+
+
+def _suffix_no_round(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_scale,
+                     pool_v_scale):
+    """int8: the prefix pool dequantized in f32 and not rounded to q's
+    dtype."""
+    from repro_torch.kernels import ref
+
+    out = ref.suffix_prefill_ref(q.float(), ks.float(), vs.float(),
+                                 ref.dequant_pool_ref(pk, pool_k_scale),
+                                 ref.dequant_pool_ref(pv, pool_v_scale), table, starts,
+                                 prefix_width=prefix_width)
+    return out.to(q.dtype)
 
 
 @contextlib.contextmanager
 def plain_kernels(**swap):
-    """Route the model's attention through the plain versions, on whatever
-    device the tensors are: the reference run of the logit comparison.
-    ``swap`` replaces some of them (``paged_decode=``, ``flash_prefill=``,
-    ``suffix_prefill=``), e.g. with a planted fault."""
+    """Route the model's attention (fp or int8 pools) and the int8 pool
+    writes through the plain versions, on whatever device the tensors are:
+    the reference run of the logit comparison. ``swap`` replaces some of
+    them (``paged_decode=``, ``flash_prefill=``, ``suffix_prefill=``,
+    ``kv_quant=``), e.g. with a planted fault."""
     from repro_torch.kernels import ops, ref
 
     names = {"paged_decode": "paged_decode_attention",
              "flash_prefill": "flash_prefill_attention",
-             "suffix_prefill": "suffix_prefill_attention"}
-    plain = {"paged_decode": ref.paged_decode_ref, "flash_prefill": ref.flash_prefill_ref,
-             "suffix_prefill": ref.suffix_prefill_ref, **swap}
+             "suffix_prefill": "suffix_prefill_attention",
+             "kv_quant": "kv_quant"}
+    plain = {"paged_decode": _plain_decode, "flash_prefill": ref.flash_prefill_ref,
+             "suffix_prefill": _plain_suffix, "kv_quant": ref.kv_quant_ref, **swap}
     saved = {k: getattr(ops, attr) for k, attr in names.items()}
     for k, attr in names.items():
         setattr(ops, attr, plain[k])
@@ -491,6 +600,219 @@ def phase_kernels(smi):
     return rows
 
 
+# ----------------------------------------------------------------- phase 3b
+def phase_kernels_int8(smi):
+    """The int8-pool decode and suffix kernels and the int8 encoder against
+    their plain versions, at the serving path's shapes, a GQA shape and in
+    float32. The attention kernels must also be BITWISE equal to the fp
+    kernels over the dequantized pool. Planted faults: a scale read from the
+    wrong token slot; the pool dequantized without rounding to q's dtype
+    (where that moves the output beyond the tolerance), else every scale
+    read from the wrong kv head; the last live page dropped."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(2)
+    rows = {}
+
+    def compare(name, dt, shape, out, plain, fp_kernel, faults):
+        dname = str(dt).split(".")[-1]
+        tol = RTOL[dname]
+        rms = plain.float().pow(2).mean().sqrt().item()
+        e = (out.float() - plain.float()).abs().max().item()
+        same = torch.equal(out, fp_kernel)
+        expect(e <= tol * rms, f"{name} {dname} {shape}: err/RMS {e / rms} > {tol}")
+        expect(same, f"{name} {dname} {shape}: not bitwise equal to the fp kernel over the "
+                     "dequantized pool")
+        msg = (f"[int8] {name} {dname} {shape}: max_abs_err {e:.3e}, err/RMS {e / rms:.3e} "
+               f"(tol {tol:g}); bitwise equal to the fp kernel over the dequantized pool: "
+               f"{same}")
+        for fname, fout, must in faults:
+            fe = (out.float() - fout.float()).abs().max().item()
+            hit = fe > tol * rms
+            msg += f"; planted fault '{fname}' err/RMS {fe / rms:.3e}"
+            if must:
+                expect(hit, f"{name} {dname}: planted fault '{fname}' within tolerance")
+            elif not hit:
+                msg += " (within tolerance: the wrong-kv-head fault stands in)"
+        log(msg)
+        return e
+
+    def faults_of(kind, args, kw):
+        """(name, output, must be caught) of each planted fault."""
+        plain_nr = (_decode_no_round if kind == "decode" else _suffix_no_round)(*args, **kw)
+        sound = (_plain_decode if kind == "decode" else _plain_suffix)(*args, **kw)
+        rms = sound.float().pow(2).mean().sqrt().item()
+        moved = (plain_nr.float() - sound.float()).abs().max().item()
+        out = [("scale from the next slot",
+                (_decode_scale_slot if kind == "decode" else _suffix_scale_slot)(*args, **kw),
+                True),
+               ("dequant not rounded to q's dtype", plain_nr, False)]
+        if moved <= RTOL[str(args[0].dtype).split(".")[-1]] * rms:
+            out.append(("scale from the next kv head",
+                        (_decode_scale_head if kind == "decode" else _suffix_scale_head)(
+                            *args, **kw), True))
+        out.append(("last live page dropped",
+                    (_decode_drop_page if kind == "decode" else _suffix_drop_page)(*args, **kw),
+                    True))
+        return out
+
+    shapes = [("path", torch.bfloat16, (8, 32, 1, 64), 16, 208, 209,
+               [100 + 40 * r for r in range(8)], 6),
+              ("gqa", torch.bfloat16, (4, 8, 4, 128), 16, 16, 64, [5, 77, 130, 200], 2),
+              ("f32", torch.float32, (3, 4, 2, 64), 16, 16, 64, [5, 77, 130], 2)]
+    for label, dt, (b, hkv, g, hd), page, t_w, num_pages, pos_list, shared in shapes:
+        q, kp, vp, pos, table = _decode_case(gen, dt, b, hkv, g, hd, page, t_w, num_pages,
+                                             pos_list, shared)
+        kq, ks = ref.kv_quant_ref(kp)
+        vq, vs = ref.kv_quant_ref(vp)
+        kd, vd = ref.dequant_pool_ref(kq, ks, dt), ref.dequant_pool_ref(vq, vs, dt)
+        del kp, vp
+        shape = f"B{b} Hkv{hkv} G{g} hd{hd} page{page}"
+        dargs, dkw = (q, kq, vq, pos, table), dict(k_scale=ks, v_scale=vs)
+        out = ops.paged_decode_attention(*dargs, **dkw)
+        e_dec = compare("paged_decode_int8", dt, shape, out, _plain_decode(*dargs, **dkw),
+                        ops.paged_decode_attention(q, kd, vd, pos, table),
+                        faults_of("decode", dargs, dkw))
+        # suffix rows: 64-token suffixes (100 in the GQA and f32 cases)
+        # behind the cached prefix of the first live pages
+        n, s_suf = b, (64 if label == "path" else 100)
+        start = 256 if label == "path" else 48
+        w_pfx = -(-start // page)
+        live = [w_pfx + 1] * n
+        stable = _table(gen, live, t_w, num_pages, shared=w_pfx).to(DEVICE)
+        starts = torch.full((n,), start, dtype=torch.int32, device=DEVICE)
+        if label != "path":
+            starts[0] = 0                 # a row with no cached prefix
+        q5 = torch.randn(n, s_suf, hkv, g, hd, generator=gen).to(DEVICE, dt)
+        ksf = torch.randn(n, s_suf, hkv, hd, generator=gen).to(DEVICE, dt)
+        vsf = torch.randn(n, s_suf, hkv, hd, generator=gen).to(DEVICE, dt)
+        sargs = (q5, ksf, vsf, kq, vq, stable, starts)
+        skw = dict(prefix_width=w_pfx, pool_k_scale=ks, pool_v_scale=vs)
+        sshape = f"n{n} S{s_suf} start{start} W{w_pfx} Hkv{hkv} G{g} hd{hd}"
+        out = ops.suffix_prefill_attention(*sargs, **skw)
+        e_suf = compare("suffix_prefill_int8", dt, sshape, out, _plain_suffix(*sargs, **skw),
+                        ops.suffix_prefill_attention(q5, ksf, vsf, kd, vd, stable, starts,
+                                                     prefix_width=w_pfx),
+                        faults_of("suffix", sargs, skw))
+        if label != "path":
+            rows["paged_decode_int8"]["max_abs_err"] = max(
+                rows["paged_decode_int8"]["max_abs_err"], e_dec)
+            rows["suffix_prefill_int8"]["max_abs_err"] = max(
+                rows["suffix_prefill_int8"]["max_abs_err"], e_suf)
+            continue
+        # times at the path shape. Library call: scaled_dot_product_attention
+        # over the gathered K/V dequantized beforehand (a yardstick with the
+        # dequantization left out; the port never calls it)
+        elem = 2
+        live_d = [-(-(p + 1) // page) for p in pos_list]
+        kg = ref.gather_pages_ref(kd, table[:, : max(live_d)]).transpose(1, 2)
+        vg = ref.gather_pages_ref(vd, table[:, : max(live_d)]).transpose(1, 2)
+        mask = torch.arange(max(live_d) * page, device=DEVICE)[None, :] <= pos[:, None].long()
+        qs = q.reshape(b, hkv, 1, hd)
+        spans = [p + 1 for p in pos_list]
+        uniq = _unique_tokens(table, spans, page)
+        ms, wall = timed_ms(lambda: ops.paged_decode_attention(*dargs, **dkw))
+        rows["paged_decode_int8"] = dict(
+            max_abs_err=e_dec, ms=ms, wrapper_ms=wall,
+            plain_ms=timed_ms(lambda: _plain_decode(*dargs, **dkw))[0],
+            library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+                qs, kg, vg, attn_mask=mask[:, None, None, :]))[0],
+            # q and out; each distinct live slot's int8 K and V rows (1 B per
+            # element) and their f32 scales once; pos and live table entries
+            bytes=2 * b * hkv * hd * elem + 2 * uniq * hkv * (hd + 4) + 4 * (b + sum(live_d)),
+            flops=4 * sum(spans) * hkv * hd,
+        )
+        kc = torch.cat([ref.gather_pages_ref(kd, stable[:, :w_pfx]), ksf], 1).transpose(1, 2)
+        vc = torch.cat([ref.gather_pages_ref(vd, stable[:, :w_pfx]), vsf], 1).transpose(1, 2)
+        kpos = torch.arange(start + s_suf, device=DEVICE)
+        smask = kpos[None, :] <= start + torch.arange(s_suf, device=DEVICE)[:, None]
+        qt = q5.reshape(n, s_suf, hkv, hd).transpose(1, 2)
+        suniq = _unique_tokens(stable, [start] * n, page)
+        ms, wall = timed_ms(lambda: ops.suffix_prefill_attention(*sargs, **skw))
+        rows["suffix_prefill_int8"] = dict(
+            max_abs_err=e_suf, ms=ms, wrapper_ms=wall,
+            plain_ms=timed_ms(lambda: _plain_suffix(*sargs, **skw))[0],
+            library_ms=timed_ms(lambda: F.scaled_dot_product_attention(qt, kc, vc,
+                                                                       attn_mask=smask))[0],
+            # q, suffix k/v and out per row; each distinct prefix slot's int8
+            # K and V rows and scales once; starts and the prefix table entries
+            bytes=4 * n * s_suf * hkv * hd * elem + 2 * suniq * hkv * (hd + 4)
+            + 4 * n * (1 + w_pfx),
+            flops=4 * n * hkv * hd * (s_suf * start + s_suf * (s_suf + 1) // 2),
+        )
+        del kg, vg, kc, vc
+
+    # --- int8_encode: the pool writes (a decode step: 8 slots x 32 kv heads;
+    # the int8 main path's suffix round: its hit prompts' suffix tokens x 32
+    # kv heads; rows of hd 64, bf16) and the embedding leaf in rows of 256
+    # (fp32), against the plain version, with a planted fault (the scale
+    # divided by 128)
+    def enc_fault(x, r):
+        xf = x.reshape(-1, r).float()
+        amax = xf.abs().amax(dim=1)
+        sc = (amax / amax.new_tensor(128.0)).clamp(min=1e-12)
+        return torch.round(xf / sc[:, None]).clamp(-127, 127).to(torch.int8), sc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quantize import int8_encode
+
+    scfg = get_config("stablelm-1.6b")
+    _, hit_reqs = _int8_path_requests(scfg.vocab_size)
+    suf_rows = sum(len(r.prompt) - 256 for r in hit_reqs) * scfg.n_kv_heads
+    cases = [("decode write 256x64 bf16", torch.randn(8 * 32, 64, generator=gen), 64,
+              torch.bfloat16),
+             (f"suffix write {suf_rows}x64 bf16", torch.randn(suf_rows, 64, generator=gen), 64,
+              torch.bfloat16),
+             ("embedding leaf 802816x256 fp32", None, 256, torch.float32)]
+    enc_rows = {}
+    for what, x, r, dt in cases:
+        if x is None:
+            x = torch.randn(100352 * 2048, generator=torch.Generator(device=DEVICE).manual_seed(4),
+                            device=DEVICE) * 1e-3
+        x = x.to(DEVICE, dt)
+        got = int8_encode(x, r)
+        want = ref.int8_encode_ref(x.reshape(-1, r))
+        fq, fs = enc_fault(x, r)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        caught = not (torch.equal(got[0], fq) and torch.equal(got[1], fs))
+        expect(same, f"int8_encode {what}: kernel differs from the plain version")
+        expect(caught, f"int8_encode {what}: planted fault 'divisor 128' not caught")
+        e = max((got[0].int() - want[0].int()).abs().max().item(),
+                (got[1] - want[1]).abs().max().item())
+        log(f"[int8] int8_encode {what}: q and scale bitwise equal {same}, max_abs_err {e:.3e}; "
+            f"planted fault 'divisor 128' differs: {caught}")
+        n_el = x.numel()
+        ms, wall = timed_ms(lambda: int8_encode(x, r))
+        enc_rows[what] = dict(
+            max_abs_err=e, ms=ms, wrapper_ms=wall,
+            plain_ms=timed_ms(lambda: ref.int8_encode_ref(x.reshape(-1, r)), iters=5)[0],
+            library_ms=None,
+            # x read once, q and one f32 scale per row written once
+            bytes=n_el * x.element_size() + n_el + 4 * (n_el // r),
+            flops=3 * n_el,
+        )
+        del x, got, want, fq, fs
+    torch.cuda.empty_cache()
+    for what, r in [*((k, rows[k]) for k in ("paged_decode_int8", "suffix_prefill_int8")),
+                    *(("int8_encode " + k, v) for k, v in enc_rows.items())]:
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / (FP32_FLOPS if what.startswith("int8_encode") else BF16_FLOPS) * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"[int8] {what} ({smi}): kernel device ms {r['ms']:.4f} (wrapper wall "
+            f"{r['wrapper_ms']:.4f}) plain_ms {r['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}: {r['bytes'] / 1e6:.3f} MB)")
+    # the kernels line carries the decode step's pool write, the shape of
+    # almost every main-path launch; the other two shapes are logged above
+    rows["int8_encode"] = dict(enc_rows["decode write 256x64 bf16"], max_abs_err=max(
+        r["max_abs_err"] for r in enc_rows.values()))
+    return rows
+
+
 # ------------------------------------------------------------------ phase 4
 def phase_golden():
     import torch
@@ -518,6 +840,46 @@ def phase_golden():
         f"engine's; kernel launches {launched}")
 
 
+# ----------------------------------------------------------------- phase 4b
+GOLDEN_INT8_COUNTERS = ("preemptions", "swapped_out_pages", "swapped_in_pages",
+                        "host_demoted_pages", "host_promote_hits", "prefill_tokens",
+                        "cow_copies")
+
+
+def phase_golden_int8():
+    """The reference engine's float32 int8 + host-tier trace: tokens and
+    every counter must be reproduced exactly."""
+    import torch
+
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models.model import build_model
+
+    g = json.loads((ROOT / "src/repro_torch/testdata/golden_stablelm_smoke_int8_swap.json")
+                   .read_text())
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), dtype="float32")
+    params = params_from_numpy(numpy_params(cfg, g["seed"]), cfg, DEVICE)
+    eng = ServeEngine(build_model(cfg), params, device=DEVICE, **g["engine"])
+    before = dict(ops.LAUNCHES)
+    outs = eng.run([Request(uid=u, prompt=p, max_new_tokens=g["max_new_tokens"])
+                    for u, p in enumerate(g["prompts"])])
+    torch.cuda.synchronize()
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in SERVING_INT8}
+    got = [o.tokens for o in outs]
+    counters = {k: eng.pool_stats[k] for k in g["counters"]}
+    check(got == g["tokens"], f"golden int8 tokens differ from the reference:\n{got}\n"
+                              f"{g['tokens']}")
+    check(counters == g["counters"], f"golden int8 counters differ from the reference: "
+                                     f"{counters} vs {g['counters']}")
+    check(all(g["counters"][k] > 0 for k in GOLDEN_INT8_COUNTERS),
+          f"the golden int8 trace leaves a counter at 0: {g['counters']}")
+    check(all(v > 0 for v in launched.values()), f"golden int8 run missed a kernel: {launched}")
+    log(f"[golden-int8] {len(got)} requests, fp32 int8 + host-tier greedy tokens identical to "
+        f"the reference engine's, counters equal {counters}; kernel launches {launched}")
+
+
 # ------------------------------------------------------------------ phase 5
 def _main_path_requests(vocab):
     from repro_torch.launch.engine import Request
@@ -536,18 +898,19 @@ def _main_path_requests(vocab):
     return cold, hits
 
 
-def _logit_parity(model, params, cfg, cold, hits):
+def _logit_parity(model, params, cfg, cold, hits, kv_dtype="fp"):
     """A cold round over the 8 cold prompts, one decode step and a suffix
-    round over the 8 shared-prefix prompts, on the card. Each stage runs
-    through the kernels, then from a copy of the same cache through the
-    plain versions and through each planted fault of its kernel."""
+    round over the 8 shared-prefix prompts, on the card, over an fp or an
+    int8 pool. Each stage runs through the kernels, then from a copy of the
+    same cache through the plain versions and through each planted fault of
+    its kernel."""
     import torch
 
     from repro_torch.launch.engine import bucket_length, bucket_pages
 
     page, n = 16, 8
     width = 2 * 26 * n + 1
-    cache = model.init_paged_cache(n, width, page, 26 * 2, device=DEVICE)
+    cache = model.init_paged_cache(n, width, page, 26 * 2, device=DEVICE, kv_dtype=kv_dtype)
     table = np.zeros((n, 52), np.int32)
     nxt = 1
     cold_len = [len(r.prompt) for r in cold]
@@ -581,7 +944,7 @@ def _logit_parity(model, params, cfg, cold, hits):
         scale = max(got["plain"].abs().max().item(), 1.0)
         d = (lk - got["plain"]).abs().max().item()
         agree = (lk.argmax(-1) == got["plain"].argmax(-1)).float().mean().item()
-        msg = (f"[main] {cfg.dtype} {what}: kernel vs plain max |dlogit| {d:.3e} = "
+        msg = (f"[main] {cfg.dtype} {kv_dtype} {what}: kernel vs plain max |dlogit| {d:.3e} = "
                f"{d / scale:.3e} x logit scale {scale:.2f} (tol {tol:g} x scale), argmax "
                f"agreement {agree:.2f}")
         expect(d <= tol * scale, f"{cfg.dtype} {what}: logit diff {d} too large")
@@ -597,9 +960,11 @@ def _logit_parity(model, params, cfg, cold, hits):
                                                            slots),
                [("mask shifted by one", dict(flash_prefill=_prefill_shift))])
     feed = lk.argmax(-1, keepdim=True).to(torch.int32)
+    int8_faults = ([("scale from the next slot", dict(paged_decode=_decode_scale_slot))]
+                   if kv_dtype == "int8" else [])
     stage("decode step", lambda c: model.decode(params, c, feed),
           [("mask shifted by one", dict(paged_decode=_decode_shift)),
-           ("last live page dropped", dict(paged_decode=_decode_drop_page))])
+           ("last live page dropped", dict(paged_decode=_decode_drop_page)), *int8_faults])
     # suffix round: rows reuse cold row 0's 16 prefix pages (the shared
     # prefix) and get fresh pages behind them
     suf = [r.prompt[256:] for r in hits]
@@ -619,7 +984,9 @@ def _logit_parity(model, params, cfg, cold, hits):
     stage("suffix round", lambda c: model.prefill_slots(params, c, t(stoks), t(lens), slots,
                                                         starts=starts, prefix_pages=pw),
           [("last prefix key dropped", dict(suffix_prefill=_suffix_shift)),
-           ("last prefix page dropped", dict(suffix_prefill=_suffix_drop_page))])
+           ("last prefix page dropped", dict(suffix_prefill=_suffix_drop_page)),
+           *([("scale from the next slot", dict(suffix_prefill=_suffix_scale_slot))]
+             if kv_dtype == "int8" else [])])
 
 
 def _numel(tree) -> int:
@@ -643,7 +1010,7 @@ def _kernel_rows(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def _profile_decode(eng, smi, n=5):
+def _profile_decode(eng, smi, n=5, label="profile"):
     """Host wall time and device time of one batched decode step (8 slots,
     the engine's cache as the trace left it), and the kernels it launches."""
     import torch
@@ -667,13 +1034,13 @@ def _profile_decode(eng, smi, n=5):
         torch.cuda.synchronize()
     events = _kernel_rows(prof)
     if not events:
-        log(f"[profile] {smi}: decode step host wall {host_ms:.2f} ms; device time not "
+        log(f"[{label}] {smi}: decode step host wall {host_ms:.2f} ms; device time not "
             "measured (the profiler saw no kernels)")
         return
     dev_ms = sum(e.self_device_time_total for e in events) / n / 1e3
     launches = sum(e.count for e in events) / n
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"[profile] {smi}: decode step host wall {host_ms:.2f} ms, device time {dev_ms:.3f} ms "
+    log(f"[{label}] {smi}: decode step host wall {host_ms:.2f} ms, device time {dev_ms:.3f} ms "
         f"in {launches:.0f} kernel launches, device idle share {1 - dev_ms / host_ms:.3f}; "
         "top: " + "; ".join(f"{e.key[:40]} x{e.count // n} {e.self_device_time_total / n / 1e3:.3f}"
                             " ms" for e in top))
@@ -745,6 +1112,175 @@ def phase_main_path(smi):
         f"{ps['preemptions']} preemptions; launches {launches}")
     _profile_decode(eng, smi)
     return launches
+
+
+# ----------------------------------------------------------------- phase 5b
+def _int8_path_requests(vocab):
+    """8 cold prompts of 256-384 tokens (64 greedy tokens each; the first
+    holds the shared 256-token prefix, which its retirement publishes), then
+    8 prompts of that prefix plus 32-64 tokens (32 greedy tokens each)."""
+    from repro_torch.launch.engine import Request
+
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, vocab, 256, dtype=np.int32)
+    cold = []
+    for u, n in enumerate(rng.integers(256, 385, 8)):
+        p = rng.integers(0, vocab, int(n), dtype=np.int32)
+        if u == 0:
+            p[:256] = prefix
+        cold.append(Request(uid=u, prompt=p, max_new_tokens=64))
+    hits = [Request(uid=8 + j, max_new_tokens=32, prompt=np.concatenate(
+        [prefix, rng.integers(0, vocab, int(rng.integers(32, 65)), dtype=np.int32)]))
+        for j in range(8)]
+    return cold, hits
+
+
+def _serve_trace(model, params, cold, hits, smi, label, **engine_kw):
+    """One engine over the trace (cold group, then the shared-prefix group
+    once the first retired): outputs, pool stats, wall, the engine."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+
+    eng = ServeEngine(model, params, num_slots=8, max_seq=384 + 64, page_size=16,
+                      prefix_cache=True, device=DEVICE, **engine_kw)
+    eng.warm(sorted({len(r.prompt) for r in cold}), gen_tokens=2)
+    # host wall of the tier's copies (each synchronous): device->host
+    # gathers (swap-out, demotion) and host->device restores (swap-in,
+    # promotion)
+    io = {"_gather_host": [0, 0.0], "_restore_pages": [0, 0.0]}
+    for name in io:
+        def timed(*a, _fn=getattr(eng, name), _acc=io[name]):
+            t = time.perf_counter()
+            out = _fn(*a)
+            _acc[0] += 1
+            _acc[1] += time.perf_counter() - t
+            return out
+        setattr(eng, name, timed)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = []
+    for group in (cold, hits):
+        eng.reset_clock()
+        outs += eng.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                         for r in group])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    ps = dict(eng.pool_stats, prefix_hit_tokens=eng.prefix_hit_tokens)
+    tokens = sum(len(o.tokens) for o in outs)
+    ttft = float(np.percentile([o.ttft for o in outs], 50))
+    lat = float(np.percentile([o.latency for o in outs], 50))
+    log(f"[int8-main] {label} ({smi}): {len(outs)} requests, {tokens} tokens in {wall:.3f} s: "
+        f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, latency p50 "
+        f"{lat * 1e3:.1f} ms; {eng.steps} decode steps, {ps['cold_dispatches']} cold + "
+        f"{ps['suffix_dispatches']} suffix dispatches; {ps['allocatable_pages']} pages, "
+        f"{ps['preemptions']} preemptions, swapped out/in {ps['swapped_out_pages']}/"
+        f"{ps['swapped_in_pages']} pages, host demoted/promoted {ps['host_demoted_pages']}/"
+        f"{ps['host_promote_hits']}, prefill tokens {ps['prefill_tokens']} (lookup "
+        f"{ps['prefix_lookup_tokens']}, hit {ps['prefix_hit_tokens']}), {ps['cow_copies']} CoW"
+        + (f"; host tier copies: {io['_gather_host'][0]} device->host gathers "
+           f"{io['_gather_host'][1] * 1e3:.1f} ms, {io['_restore_pages'][0]} host->device "
+           f"restores {io['_restore_pages'][1] * 1e3:.1f} ms (host wall)"
+           if eng.host is not None else ""))
+    return {o.uid: o.tokens for o in outs}, ps, launches, eng
+
+
+def phase_main_path_int8(smi):
+    """stablelm-1.6b at its published widths over an int8 pool with a host
+    tier: a pool tight enough that cold slots are preempted, swapped out and
+    swapped back in without a prefill; then prefix hits. Gates: every
+    request completes, swapped in == out > 0, no swapped slot prefilled
+    again, more prefill without the tier, the swap entries drain, every
+    int8 kernel launched, kernel-vs-plain logits on an int8 cache. Printed
+    without a gate: the ample int8 and the fp pool on the same trace."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("stablelm-1.6b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    cold, hits = _int8_path_requests(cfg.vocab_size)
+    _logit_parity(model, params, cfg, cold, hits, kv_dtype="int8")
+    torch.cuda.empty_cache()
+
+    page = 16
+    prompt_pages = sum(-(-len(r.prompt) // page) for r in cold)
+    # all 8 cold prompts fit at admission; their 64 decode tokens need ~32
+    # more pages than the 4 spare ones, so the youngest slots are preempted
+    num_pages = prompt_pages + 4 + 1
+    host_pages = 256
+    want = {r.uid: r.max_new_tokens for r in cold + hits}
+    toks, ps, launches, eng = _serve_trace(model, params, cold, hits, smi,
+                                           f"int8, {num_pages - 1} pages, host tier {host_pages}",
+                                           kv_dtype="int8", num_pages=num_pages,
+                                           host_pages=host_pages)
+    check(all(len(toks[u]) == n for u, n in want.items()),
+          "not every request completed its budget")
+    check(ps["preemptions"] >= 2, f"fewer than two preemptions: {ps['preemptions']}")
+    check(ps["swapped_in_pages"] == ps["swapped_out_pages"] > 0,
+          f"swapped in {ps['swapped_in_pages']} != out {ps['swapped_out_pages']} (or none)")
+    check(ps["prefill_tokens"] == ps["prefix_lookup_tokens"] - ps["prefix_hit_tokens"],
+          f"a swapped slot was prefilled again: {ps}")
+    check(all(key[0] == "prefix" for key in eng.host.keys()),
+          f"swap entries left on the host tier: {eng.host.keys()}")
+    check(ps["suffix_dispatches"] > 0 and ps["cold_dispatches"] > 0,
+          f"dispatch split not exercised: {ps}")
+    check(all(launches[k] > 0 for k in SERVING_INT8), f"an int8 kernel never launched: "
+                                                      f"{launches}")
+    _profile_decode(eng, smi, label="profile int8")
+    int8_launches = {k: launches[k] for k in SERVING_INT8 if k != "flash_prefill"}
+    # the tier's hooks make a reference cycle (engine -> prefix index ->
+    # engine): collect it, or its pool and parameters outlive the phase
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, ps_rc, _, eng = _serve_trace(model, params, cold, hits, smi,
+                                    f"int8, {num_pages - 1} pages, no host tier",
+                                    kv_dtype="int8", num_pages=num_pages)
+    check(ps_rc["prefill_tokens"] > ps["prefill_tokens"],
+          f"without the tier the trace prefilled no more: {ps_rc['prefill_tokens']} vs "
+          f"{ps['prefill_tokens']}")
+    del eng
+    # a second tier / no-tier pair, alternating with the first, now that the
+    # pinned host allocator is warm: the tier's cost read within one call
+    for label, kw in (("host tier", dict(host_pages=host_pages)), ("no host tier", {})):
+        _, _, _, eng = _serve_trace(model, params, cold, hits, smi,
+                                    f"int8, {num_pages - 1} pages, {label}, second run",
+                                    kv_dtype="int8", num_pages=num_pages, **kw)
+        del eng
+        gc.collect()
+    ample, ps_a, _, eng = _serve_trace(model, params, cold, hits, smi, "int8, ample pool",
+                                       kv_dtype="int8")
+    del eng
+    fp, ps_fp, _, eng = _serve_trace(model, params, cold, hits, smi, "fp, ample pool")
+    pages_fp = ps_fp["num_pages"]
+    del eng
+    torch.cuda.empty_cache()
+
+    def match(a, b):
+        return sum(a[u] == b[u] for u in a) / len(a)
+
+    L, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    fp_bytes = 2 * L * hkv * hd * 2              # k and v, bf16
+    int8_bytes = 2 * L * hkv * (hd + 4)          # k and v int8 plus f32 scales
+    seq = np.mean([len(r.prompt) + r.max_new_tokens for r in cold + hits])
+    budget = pages_fp * page * fp_bytes
+    log(f"[int8-main] tokens: tight int8 + host tier vs ample int8 match {match(toks, ample):.3f}"
+        f" of requests; ample int8 vs fp {match(ample, fp):.3f}. Pool bytes per token: fp "
+        f"{fp_bytes}, int8 with scales {int8_bytes} ({fp_bytes / int8_bytes:.3f}x); at the fp "
+        f"pool's {budget / 1e9:.3f} GB ({pages_fp} pages) {budget / (fp_bytes * seq):.1f} "
+        f"resident sequences of the trace's mean {seq:.0f} tokens in fp, "
+        f"{budget / (int8_bytes * seq):.1f} in int8")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return int8_launches
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1038,8 +1574,11 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(smi)
+    rows.update(phase_kernels_int8(smi))
     phase_golden()
+    phase_golden_int8()
     launches = phase_main_path(smi)
+    launches.update(phase_main_path_int8(smi))
     rows.update(phase_channel_kernels(smi))
     train_launches = phase_training(smi)
     launches.update({k: train_launches[k] for k in CHANNEL})

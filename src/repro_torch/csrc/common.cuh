@@ -23,6 +23,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace repro {
 
 constexpr float NEG = -1073741824.0f;  // -2**30, as in the TPU kernels
@@ -95,6 +98,69 @@ __device__ __forceinline__ void load_rows(const RowPtr& row_ptr, int nrows, floa
     const T* vals = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int e = 0; e < E; ++e) d[e] = to_f(vals[e]);
+  }
+}
+
+// Logical token slot c of the current chunk of a row's pages [j0, j0 + ...),
+// read through the row's page table: the pool slot (phys * page + offset),
+// or -1 for a page at or past `pages` (the row's live pages; never read, and
+// its table entry never dereferenced).
+struct PageSlots {
+  const int* table_row;
+  int j0, pages, page;
+  __device__ long long operator()(int c) const {
+    const int j = j0 + c / page;
+    if (j >= pages) return -1;
+    return (long long)table_row[j] * page + (c - (c / page) * page);
+  }
+};
+
+template <typename TP, int HD>
+struct PoolRow {  // kv head h's row of pool slot slots(c), or nullptr
+  const TP* pool;
+  PageSlots slots;
+  int Hkv, h;
+  __device__ const TP* operator()(int c) const {
+    const long long s = slots(c);
+    return s < 0 ? nullptr : pool + ((size_t)s * Hkv + h) * HD;
+  }
+};
+
+// Load kv head h's rows of `nrows` pool slots into dst (row stride ld floats).
+// An fp pool (TP == T) is read as it is. An int8 pool (TP == int8_t) has one
+// f32 scale per (slot, kv head) in `scale`, and each element becomes
+// (float)q * s rounded to the query type T, then widened: the value set of
+// the fp pool dequantized to T (the reference's kv_dequant(q, s, T)), so the
+// int8 kernels compute bitwise what the fp kernels compute over that pool.
+// A 16-byte vector holds 16 int8 elements; hd in {32, 64, 128} keeps every
+// row (h * hd bytes into its slot) 16-byte aligned.
+template <typename T, typename TP, int HD>
+__device__ __forceinline__ void load_pool_rows(const TP* pool, const float* scale,
+                                               const PageSlots& slots, int Hkv, int h,
+                                               int nrows, float* dst, int ld) {
+  if constexpr (std::is_same<TP, int8_t>::value) {
+    constexpr int E = 16;
+    constexpr int V = HD / E;
+    for (int u = threadIdx.x; u < nrows * V; u += blockDim.x) {
+      const int r = u / V;
+      const int part = u - r * V;
+      float* d = dst + (size_t)r * ld + part * E;
+      const long long s = slots(r);
+      if (s < 0) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) d[e] = 0.0f;
+        continue;
+      }
+      const size_t row = (size_t)s * Hkv + h;
+      const float sc = scale[row];
+      const int4 raw = *reinterpret_cast<const int4*>(pool + row * HD + part * E);
+      const int8_t* vals = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int e = 0; e < E; ++e) d[e] = to_f(from_f<T>(__fmul_rn((float)vals[e], sc)));
+    }
+  } else {
+    static_assert(std::is_same<TP, T>::value, "an fp pool has the query's type");
+    load_rows<TP, HD>(PoolRow<TP, HD>{pool, slots, Hkv, h}, nrows, dst, ld);
   }
 }
 

@@ -16,6 +16,13 @@
 // per row (a row with pp = 0 skips phase 1; dead pages are never read), and
 // suffix tiles above the diagonal skipped. Tiling is flash prefill's: one
 // block owns BQ positions times the G heads of one kv head.
+//
+// int8 pools (suffix_prefill_int8, the TPU kernel's pool_k_scale/
+// pool_v_scale branch): only the prefix pages read through the table are
+// int8, dequantized to q's dtype while the tile is loaded
+// (repro::load_pool_rows); the suffix's own k/v stay in q's dtype. So the
+// kernel has two element types, and after the loads its math is the fp
+// kernel's: bitwise the fp kernel over the dequantized pool.
 #include "common.cuh"
 
 namespace {
@@ -46,19 +53,6 @@ struct SufRow {
   }
 };
 
-template <typename T, int HD>
-struct PrefixRow {  // prefix lane c of the current chunk, through the table
-  const T* pool;
-  const int* table_row;
-  int j0, pp, page, row_stride, head_off;
-  __device__ const T* operator()(int c) const {
-    const int j = j0 + c / page;
-    if (j >= pp) return nullptr;
-    const int phys = table_row[j];
-    return pool + ((size_t)phys * page + (c - (c / page) * page)) * row_stride + head_off;
-  }
-};
-
 struct PrefixLive {  // ring slot c holds global position c; live iff < start
   int j0, pp, page, start;
   __device__ bool operator()(int, int c) const {
@@ -74,11 +68,16 @@ struct SuffixLive {  // causal in local suffix coordinates
   }
 };
 
-template <typename T, int HD>
+// TP is the pool's element type: T (fp pool) or int8_t (int8 prefix pages
+// with pool_ks/pool_vs (P, page, Hkv) f32; unread for an fp pool). The
+// suffix's own k/v are always T.
+template <typename T, typename TP, int HD>
 __global__ void suffix_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_suf,
                                       const T* __restrict__ v_suf,
-                                      const T* __restrict__ pool_k,
-                                      const T* __restrict__ pool_v,
+                                      const TP* __restrict__ pool_k,
+                                      const TP* __restrict__ pool_v,
+                                      const float* __restrict__ pool_ks,
+                                      const float* __restrict__ pool_vs,
                                       const int* __restrict__ table,
                                       const int* __restrict__ starts, T* __restrict__ out,
                                       int S, int Hkv, int G, int page, int T_w, int W, int BQ,
@@ -101,10 +100,9 @@ __global__ void suffix_prefill_kernel(const T* __restrict__ q, const T* __restri
   const int pp = max(0, min((start + page - 1) / page, W));
   const int* table_row = table + (size_t)b * T_w;
   for (int j0 = 0; j0 < pp; j0 += kpb) {
-    const PrefixRow<T, HD> krow{pool_k, table_row, j0, pp, page, Hkv * HD, h * HD};
-    const PrefixRow<T, HD> vrow{pool_v, table_row, j0, pp, page, Hkv * HD, h * HD};
-    repro::load_rows<T, HD>(krow, cols_pfx, t.k, HD + 1);
-    repro::load_rows<T, HD>(vrow, cols_pfx, t.v, HD);
+    const repro::PageSlots slots{table_row, j0, pp, page};
+    repro::load_pool_rows<T, TP, HD>(pool_k, pool_ks, slots, Hkv, h, cols_pfx, t.k, HD + 1);
+    repro::load_pool_rows<T, TP, HD>(pool_v, pool_vs, slots, Hkv, h, cols_pfx, t.v, HD);
     __syncthreads();
     repro::scores<HD>(t, rows, cols_pfx, scale, PrefixLive{j0, pp, page, start});
     __syncthreads();
@@ -126,37 +124,40 @@ __global__ void suffix_prefill_kernel(const T* __restrict__ q, const T* __restri
   repro::write_rows<T, HD>(t, rows, QORow<T, HD>{out, S, Hkv, G, b, h, q_lo});
 }
 
-template <typename T, int HD>
+template <typename T, typename TP, int HD>
 int launch(const void* q, const void* ks, const void* vs, const void* pk, const void* pv,
-           const void* table, const void* starts, void* out, int n, int S, int Hkv, int G,
-           int page, int T_w, int W, float scale, cudaStream_t stream) {
+           const void* pks, const void* pvs, const void* table, const void* starts, void* out,
+           int n, int S, int Hkv, int G, int page, int T_w, int W, float scale,
+           cudaStream_t stream) {
   const int BQ = G >= 64 ? 1 : 64 / G;
   const int kpb = page >= BK ? 1 : BK / page;
   const int cols = kpb * page > BK ? kpb * page : BK;
   const size_t smem = repro::tile_floats<HD>(BQ * G, cols) * sizeof(float);
-  cudaError_t err = repro::allow_smem(suffix_prefill_kernel<T, HD>, smem);
+  cudaError_t err = repro::allow_smem(suffix_prefill_kernel<T, TP, HD>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n * Hkv, (S + BQ - 1) / BQ);
-  suffix_prefill_kernel<T, HD><<<grid, 256, smem, stream>>>(
-      (const T*)q, (const T*)ks, (const T*)vs, (const T*)pk, (const T*)pv, (const int*)table,
-      (const int*)starts, (T*)out, S, Hkv, G, page, T_w, W, BQ, kpb, scale);
+  suffix_prefill_kernel<T, TP, HD><<<grid, 256, smem, stream>>>(
+      (const T*)q, (const T*)ks, (const T*)vs, (const TP*)pk, (const TP*)pv,
+      (const float*)pks, (const float*)pvs, (const int*)table, (const int*)starts, (T*)out, S,
+      Hkv, G, page, T_w, W, BQ, kpb, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TP>
 int by_hd(int hd, const void* q, const void* ks, const void* vs, const void* pk,
-          const void* pv, const void* table, const void* starts, void* out, int n, int S,
-          int Hkv, int G, int page, int T_w, int W, float scale, cudaStream_t stream) {
+          const void* pv, const void* pks, const void* pvs, const void* table,
+          const void* starts, void* out, int n, int S, int Hkv, int G, int page, int T_w, int W,
+          float scale, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, ks, vs, pk, pv, table, starts, out, n, S, Hkv, G, page, T_w, W,
-                           scale, stream);
+      return launch<T, TP, 32>(q, ks, vs, pk, pv, pks, pvs, table, starts, out, n, S, Hkv, G,
+                               page, T_w, W, scale, stream);
     case 64:
-      return launch<T, 64>(q, ks, vs, pk, pv, table, starts, out, n, S, Hkv, G, page, T_w, W,
-                           scale, stream);
+      return launch<T, TP, 64>(q, ks, vs, pk, pv, pks, pvs, table, starts, out, n, S, Hkv, G,
+                               page, T_w, W, scale, stream);
     case 128:
-      return launch<T, 128>(q, ks, vs, pk, pv, table, starts, out, n, S, Hkv, G, page, T_w, W,
-                            scale, stream);
+      return launch<T, TP, 128>(q, ks, vs, pk, pv, pks, pvs, table, starts, out, n, S, Hkv, G,
+                                page, T_w, W, scale, stream);
   }
   return -1;
 }
@@ -173,10 +174,33 @@ extern "C" int suffix_prefill(const void* q, const void* k_suf, const void* v_su
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return by_hd<float>(hd, q, k_suf, v_suf, pool_k, pool_v, table, starts, out, n, S, Hkv, G,
-                        page, T_w, W, scale, s);
+    return by_hd<float, float>(hd, q, k_suf, v_suf, pool_k, pool_v, nullptr, nullptr, table,
+                               starts, out, n, S, Hkv, G, page, T_w, W, scale, s);
   if (dtype == 1)
-    return by_hd<__nv_bfloat16>(hd, q, k_suf, v_suf, pool_k, pool_v, table, starts, out, n, S,
-                                Hkv, G, page, T_w, W, scale, s);
+    return by_hd<__nv_bfloat16, __nv_bfloat16>(hd, q, k_suf, v_suf, pool_k, pool_v, nullptr,
+                                               nullptr, table, starts, out, n, S, Hkv, G,
+                                               page, T_w, W, scale, s);
+  return -1;
+}
+
+// The int8-pool variant (the TPU kernel's pool_k_scale/pool_v_scale
+// branch): int8 prefix pages (P, page, Hkv, hd) with f32 scales (P, page,
+// Hkv), dequantized in the kernel to q's dtype; the suffix's k/v in q's
+// dtype. Same return codes.
+extern "C" int suffix_prefill_int8(const void* q, const void* k_suf, const void* v_suf,
+                                   const void* pool_k, const void* pool_v,
+                                   const void* pool_k_scale, const void* pool_v_scale,
+                                   const void* table, const void* starts, void* out, int dtype,
+                                   int n, int S, int Hkv, int G, int hd, int page, int T_w,
+                                   int W, float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return by_hd<float, int8_t>(hd, q, k_suf, v_suf, pool_k, pool_v, pool_k_scale,
+                                pool_v_scale, table, starts, out, n, S, Hkv, G, page, T_w, W,
+                                scale, s);
+  if (dtype == 1)
+    return by_hd<__nv_bfloat16, int8_t>(hd, q, k_suf, v_suf, pool_k, pool_v, pool_k_scale,
+                                        pool_v_scale, table, starts, out, n, S, Hkv, G, page,
+                                        T_w, W, scale, s);
   return -1;
 }

@@ -1,4 +1,5 @@
-// Per-block symmetric int8 quantize -> dequantize of a flat fp32 tensor.
+// Per-row symmetric int8: quantize -> dequantize of a flat fp32 tensor
+// (int8_roundtrip), and the encoder that keeps (q, scale) (int8_encode).
 //
 // Replaces the TPU kernel src/repro/kernels/quantize.py::int8_roundtrip
 // (body _roundtrip_kernel): each 256-element block gets the scale
@@ -16,6 +17,7 @@
 // flops each). One 256-thread block per 256-element block, one element per
 // thread: the loads and stores of a warp are 128 contiguous bytes, and the
 // block max is one shared-memory tree reduction.
+#include "common.cuh"
 #include "reduce.cuh"
 
 namespace {
@@ -36,6 +38,63 @@ int8_roundtrip_kernel(const float* __restrict__ x, float* __restrict__ out, long
   }
 }
 
+// Replaces the TPU kernel src/repro/kernels/quantize.py::int8_encode (body
+// _encode_kernel), over rows of any R in {32, 64, 128, 256}: R = 256 is the
+// uplink leaf's block, R = hd the int8 KV pool's row (one scale per token
+// slot per kv head, the reference's kv_quant). Same numerics as above, so q
+// and scale are bitwise the plain version's. The input is fp32 or bf16
+// (widened exactly); elements at flat index >= n count as zeros (a ragged
+// last row) and their q is written as 0.
+//
+// What bounds it: bytes (4 or 2 read, 1 written per element, 4 per row).
+// One warp per row, each lane holding R/32 elements in registers, the row
+// max by five butterfly shuffles (max is exact in any order): rows of 64
+// (the pool write) would leave most of a 256-thread block idle otherwise.
+template <typename T, int PER>
+__global__ void __launch_bounds__(BLOCK)
+int8_encode_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+                   long long rows, long long n) {
+  constexpr int R = 32 * PER;
+  const long long row = (long long)blockIdx.x * (BLOCK / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // the whole warp leaves together
+  const long long base = row * R;
+  float v[PER];
+  float amax = 0.0f;
+#pragma unroll
+  for (int p = 0; p < PER; ++p) {
+    const long long i = base + p * 32 + lane;
+    v[p] = i < n ? repro::to_f(x[i]) : 0.0f;
+    amax = fmaxf(amax, fabsf(v[p]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
+#pragma unroll
+  for (int p = 0; p < PER; ++p)
+    q[base + p * 32 + lane] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v[p], s)), -127.0f), 127.0f);
+  if (lane == 0) scale[row] = s;
+}
+
+template <typename T>
+int encode(const void* x, void* q, void* scale, long long rows, int R, long long n,
+           cudaStream_t stream) {
+  if (rows <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((rows + BLOCK / 32 - 1) / (BLOCK / 32));
+  const T* xs = (const T*)x;
+  int8_t* qs = (int8_t*)q;
+  float* ss = (float*)scale;
+  switch (R) {
+    case 32: int8_encode_kernel<T, 1><<<blocks, BLOCK, 0, stream>>>(xs, qs, ss, rows, n); break;
+    case 64: int8_encode_kernel<T, 2><<<blocks, BLOCK, 0, stream>>>(xs, qs, ss, rows, n); break;
+    case 128: int8_encode_kernel<T, 4><<<blocks, BLOCK, 0, stream>>>(xs, qs, ss, rows, n); break;
+    case 256: int8_encode_kernel<T, 8><<<blocks, BLOCK, 0, stream>>>(xs, qs, ss, rows, n); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x, out: n contiguous float32 elements. Returns cudaGetLastError() after
@@ -47,4 +106,16 @@ extern "C" int int8_roundtrip(const void* x, void* out, long long n, void* strea
         (const float*)x, (float*)out, n);
   }
   return (int)cudaGetLastError();
+}
+
+// x: rows x R contiguous elements of dtype 0 = float32 / 1 = bfloat16 (the
+// first n of them real); q: rows x R int8; scale: rows float32. Returns
+// cudaGetLastError() after the launch (0 on success), or -1 for an
+// unsupported R or dtype.
+extern "C" int int8_encode(const void* x, void* q, void* scale, long long rows, int R,
+                           long long n, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return encode<float>(x, q, scale, rows, R, n, s);
+  if (dtype == 1) return encode<__nv_bfloat16>(x, q, scale, rows, R, n, s);
+  return -1;
 }

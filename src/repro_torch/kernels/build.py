@@ -36,6 +36,7 @@ FLAGS = (
 # last reset): the proof that a run went through the kernels.
 LAUNCHES: dict[str, int] = {
     "paged_decode": 0, "flash_prefill": 0, "suffix_prefill": 0,
+    "paged_decode_int8": 0, "suffix_prefill_int8": 0, "int8_encode": 0,
     "int8_roundtrip": 0, "topk_sparsify": 0, "sq_norm": 0, "clip_noise": 0,
 }
 
@@ -47,6 +48,9 @@ SIGNATURES = {
     "paged_decode": (P,) * 6 + (I,) * 8 + (F, P),
     "flash_prefill": (P,) * 4 + (I,) * 8 + (F, P),
     "suffix_prefill": (P,) * 8 + (I,) * 9 + (F, P),
+    "paged_decode_int8": (P,) * 8 + (I,) * 8 + (F, P),
+    "suffix_prefill_int8": (P,) * 10 + (I,) * 9 + (F, P),
+    "int8_encode": (P, P, P, L, I, L, I, P),
     "int8_roundtrip": (P, P, L, P),
     "topk_sparsify": (P, P, L, I, P),
     "sq_norm": (P, P, P, L, I, P),
@@ -56,6 +60,9 @@ ENTRY = {
     "paged_decode": "paged_decode",
     "flash_prefill": "flash_prefill",
     "suffix_prefill": "flash_suffix_prefill",
+    "paged_decode_int8": "paged_decode",
+    "suffix_prefill_int8": "flash_suffix_prefill",
+    "int8_encode": "quantize",
     "int8_roundtrip": "quantize",
     "topk_sparsify": "topk_compress",
     "sq_norm": "dp_clip",
@@ -146,7 +153,9 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def check_cuda(name: str, **tensors: torch.Tensor) -> None:
-    """Every tensor on one CUDA device and contiguous; raise otherwise."""
+    """Every tensor on one CUDA device and contiguous; raise otherwise.
+    The int8 pools and their f32 scale planes go through here like any
+    other operand (``check_pool`` checks their types and shapes)."""
     device = None
     for key, t in tensors.items():
         if not t.is_cuda:
@@ -158,3 +167,22 @@ def check_cuda(name: str, **tensors: torch.Tensor) -> None:
         elif t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, others on {device}")
 
+
+
+def check_pool(name: str, q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+               k_scale: torch.Tensor | None, v_scale: torch.Tensor | None) -> None:
+    """The pools' types against the query's: fp pools (no scales) share q's
+    dtype; int8 pools come with both f32 scale planes of shape
+    ``pool.shape[:-1]`` (one scale per slot per kv head). Raise otherwise."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both scale planes or neither")
+    if k_scale is None:
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise TypeError(f"{name}: q and the pools must share one dtype")
+        return
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise TypeError(f"{name}: scale planes go with int8 pools, got {k_pool.dtype}")
+    for key, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s.dtype != torch.float32 or s.shape != k_pool.shape[:-1]:
+            raise ValueError(f"{name}: {key} must be float32 {tuple(k_pool.shape[:-1])}, got "
+                             f"{s.dtype} {tuple(s.shape)}")

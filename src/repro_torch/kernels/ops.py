@@ -11,17 +11,25 @@ import torch
 from repro_torch.kernels import dp_clip, quantize, ref, topk_compress
 from repro_torch.kernels.build import LAUNCHES, reset_launches  # noqa: F401
 from repro_torch.kernels.flash_prefill import flash_prefill
-from repro_torch.kernels.flash_suffix_prefill import suffix_prefill
-from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.flash_suffix_prefill import suffix_prefill, suffix_prefill_int8
+from repro_torch.kernels.paged_decode import paged_decode, paged_decode_int8
 from repro_torch.utils.tree import tree_leaves
 
 
 def paged_decode_attention(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     pos: torch.Tensor, table: torch.Tensor, window: int = 0,
+    k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, Hkv, G, hd) queries over the shared pool (P, page, Hkv, hd)
-    through the (B, T) page table → (B, Hkv, G, hd)."""
+    through the (B, T) page table → (B, Hkv, G, hd). With ``k_scale``/
+    ``v_scale`` (P, page, Hkv) f32 the pools are int8, dequantized in the
+    kernel to q's dtype."""
+    if k_scale is not None:
+        if q.is_cuda:
+            return paged_decode_int8(q, k_pool, v_pool, k_scale, v_scale, pos, table, window)
+        return ref.paged_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, pos, table,
+                                         window)
     if q.is_cuda:
         return paged_decode(q, k_pool, v_pool, pos, table, window)
     return ref.paged_decode_ref(q, k_pool, v_pool, pos, table, window)
@@ -40,9 +48,17 @@ def suffix_prefill_attention(
     q: torch.Tensor, k_suf: torch.Tensor, v_suf: torch.Tensor,
     pool_k: torch.Tensor, pool_v: torch.Tensor, table: torch.Tensor,
     starts: torch.Tensor, *, prefix_width: int,
+    pool_k_scale: torch.Tensor | None = None, pool_v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Suffix prefill over a cached prefix in the shared pool. q
-    (n, S, Hkv, G, hd) roped at starts[r] + i; table (n, T); starts (n,)."""
+    (n, S, Hkv, G, hd) roped at starts[r] + i; table (n, T); starts (n,).
+    With ``pool_k_scale``/``pool_v_scale`` the pools are int8 (the suffix's
+    own k/v stay in q's dtype)."""
+    if pool_k_scale is not None:
+        args = (q, k_suf, v_suf, pool_k, pool_v, pool_k_scale, pool_v_scale, table, starts)
+        if q.is_cuda:
+            return suffix_prefill_int8(*args, prefix_width=prefix_width)
+        return ref.suffix_prefill_int8_ref(*args, prefix_width=prefix_width)
     if q.is_cuda:
         return suffix_prefill(
             q, k_suf, v_suf, pool_k, pool_v, table, starts, prefix_width=prefix_width,
@@ -50,6 +66,16 @@ def suffix_prefill_attention(
     return ref.suffix_prefill_ref(
         q, k_suf, v_suf, pool_k, pool_v, table, starts, prefix_width=prefix_width,
     )
+
+
+def kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last axis of x (..., hd) → (q int8 (..., hd),
+    scale f32 (...)): every int8 pool write (one scale per token slot per kv
+    head) goes through the ``int8_encode`` kernel on the card."""
+    if not x.is_cuda:
+        return ref.kv_quant_ref(x)
+    q, scale = quantize.int8_encode(x.contiguous(), x.shape[-1])
+    return q.reshape(x.shape), scale.reshape(x.shape[:-1])
 
 
 # ------------------------------------------------- federated uplink channel
@@ -82,6 +108,20 @@ def int8_roundtrip_leaf(x: torch.Tensor) -> torch.Tensor:
     xf = x.float().contiguous()
     out = quantize.int8_roundtrip(xf) if xf.is_cuda else ref.int8_roundtrip_ref(xf)
     return out.to(x.dtype)
+
+
+def int8_encode_leaf(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The int8 wire form of one leaf: (q int8 (nb, 256), scale f32 (nb,),
+    n) over its flat elements in 256-element rows, the ragged last row
+    zero-padded. The reference's ``ops.int8_encode_leaf`` pads the rows to a
+    multiple of 8 (TPU tiling) and keeps the scale as (nb, 1); its first nb
+    rows are these."""
+    xf = x.contiguous()
+    if xf.is_cuda:
+        q, scale = quantize.int8_encode(xf, BLOCK)
+    else:
+        q, scale = ref.int8_encode_ref(ref._blocks(xf))
+    return q, scale, x.numel()
 
 
 def sq_norm(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
 One function per hand-written kernel: the attention kernels of the serving
-path and the channel kernels of the federated uplink. Each computes the
+path (over fp and int8 pools), the int8 row quantizer of the pool writes,
+and the channel kernels of the federated uplink. Each computes the
 kernel's function the straightforward way, in fp32, and casts to q's dtype,
 as the reference package's oracles (``repro/kernels/ref.py``) do. They are
 what a wrapper runs for a CPU tensor, and what the kernels are held against
@@ -107,6 +108,61 @@ def suffix_prefill_ref(
     kv_pos = torch.cat([prefix_pos, qpos], dim=1)
     mask = qpos[:, None, None, :, None] >= kv_pos[:, None, None, None, :]
     return _attend(q, k, v, mask)
+
+
+# ------------------------------------------------------------- int8 KV pages
+EPS = 1e-12
+
+
+def kv_quant_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last axis: (..., d) → (q int8 (..., d),
+    scale f32 (...)); scale = max(max|x| / 127, 1e-12), q = clip(round(x /
+    scale), ±127), rounding half to even. Mirrors ``quantize.kv_quant``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient
+    scale = (amax / amax.new_tensor(127.0)).clamp(min=EPS)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of ``kv_quant_ref``: q·scale in f32, then cast to ``dtype``.
+    Mirrors ``quantize.kv_dequant``."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def int8_encode_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 of (rows, R) rows of any length R → (q int8
+    (rows, R), scale f32 (rows,)). Mirrors ``int8_encode_ref`` (whose scale
+    keeps a trailing axis of 1)."""
+    return kv_quant_ref(x)
+
+
+def dequant_pool_ref(pool_q: torch.Tensor, scales: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An int8 page pool (P, page, Hkv, hd) with its (P, page, Hkv) scales
+    as the fp pool the int8 kernels read. Mirrors ``dequant_pool_ref``."""
+    return kv_dequant_ref(pool_q, scales, dtype)
+
+
+def paged_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, pos, table, window=0):
+    """int8-pool page-table decode: the pool dequantized to q's dtype, then
+    ``paged_decode_ref``. Mirrors ``paged_table_decode_int8_ref``."""
+    return paged_decode_ref(q, dequant_pool_ref(k_pool, k_scale, q.dtype),
+                            dequant_pool_ref(v_pool, v_scale, q.dtype), pos, table, window)
+
+
+def suffix_prefill_int8_ref(q, k_suf, v_suf, pool_k, pool_v, k_scale, v_scale, table,
+                            starts, *, prefix_width):
+    """int8-pool suffix prefill: the prefix pool dequantized to q's dtype,
+    the suffix's own k/v as given, then ``suffix_prefill_ref``. Mirrors
+    ``suffix_prefill_int8_ref``."""
+    return suffix_prefill_ref(q, k_suf, v_suf, dequant_pool_ref(pool_k, k_scale, q.dtype),
+                              dequant_pool_ref(pool_v, v_scale, q.dtype), table, starts,
+                              prefix_width=prefix_width)
 
 
 # ------------------------------------------------- federated uplink channel

@@ -18,6 +18,14 @@ mode (greedy decoding):
   same physical pages and prefills only the suffix. A fully cached prompt
   re-prefills its last token into a copy-on-write split of its last page.
 * One batched decode step per iteration advances every live slot.
+* ``kv_dtype="int8"`` stores the pool as int8 with one f32 scale per token
+  slot per kv head (``ks``/``vs``): quantized at every write, dequantized
+  inside the attention kernels.
+* ``host_pages > 0`` adds a host-memory tier behind the pool
+  (``HostTier``): a preempted slot's pages are copied device→host before
+  its pool refs drop and are restored at re-admission without a prefill
+  (swap instead of recompute), and prefix pages evicted from the index are
+  demoted there and promoted back when a later prompt matches them.
 
 The pool and tables live on the engine's device and are updated in place
 (the reference donated them through ``jit``). Settings of the reference
@@ -34,6 +42,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.prefix_cache import PrefixCache
 from repro_torch.models.model import ModelAPI, build_model
+from repro_torch.models.transformer import KV_PLANES
 
 # Smallest padded prompt length of the bucket ladder.
 LEN_BUCKET_MIN = 8
@@ -145,13 +154,96 @@ class PagePool:
                 self._rc[p] = rc - 1
 
 
+class HostTier:
+    """Host-memory page store backing the device pool: the second tier of
+    the KV cache.
+
+    Two kinds of entry share one LRU budget of ``capacity_pages``:
+
+    * SWAP entries (key ``("swap", uid)``): every page of a preempted slot,
+      copied device→host before the pool refs drop. Re-admission restores
+      them into fresh pool pages instead of recomputing the KV through a
+      re-prefill.
+    * PREFIX entries (key ``("prefix", token_tuple)``): a prefix-index page
+      demoted at eviction; a later radix match promotes it back into a
+      fresh pool page.
+
+    An entry is a dict of CPU tensors, plane name → (L, n_pages, ...) (pinned
+    when the pool is on a CUDA device), copied, never aliased: a dropped
+    entry is never a correctness event — the engine falls back to recompute
+    (swap) or a cold prefill (prefix)."""
+
+    def __init__(self, capacity_pages: int):
+        if capacity_pages < 1:
+            raise ValueError(f"host tier capacity must be >= 1 page, got {capacity_pages}")
+        self.capacity_pages = capacity_pages
+        self._entries: collections.OrderedDict[tuple, dict] = collections.OrderedDict()
+        self._pages = 0
+        self.evictions = 0  # entries dropped by LRU pressure
+
+    @property
+    def pages(self) -> int:
+        """Pages currently resident in the tier."""
+        return self._pages
+
+    def put(self, key: tuple, arrays: dict, n_pages: int) -> bool:
+        """Store ``arrays`` under ``key``, LRU-evicting older entries to fit.
+        False (and no store, no eviction) when the entry alone exceeds the
+        tier."""
+        if n_pages > self.capacity_pages:
+            return False
+        self.pop(key)
+        while self._pages + n_pages > self.capacity_pages:
+            _, old = self._entries.popitem(last=False)
+            self._pages -= old["n"]
+            self.evictions += 1
+        self._entries[key] = {"arrays": arrays, "n": n_pages}
+        self._pages += n_pages
+        return True
+
+    def get(self, key: tuple) -> dict | None:
+        """Entry arrays for ``key`` (LRU touch), or None."""
+        entry = self._entries.get(key)
+        if entry is None:
+            return None
+        self._entries.move_to_end(key)
+        return entry["arrays"]
+
+    def n_pages(self, key: tuple) -> int:
+        entry = self._entries.get(key)
+        return 0 if entry is None else entry["n"]
+
+    def keys(self) -> list[tuple]:
+        """Resident entry keys, least recently used first."""
+        return list(self._entries)
+
+    def pop(self, key: tuple) -> dict | None:
+        entry = self._entries.pop(key, None)
+        if entry is None:
+            return None
+        self._pages -= entry["n"]
+        return entry["arrays"]
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self._pages = 0
+
+
 @dataclasses.dataclass
 class _ResumeState:
     """Generation state of a preempted request. Re-admission prefills
-    prompt + generated[:-1] and continues decoding from generated[-1]."""
+    prompt + generated[:-1] and continues decoding from generated[-1].
+
+    ``host_key`` marks a SWAPPED preemption: the slot's pages were copied to
+    the ``HostTier`` before its pool refs dropped, and re-admission restores
+    them (no prefill at all), bitwise the pages the slot held. ``pos`` is
+    the slot's write position at preemption (tokens written = prompt +
+    generated[:-1]). A dropped tier entry falls back to the re-prefill."""
     generated: list[int]
     first_token_time: float
     admit_time: float
+    host_key: tuple | None = None
+    pos: int = 0
 
 
 @dataclasses.dataclass
@@ -218,9 +310,11 @@ class ServeEngine:
     Parameters follow the reference engine: ``num_slots`` (decode batch
     width), ``max_seq`` (sizes the default pool and table width),
     ``page_size``, ``num_pages`` (incl. scratch page 0; 0 = ring-equivalent
-    ``num_slots * ceil(max_seq/page_size) + 1``), ``watermark_pages`` and
-    ``prefix_cache``. Each slot's table holds ``num_slots *
-    ceil(max_seq/page_size)`` logical pages. A request finishes after
+    ``num_slots * ceil(max_seq/page_size) + 1``), ``watermark_pages``,
+    ``prefix_cache``, ``kv_dtype`` ("fp" or "int8" pages), ``host_pages``
+    (the host tier's capacity, 0 = none) and ``swap`` (whether preemption
+    swaps to that tier; prefix pages demote there either way). Each slot's
+    table holds ``num_slots * ceil(max_seq/page_size)`` logical pages. A request finishes after
     ``max_new_tokens`` (no EOS); the clock is ``time.monotonic``.
     ``device`` is where the pool lives and the model runs (``"cuda"``
     unless the caller asks for the CPU)."""
@@ -242,6 +336,7 @@ class ServeEngine:
         paged_cache: bool = True,
         kv_dtype: str = "fp",
         host_pages: int = 0,
+        swap: bool = True,
         draft_model=None,
         spec_tokens: int = 0,
         mesh=None,
@@ -250,8 +345,6 @@ class ServeEngine:
             "window > 0 (sliding-window rings)": window != 0,
             "prefill != 'chunked' (interleaved prefill)": prefill != "chunked",
             "paged_cache=False (per-slot contiguous rings)": not paged_cache,
-            "kv_dtype != 'fp' (int8 pages)": kv_dtype != "fp",
-            "host_pages > 0 (host tier)": host_pages != 0,
             "a draft model (speculative decoding)": draft_model is not None or spec_tokens != 0,
             "a mesh (tensor-parallel serving)": mesh is not None,
         }
@@ -264,6 +357,10 @@ class ServeEngine:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_seq < 1:
             raise ValueError(f"max_seq must be >= 1, got {max_seq}")
+        if kv_dtype not in ("fp", "int8"):
+            raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
+        if host_pages < 0:
+            raise ValueError(f"host_pages must be >= 0, got {host_pages}")
         self.cfg = model.cfg
         self.model = model
         self.device = torch.device(device)
@@ -290,10 +387,20 @@ class ServeEngine:
         self._table_np = np.zeros((num_slots, self.table_width), np.int32)
         self._table_dirty = False
         self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
+        self.kv_dtype = kv_dtype
         self.cache = model.init_paged_cache(
             num_slots, num_pages, page_size, self.table_width, device=self.device,
+            kv_dtype=kv_dtype,
         )
-        self.prefix = PrefixCache(self.pool) if prefix_cache else None
+        # the planes that carry page content: what every page copy moves
+        self._kv_names = tuple(n for n in KV_PLANES if n in self.cache)
+        self.host = HostTier(host_pages) if host_pages > 0 else None
+        self.swap = swap and self.host is not None
+        self.prefix = PrefixCache(
+            self.pool,
+            demote_fn=self._demote_prefix_page if self.host else None,
+            promote_fn=self._promote_prefix_page if self.host else None,
+        ) if prefix_cache else None
         self.prefix_cache = prefix_cache
 
         self._resume: dict[int, _ResumeState] = {}
@@ -326,13 +433,18 @@ class ServeEngine:
         self.prefix_resume_hit_tokens = 0
         self.prefill_tokens = 0
         self.cow_copies = 0
+        self.swapped_out_pages = 0
+        self.swapped_in_pages = 0
+        self.host_demoted_pages = 0
+        self.host_promote_hits = 0
         self.pool.peak_in_use = self.pool.in_use
         self.reset_clock()
 
     def warm(self, prompt_lens, *, gen_tokens: int = 2) -> None:
         """Run every (width, length) bucket a trace of ``prompt_lens`` can
         dispatch once (first-use costs: kernel builds and loads, allocator
-        growth), then clear the prefix index and reset metrics."""
+        growth), then clear the prefix index and the host tier and reset
+        metrics."""
         for p in sorted(set(prompt_lens)):
             for w in range(1, self.num_slots + 1):
                 key = (bucket_width(w, self.num_slots), bucket_length(p))
@@ -346,6 +458,8 @@ class ServeEngine:
                 ])
         if self.prefix is not None:
             self.prefix.clear()
+        if self.host is not None:
+            self.host.clear()
         self.reset_metrics()
 
     @property
@@ -376,7 +490,14 @@ class ServeEngine:
             "cold_dispatches": self.cold_dispatches,
             "prefix_pages_cached": self.prefix.size if self.prefix is not None else 0,
             "prefix_evicted_pages": self.prefix.evicted_pages if self.prefix is not None else 0,
-            "kv_dtype": "fp",
+            "kv_dtype": self.kv_dtype,
+            "swap_enabled": self.swap,
+            "host_capacity_pages": self.host.capacity_pages if self.host is not None else 0,
+            "host_tier_pages": self.host.pages if self.host is not None else 0,
+            "swapped_out_pages": self.swapped_out_pages,
+            "swapped_in_pages": self.swapped_in_pages,
+            "host_demoted_pages": self.host_demoted_pages,
+            "host_promote_hits": self.host_promote_hits,
         }
 
     @property
@@ -416,13 +537,22 @@ class ServeEngine:
         prefix pages shared, the rest fresh); claiming stops, without
         dequeuing, when the pool cannot cover the next request plus the
         watermark (waived when no other slot is live). A request that
-        finishes on its first token frees its slot for the next round."""
+        finishes on its first token frees its slot for the next round. A
+        swapped preemption comes back from the host tier without a prefill
+        (``_swap_in``), or through the re-prefill when the tier dropped it."""
         while True:
             free = [i for i, s in enumerate(self.slots) if s is None]
             claimed: list[int] = []
             while free and self.waiting:
                 req = self.waiting[0]
                 resume = self._resume.get(req.uid)
+                if resume is not None and resume.host_key is not None and (
+                        self.host is None or self.host.n_pages(resume.host_key) == 0):
+                    resume.host_key = None  # the tier dropped it: recompute
+                if resume is not None and resume.host_key is not None:
+                    if not self._swap_in(req, resume, free, now):
+                        break  # stays queued; recompute needs no fewer pages
+                    continue
                 feed = req.prompt
                 if resume is not None and resume.generated:
                     feed = np.concatenate([req.prompt, np.asarray(resume.generated[:-1], np.int32)])
@@ -458,7 +588,7 @@ class ServeEngine:
                 pages = list(hits)
                 if cow:
                     src, dst = pages[-1], self.pool.alloc(1)[0]
-                    for name in ("k", "v"):
+                    for name in self._kv_names:  # int8: the scale planes too
                         self.cache[name][:, dst] = self.cache[name][:, src]
                     self.pool.free([src])
                     pages[-1] = dst
@@ -486,6 +616,48 @@ class ServeEngine:
                 return
             if not self._prefill_claimed(claimed):
                 return
+
+    def _swap_in(self, req: Request, resume: _ResumeState, free: list[int],
+                 now: float) -> bool:
+        """Restore a swapped request's pages from the host tier into fresh
+        pool pages and give it a slot that continues decoding where it
+        stopped: ``pos`` restored, next feed ``stream[pos]``, no prefill.
+        False (nothing changed) when the pool cannot cover its pages plus
+        the watermark even after prefix eviction. The evicted prefix pages
+        demote into the same tier and may push this entry out: then the
+        resume falls back to the re-prefill (True, still queued, with
+        ``host_key`` cleared, so the caller reads the head again)."""
+        n_need = self.host.n_pages(resume.host_key)
+        hold = self.watermark_pages if any(s is not None for s in self.slots) else 0
+        if self.pool.available < n_need + hold:
+            if self.prefix is not None:
+                self.prefix.evict(n_need + hold - self.pool.available)
+                if self.host.n_pages(resume.host_key) == 0:
+                    resume.host_key = None
+                    return True
+            if self.pool.available < n_need + hold:
+                return False
+        pages = self.pool.alloc(n_need)
+        self.waiting.popleft()
+        i = free.pop(0)
+        del self._resume[req.uid]
+        self._restore_pages(pages, self.host.pop(resume.host_key))
+        self.swapped_in_pages += n_need
+        self._slot_pages[i] = pages
+        self._table_np[i, :] = 0
+        self._table_np[i, :n_need] = pages
+        self._table_dirty = True
+        self.cache["pos"][i] = resume.pos
+        # written tokens = stream[:pos]; the slot feeds stream[pos] next
+        stream = np.concatenate([req.prompt, np.asarray(resume.generated, np.int32)])
+        slot = _Slot(req=req, generated=list(resume.generated),
+                     next_feed=int(stream[resume.pos]), admit_time=resume.admit_time,
+                     feed=stream[: resume.pos], first_token_time=resume.first_token_time,
+                     pos_host=resume.pos)
+        self._admit_seq += 1
+        slot.seq = self._admit_seq
+        self.slots[i] = slot
+        return True
 
     def _prefill_claimed(self, claimed: list[int]) -> bool:
         """Prefill the claimed slots; returns True if any retired. The round
@@ -578,17 +750,74 @@ class ServeEngine:
             self.cache["table"].copy_(torch.from_numpy(self._table_np))
             self._table_dirty = False
 
+    # -------------------------------------------------------- host tier I/O
+    def _gather_host(self, pages: list[int]) -> dict:
+        """Copy page content device→host: plane name → (L, n, page, ...) CPU
+        tensor (pinned for a CUDA pool). The copy is synchronous: it is
+        complete, and ordered after every write the stream queued to these
+        pages, when this returns, so the caller may free the pages and let
+        the next step rewrite them."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        out = {}
+        for name in self._kv_names:
+            src = self.cache[name].index_select(1, idx)
+            if self.device.type == "cuda":
+                dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+                dst.copy_(src)
+                src = dst
+            out[name] = src
+        return out
+
+    def _restore_pages(self, pages: list[int], arrays: dict) -> None:
+        """Copy host content back into freshly allocated pool pages, every
+        plane (synchronous host→device copies)."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for name in self._kv_names:
+            self.cache[name].index_copy_(1, idx, arrays[name].to(self.device))
+
+    def _demote_prefix_page(self, key: tuple, page: int) -> None:
+        """Prefix-index eviction hook: copy the page's content to the host
+        tier (keyed by the token prefix it caches) before the index drops
+        its pool ref. Co-readers still holding the page are unaffected."""
+        if self.host.put(("prefix", key), self._gather_host([page]), 1):
+            self.host_demoted_pages += 1
+
+    def _promote_prefix_page(self, key: tuple) -> int | None:
+        """Prefix-index miss hook: restore a demoted page into a fresh pool
+        page, whose rc=1 ref becomes the index's. None when the tier holds
+        no copy or the pool is too tight to spend a page on caching (a
+        promotion never spends the admission watermark)."""
+        if self.host.n_pages(("prefix", key)) != 1:
+            return None
+        if self.pool.available <= self.watermark_pages + 1:
+            return None
+        pages = self.pool.alloc(1)
+        self._restore_pages(pages, self.host.pop(("prefix", key)))
+        self.host_promote_hits += 1
+        return pages[0]
+
     def _preempt(self, i: int) -> None:
         """Send slot ``i`` back to the HEAD of the queue, freeing its pages;
-        re-admission re-prefills prompt + generated and continues."""
+        re-admission re-prefills prompt + generated and continues. With the
+        host tier on, the pages are first copied device→host (BEFORE the
+        pool refs drop: a freed page may be rewritten by the very next
+        decode step), and re-admission restores them instead; the re-prefill
+        stays the fallback whenever the tier refused or dropped the entry."""
         slot = self.slots[i]
-        self.pool.free(self._slot_pages[i])
+        pages = self._slot_pages[i]
+        host_key = None
+        if self.swap and pages:
+            key = ("swap", slot.req.uid)
+            if self.host.put(key, self._gather_host(pages), len(pages)):
+                host_key = key
+                self.swapped_out_pages += len(pages)
+        self.pool.free(pages)
         self._slot_pages[i] = []
         self._table_np[i, :] = 0
         self._table_dirty = True
         self._resume[slot.req.uid] = _ResumeState(
             generated=list(slot.generated), first_token_time=slot.first_token_time,
-            admit_time=slot.admit_time,
+            admit_time=slot.admit_time, host_key=host_key, pos=slot.pos_host,
         )
         self.waiting.appendleft(slot.req)
         self.slots[i] = None
@@ -678,8 +907,8 @@ def make_requests(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
 def serve_continuous(
     arch: str, *, smoke: bool = True, num_slots: int = 4, n_requests: int = 8,
     prompt_len: int = 32, gen_tokens: int = 32, page_size: int = 16, num_pages: int = 0,
-    watermark_pages: int = 0, prefix_cache: bool = True, seed: int = 0,
-    device="cuda", log_fn=print,
+    watermark_pages: int = 0, prefix_cache: bool = True, kv_dtype: str = "fp",
+    host_pages: int = 0, swap: bool = True, seed: int = 0, device="cuda", log_fn=print,
 ) -> dict:
     """Build a model with seeded random weights and an engine, serve a
     synthetic trace after a warm-up run, report throughput and latency."""
@@ -690,7 +919,8 @@ def serve_continuous(
     engine = ServeEngine(
         model, params, num_slots=num_slots, max_seq=prompt_len + gen_tokens,
         page_size=page_size, num_pages=num_pages, watermark_pages=watermark_pages,
-        prefix_cache=prefix_cache, device=device,
+        prefix_cache=prefix_cache, kv_dtype=kv_dtype, host_pages=host_pages, swap=swap,
+        device=device,
     )
     reqs = make_requests(cfg, n_requests=n_requests, prompt_len=prompt_len,
                          gen_tokens=gen_tokens, seed=seed)
@@ -710,6 +940,8 @@ def serve_continuous(
         "prompt_len": prompt_len,
         "gen_tokens": gen_tokens,
         "prefix_cache": engine.prefix_cache,
+        "kv_dtype": kv_dtype,
+        "host_pages": host_pages,
         "prefill_tokens": engine.prefill_tokens,
         "engine_steps": engine.steps,
         "prefill_dispatches": engine.prefill_dispatches,
@@ -730,6 +962,14 @@ def serve_continuous(
         pool_line += (
             f", prefix hit {ps['prefix_hit_rate']:.0%} "
             f"({ps['prefix_hit_pages']} pages, {ps['cow_copies']} CoW)"
+        )
+    if kv_dtype != "fp":
+        pool_line += f", {kv_dtype} pages"
+    if engine.host is not None:
+        pool_line += (
+            f", host tier {ps['swapped_out_pages']} pages swapped out / "
+            f"{ps['swapped_in_pages']} in, {ps['host_demoted_pages']} demoted / "
+            f"{ps['host_promote_hits']} promoted"
         )
     log_fn(
         f"{cfg.name}: {n_requests} reqs × {gen_tokens} tok over {num_slots} slots in "

@@ -1,6 +1,7 @@
 """Radix prefix index over the shared paged KV pool (prefix sharing) — the
 port's own copy of the reference's ``launch/prefix_cache.py`` (numpy only),
-without its host-tier demote/promote hooks.
+with its host-tier demote/promote hooks and without the router's
+``probe``.
 
 The serve engine's page tables decouple a slot's logical token positions
 from physical KV storage; this module adds the cross-request half of that
@@ -33,6 +34,10 @@ Design
   gracefully to the no-sharing engine instead of thrashing.
 * ``max_pages`` caps the index footprint; inserts beyond it evict LRU
   leaves first and simply stop publishing if nothing is evictable.
+* With a host tier, eviction DEMOTES a page (``demote_fn`` copies its
+  content to host memory before the index's pool ref drops) and a later
+  ``match`` that walks off the trie PROMOTES it back (``promote_fn``
+  restores it into a fresh pool page, which re-enters the index).
 
 The index is pure host-side bookkeeping — it never touches device memory.
 All device effects (table entries, COW page copies) live in the engine.
@@ -65,12 +70,24 @@ class PrefixCache:
         refcounts backing every cached page).
     max_pages : cap on cached pages; 0 means the pool's allocatable
         capacity (the index can never pin more than the pool holds).
+    demote_fn : optional ``(prefix_tokens, page) -> None`` hook, called for
+        a node leaving the index under LRU/pressure eviction (NOT on
+        ``clear``) BEFORE its pool ref drops — the engine copies the page's
+        content to the host tier there. ``prefix_tokens`` is the full token
+        prefix the page caches (root chunk chain included).
+    promote_fn : optional ``(prefix_tokens) -> int | None`` hook consulted
+        when ``match`` walks off the indexed trie: a returned page id is a
+        FRESHLY allocated pool page holding the demoted content (rc=1, the
+        ref becomes the index's — mirror of ``insert``'s share), and the
+        walk re-adopts it as a node and keeps matching. None = genuine miss.
     """
 
-    def __init__(self, pool, max_pages: int = 0):
+    def __init__(self, pool, max_pages: int = 0, *, demote_fn=None, promote_fn=None):
         self.pool = pool
         self.page_size = pool.page_size
         self.max_pages = max_pages if max_pages > 0 else pool.capacity
+        self.demote_fn = demote_fn
+        self.promote_fn = promote_fn
         self._root = _Node(chunk=(), page=-1, parent=None)
         self._clock = itertools.count(1)
         self.size = 0  # pages currently indexed
@@ -99,8 +116,19 @@ class PrefixCache:
                 out.append(n)
         return out
 
-    def _evict_node(self, node: _Node) -> None:
+    def _prefix_tokens(self, node: _Node) -> tuple:
+        """Full token prefix cached by ``node``: the chunk chain from the
+        root, flattened — the host-tier key for demoted content."""
+        chunks = []
+        while node is not self._root:
+            chunks.append(node.chunk)
+            node = node.parent
+        return tuple(t for chunk in reversed(chunks) for t in chunk)
+
+    def _evict_node(self, node: _Node, *, demote: bool = True) -> None:
         assert not node.children, "only leaves are evictable"
+        if demote and self.demote_fn is not None:
+            self.demote_fn(self._prefix_tokens(node), node.page)
         del node.parent.children[node.chunk]
         self.pool.free([node.page])  # page dies iff no slot still shares it
         self.size -= 1
@@ -116,14 +144,38 @@ class PrefixCache:
     # ----------------------------------------------------------------- api
     def match(self, tokens) -> list[int]:
         """Longest indexed prefix of ``tokens`` in full pages: physical
-        page ids, in logical order. Touches the matched path (LRU)."""
+        page ids, in logical order. Touches the matched path (LRU).
+
+        When the walk falls off the trie and a ``promote_fn`` is wired,
+        the demoted tier gets one shot per chunk: a promoted page re-enters
+        the index as a fresh node (its rc=1 ref becomes the index's) and
+        the match keeps extending — LRU-evicting around the CURRENT path
+        if the index is at its page cap, never through it."""
         self.lookups += 1
         node, pages = self._root, []
-        for chunk in self._chunks(tokens):
+        toks = np.asarray(tokens).reshape(-1).tolist()
+        path: set[int] = set()
+        for depth, chunk in enumerate(self._chunks(tokens)):
             child = node.children.get(chunk)
+            if child is None and self.promote_fn is not None:
+                page = self.promote_fn(tuple(toks[: (depth + 1) * self.page_size]))
+                if page is not None:
+                    ok = True
+                    while self.size >= self.max_pages and ok:
+                        ok = self._evict_lru_leaf(path)
+                    if not ok:
+                        # cap reached and every leaf is on the current
+                        # path: drop the restored page (it is a cache)
+                        self.pool.free([page])
+                    else:
+                        child = _Node(chunk=chunk, page=page, parent=node)
+                        node.children[chunk] = child
+                        self.size += 1
+                        self.inserted_pages += 1
             if child is None:
                 break
             self._touch(child)
+            path.add(id(child))
             pages.append(child.page)
             node = child
         self.hit_pages += len(pages)
@@ -175,12 +227,13 @@ class PrefixCache:
 
     def clear(self) -> None:
         """Drop every entry (one pool ref each). Counters survive; the
-        engine resets those separately."""
+        engine resets those separately. A reset is not memory pressure, so
+        nothing demotes to the host tier."""
         for leaf in self._leaves():
             node = leaf
             while node is not self._root and not node.children:
                 parent = node.parent
-                self._evict_node(node)
+                self._evict_node(node, demote=False)
                 node = parent
 
     def reset_stats(self) -> None:

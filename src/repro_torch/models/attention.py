@@ -7,7 +7,10 @@ bookkeeping beyond the validity mask. The pool is one (P, page, Hkv, hd)
 tensor per layer shared by every slot, with page 0 reserved as scratch; a
 slot's (T,) table row maps its logical ring pages into it (capacity
 T·page). Where the reference donated the pool through ``jit``, the port
-writes it in place."""
+writes it in place. An int8 pool adds one f32 scale plane per k and v
+(``ks``/``vs``, (P, page, Hkv)): every write quantizes its rows
+(``ops.kv_quant``), every read dequantizes to the model dtype in the
+kernel."""
 from __future__ import annotations
 
 import torch
@@ -85,16 +88,18 @@ def attend_causal(
 
 def attend_suffix(
     params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
-    kv: tuple[torch.Tensor, torch.Tensor], pool_k: torch.Tensor, pool_v: torch.Tensor,
+    kv: tuple[torch.Tensor, torch.Tensor], pool: dict,
     table_rows: torch.Tensor, starts: torch.Tensor, prefix_width: int,
 ) -> torch.Tensor:
     """Suffix prefill: row r's tokens sit at absolute positions
     starts[r] + i and attend over the first starts[r] cached tokens of its
-    pages (through ``table_rows``) and, causally, over themselves."""
+    pages (through ``table_rows``; ``pool`` holds one layer's ``k``/``v``
+    and, int8, ``ks``/``vs``) and, causally, over their own fp k/v."""
     n, s, _ = x.shape
     out = ops.suffix_prefill_attention(
-        _queries(params, x, positions, cfg), kv[0], kv[1], pool_k, pool_v,
+        _queries(params, x, positions, cfg), kv[0], kv[1], pool["k"], pool["v"],
         table_rows, starts, prefix_width=prefix_width,
+        pool_k_scale=pool.get("ks"), pool_v_scale=pool.get("vs"),
     )
     return out.reshape(n, s, -1) @ params["wo"]
 
@@ -105,18 +110,34 @@ def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return gather_pages_ref(pool, table)
 
 
+def _write_slots(pool: dict, phys: torch.Tensor, off: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """k/v rows (m, Hkv, hd) into pool slots (phys, off), in place; an int8
+    pool takes each row quantized per kv head, q and scale."""
+    if "ks" in pool:
+        k, k_scale = ops.kv_quant(k)
+        v, v_scale = ops.kv_quant(v)
+        pool["ks"][phys, off] = k_scale
+        pool["vs"][phys, off] = v_scale
+    pool["k"][phys, off] = k
+    pool["v"][phys, off] = v
+
+
 def fill_pages_rows(
-    pool_k: torch.Tensor, pool_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    pool: dict, k: torch.Tensor, v: torch.Tensor,
     table_rows: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
 ) -> None:
-    """Per-row paged ring write, in place: row r's first lengths[r] tokens
-    of k/v (n, S, Hkv, hd) land at logical ring slots (starts[r] + j) mod
-    T·page of its table row — the state lengths[r] sequential one-token
-    writes leave. Only those slots are touched: no other lane of a page
-    (shared prefix lanes included) is rewritten, and no two writes hit one
-    slot (a row longer than its ring keeps only its last T·page tokens)."""
+    """Per-row paged ring write into one layer's ``pool`` planes, in place:
+    row r's first lengths[r] tokens of k/v (n, S, Hkv, hd) land at logical
+    ring slots (starts[r] + j) mod T·page of its table row — the state
+    lengths[r] sequential one-token writes leave. Only those slots are
+    touched: no other lane of a page (shared prefix lanes included) is
+    rewritten, and no two writes hit one slot (a row longer than its ring
+    keeps only its last T·page tokens). So on an int8 pool only the written
+    slots are quantized, and shared prefix pages keep their bits: what the
+    reference's masked requantization of whole gathered rows gives."""
     s = k.shape[1]
-    page = pool_k.shape[1]
+    page = pool["k"].shape[1]
     cap = table_rows.shape[1] * page
     j = torch.arange(s, device=k.device)[None, :]
     lengths = lengths.long()[:, None]
@@ -124,30 +145,31 @@ def fill_pages_rows(
     slot = (starts.long()[:, None] + j) % cap
     phys = table_rows.long().gather(1, slot // page)[live]
     off = (slot % page)[live]
-    pool_k[phys, off] = k[live]
-    pool_v[phys, off] = v[live]
+    _write_slots(pool, phys, off, k[live], v[live])
 
 
 def decode_attend_paged(
     params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, *, window: int = 0,
 ) -> torch.Tensor:
     """One decode step over one layer of the shared pool. x: (B, 1, D);
-    cache: {"k"/"v": (P, page, Hkv, hd), "pos": (B,), "table": (B, T)}.
-    Row b's token is written first, at logical ring slot pos[b] mod T·page
-    through its table (in place), then attends over its ring. Live slots own
-    their pages, so rows never collide except on scratch page 0, which no
-    live read dereferences."""
+    cache: {"k"/"v": (P, page, Hkv, hd), "pos": (B,), "table": (B, T)} and,
+    for an int8 pool, "ks"/"vs" (P, page, Hkv). Row b's token is written
+    first, at logical ring slot pos[b] mod T·page through its table (in
+    place; quantized per kv head on an int8 pool), then attends over its
+    ring, itself included through the int8 round trip as the reference's
+    does. Live slots own their pages, so rows never collide except on
+    scratch page 0, which no live read dereferences."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    pool_k, pool_v, pos, table = cache["k"], cache["v"], cache["pos"], cache["table"]
-    page = pool_k.shape[1]
+    pos, table = cache["pos"], cache["table"]
+    page = cache["k"].shape[1]
     cap = table.shape[1] * page
     q = _queries(params, x, pos[:, None], cfg)                     # (B, 1, Hkv, G, hd)
     k, v = compute_kv_for_prefill(params, x, pos[:, None], cfg)    # (B, 1, Hkv, hd)
     slot = pos.long() % cap
     phys = table.long().gather(1, (slot // page)[:, None])[:, 0]
     off = slot % page
-    pool_k[phys, off] = k[:, 0]
-    pool_v[phys, off] = v[:, 0]
-    out = ops.paged_decode_attention(q[:, 0], pool_k, pool_v, pos, table, window)
+    _write_slots(cache, phys, off, k[:, 0], v[:, 0])
+    out = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"], pos, table, window,
+                                     k_scale=cache.get("ks"), v_scale=cache.get("vs"))
     return out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]

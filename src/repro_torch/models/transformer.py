@@ -106,17 +106,36 @@ def init_paged_cache(
 ) -> dict:
     """Stacked shared pool (L, P, page, Hkv, hd) for k and v, per-slot write
     positions and one (num_slots, T) page table shared by every layer. Page
-    0 is the reserved scratch page."""
-    if kv_dtype != "fp":
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r}: int8 pages are a later slice")
+    0 is the reserved scratch page.
+
+    ``kv_dtype="int8"`` stores the pages quantized (``ops.kv_quant``'s row
+    scheme): k/v become int8 and ``ks``/``vs`` hold one f32 scale per token
+    slot per kv head, shape ``k.shape[:-1]`` (1/hd of the page bytes)."""
+    if kv_dtype not in ("fp", "int8"):
+        raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
-    dt = getattr(torch, cfg.dtype)
-    return {
+    dt = torch.int8 if kv_dtype == "int8" else getattr(torch, cfg.dtype)
+    cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
         "pos": torch.zeros((num_slots,), dtype=torch.int32, device=device),
         "table": torch.zeros((num_slots, table_width), dtype=torch.int32, device=device),
     }
+    if kv_dtype == "int8":
+        cache["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        cache["vs"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
+
+
+KV_PLANES = ("k", "v", "ks", "vs")
+
+
+def layer_cache(cache: dict, i: int) -> dict:
+    """Layer i's views of the pool planes (``k``/``v`` and, for an int8
+    pool, ``ks``/``vs``) with the shared ``pos`` and ``table``."""
+    out = {name: cache[name][i] for name in KV_PLANES if name in cache}
+    out["pos"], out["table"] = cache["pos"], cache["table"]
+    return out
 
 
 def _mlp_residual(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
@@ -131,12 +150,9 @@ def decode_step(
     h = embed_tokens(params["embed"], tokens)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        layer_cache = {
-            "k": cache["k"][i], "v": cache["v"][i],
-            "pos": cache["pos"], "table": cache["table"],
-        }
         a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
-        h = h + attn.decode_attend_paged(lp["attn"], a, layer_cache, cfg, window=window)
+        h = h + attn.decode_attend_paged(lp["attn"], a, layer_cache(cache, i), cfg,
+                                         window=window)
         h = _mlp_residual(cfg, lp, h)
     h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
     cache["pos"] += 1
@@ -162,7 +178,11 @@ def prefill_slots(
     suffix of its prompt at positions starts[r] + i, attending over the
     first starts[r] cached tokens of its pages (at most ``prefix_pages``
     leading pages per row, all of the table when None) through the
-    suffix-prefill kernel."""
+    suffix-prefill kernel.
+
+    An int8 pool is written quantized (only at this round's slots, so
+    shared prefix pages keep their bits); cold rows attend their own fp
+    k/v, suffix rows the dequantized prefix plus their own fp k/v."""
     n, s = tokens.shape
     device = tokens.device
     slots = slots.long()
@@ -182,20 +202,20 @@ def prefill_slots(
     h = embed_tokens(params["embed"], tokens)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        ck, cv = cache["k"][i], cache["v"][i]
+        lc = layer_cache(cache, i)
         a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
         k, v = attn.compute_kv_for_prefill(lp["attn"], a, pos, cfg)
         if starts is None:
             a = attn.attend_full(lp["attn"], a, pos, cfg, window=window, kv=(k, v))
         else:
             a = attn.attend_suffix(
-                lp["attn"], a, pos, cfg, kv=(k, v), pool_k=ck, pool_v=cv,
+                lp["attn"], a, pos, cfg, kv=(k, v), pool=lc,
                 table_rows=table_rows, starts=starts, prefix_width=w_pfx,
             )
         h = _mlp_residual(cfg, lp, h + a)
         # the prefix lanes were read above; the write touches only this
         # round's own slots
-        attn.fill_pages_rows(ck, cv, k, v, table_rows, write_starts, lengths)
+        attn.fill_pages_rows(lc, k, v, table_rows, write_starts, lengths)
     h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
     last = h[torch.arange(n, device=device), (lengths.long() - 1).clamp(min=0)]
     logits = lm_logits(params["embed"], last[:, None], cfg)[:, 0]

@@ -194,7 +194,7 @@ def test_submit_rejects_what_the_pool_can_never_hold():
 
 @pytest.mark.parametrize("kw", [
     dict(window=4), dict(prefill="interleaved"), dict(paged_cache=False),
-    dict(kv_dtype="int8"), dict(host_pages=4), dict(spec_tokens=2), dict(mesh=object()),
+    dict(spec_tokens=2), dict(mesh=object()),
 ])
 def test_settings_outside_the_slice_raise(kw):
     cfg, _ = _f32_configs()

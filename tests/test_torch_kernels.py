@@ -183,7 +183,15 @@ def test_cpu_tensors_take_the_plain_versions_without_a_launch():
     torch.testing.assert_close(ops.int8_roundtrip_leaf(x), ref.int8_roundtrip_ref(x))
     torch.testing.assert_close(ops.tree_sq_norm({"a": x}), ref.sq_norm_ref(x))
     torch.testing.assert_close(ops.clip_noise(x, 0.5), ref.clip_noise_ref(x, torch.tensor(0.5)))
+    q8, s8 = ref.kv_quant_ref(kp)
+    torch.testing.assert_close(ops.kv_quant(kp), (q8, s8), rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.paged_decode_attention(q, q8, q8, pos, table, k_scale=s8, v_scale=s8),
+        ref.paged_decode_int8_ref(q, q8, q8, s8, s8, pos, table), rtol=0, atol=0)
+    torch.testing.assert_close(ops.int8_encode_leaf(x)[:2], ref.int8_encode_ref(ref._blocks(x)),
+                               rtol=0, atol=0)
     assert set(ops.LAUNCHES) == {"paged_decode", "flash_prefill", "suffix_prefill",
+                                 "paged_decode_int8", "suffix_prefill_int8", "int8_encode",
                                  "int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise"}
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
@@ -407,3 +415,89 @@ def test_channel_launch_counters_cuda(sm90):
         from repro_torch.kernels.topk_compress import topk_sparsify
 
         topk_sparsify(x.bfloat16(), 3)
+
+
+# ------------------------------------------------------- int8 KV pages
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32)])
+def test_int8_kernels_match_plain_and_fp_kernels_cuda(sm90, dtype, g, hd):
+    """The int8-pool decode and suffix kernels against their plain versions
+    (fp32 within 1e-5, bf16 within 2e-2) and BITWISE against the fp kernels
+    run over the dequantized pool (in-kernel dequant rounds to q's dtype,
+    then the same math)."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator().manual_seed(7 * g + hd)
+    b, hkv, page, t_w, pages = 3, 2, 16, 6, 24
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    kq, ks = ref.kv_quant_ref(torch.randn(pages, page, hkv, hd, generator=gen).cuda())
+    vq, vs = ref.kv_quant_ref(torch.randn(pages, page, hkv, hd, generator=gen).cuda())
+    kd, vd = ref.dequant_pool_ref(kq, ks, dtype), ref.dequant_pool_ref(vq, vs, dtype)
+    table = torch.zeros(b, t_w, dtype=torch.int32)
+    table[0, :2] = torch.tensor([5, 9])
+    table[1, :] = torch.tensor([3, 11, 7, 20, 14, 2])
+    table[2, :4] = torch.tensor([5, 17, 1, 8])
+    table = table.cuda()
+    q = rnd(b, hkv, g, hd)
+    pos = torch.tensor([20, t_w * page + 9, 50], dtype=torch.int32, device="cuda")
+    for window in (0, 7):
+        out = ops.paged_decode_attention(q, kq, vq, pos, table, window, k_scale=ks, v_scale=vs)
+        assert torch.equal(out, ops.paged_decode_attention(q, kd, vd, pos, table, window))
+        torch.testing.assert_close(
+            out.float(), ref.paged_decode_int8_ref(q, kq, vq, ks, vs, pos, table, window).float(),
+            rtol=0, atol=tol)
+    for s in (8, 100):
+        qs, ksuf, vsuf = rnd(b, s, hkv, g, hd), rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
+        starts = torch.tensor([0, 33, 48], dtype=torch.int32, device="cuda")
+        for width in (3, 6):
+            out = ops.suffix_prefill_attention(qs, ksuf, vsuf, kq, vq, table, starts,
+                                               prefix_width=width, pool_k_scale=ks,
+                                               pool_v_scale=vs)
+            assert torch.equal(out, ops.suffix_prefill_attention(
+                qs, ksuf, vsuf, kd, vd, table, starts, prefix_width=width))
+            torch.testing.assert_close(
+                out.float(), ref.suffix_prefill_int8_ref(qs, ksuf, vsuf, kq, vq, ks, vs, table,
+                                                         starts, prefix_width=width).float(),
+                rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_encode_matches_plain_version_cuda(sm90, dtype):
+    """int8_encode bitwise equal to the plain version, q and scale, over
+    rows of every length it takes, at three magnitudes, and a ragged leaf."""
+    from repro_torch.kernels.quantize import int8_encode
+
+    gen = torch.Generator().manual_seed(11)
+    for r in (32, 64, 128, 256):
+        for scale in (1e-3, 1.0, 1e3):
+            x = (torch.randn(777, r, generator=gen) * scale).to("cuda", dtype)
+            x[1] = 0
+            got = int8_encode(x, r)
+            want = ref.int8_encode_ref(x)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            assert torch.equal(ops.kv_quant(x.reshape(7, 111, r))[0].reshape(777, r), want[0])
+    leaf = torch.randn(256 * 40 + 77, generator=gen).cuda()
+    q, s, n = ops.int8_encode_leaf(leaf)
+    wq, ws = ref.int8_encode_ref(ref._blocks(leaf))
+    assert n == leaf.numel() and torch.equal(q, wq) and torch.equal(s, ws)
+
+
+def test_int8_launch_counters_cuda(sm90):
+    build.reset_launches()
+    q = torch.randn(2, 2, 1, 64, device="cuda")
+    kq, ks = ops.kv_quant(torch.randn(4, 16, 2, 64, device="cuda"))
+    table = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([20, 3], dtype=torch.int32, device="cuda")
+    ops.paged_decode_attention(q, kq, kq, pos, table, k_scale=ks, v_scale=ks)
+    qs, kv = torch.randn(2, 8, 2, 1, 64, device="cuda"), torch.randn(2, 8, 2, 64, device="cuda")
+    ops.suffix_prefill_attention(qs, kv, kv, kq, kq, table, pos, prefix_width=2,
+                                 pool_k_scale=ks, pool_v_scale=ks)
+    assert {k: ops.LAUNCHES[k] for k in ("int8_encode", "paged_decode_int8",
+                                         "suffix_prefill_int8", "paged_decode")} == {
+        "int8_encode": 1, "paged_decode_int8": 1, "suffix_prefill_int8": 1, "paged_decode": 0}
+    with pytest.raises(TypeError, match="int8"):
+        ops.paged_decode_attention(q, kq.float(), kq.float(), pos, table, k_scale=ks,
+                                   v_scale=ks)
+    assert ops.LAUNCHES["paged_decode_int8"] == 1
