@@ -31,6 +31,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    embedding leaf (205,520,896 elements, rows of 256), with a planted fault
    (divisor 128). Times as in 3; the library call is
    ``scaled_dot_product_attention`` over the K/V dequantized beforehand;
+3c. ring kernels: ``paged_decode_ring`` (dead pages skipped) and
+   ``swa_decode`` (every slot) against their plain versions and BITWISE
+   against each other (the former at every page of 64-512 keys; the table
+   kernel over the same keys in pool pages too) at the
+   ring path's shape (B 4, Hkv 32, hd 64, bf16, C 4096, window 4096, two
+   rows short of the ring, two wrapped), long_500k's (B 1, C 8192, pos
+   524287), the single-batch path's (B 4, hd 64, bf16, C = window = 96:
+   one ring page of 96 keys, streamed as a 64-key tile and a 32-key tail;
+   every row wrapped, a scalar position and per-row ones) and a GQA shape
+   (G 4, hd 128, bf16 and f32, a scalar position, window 1000 < C);
+   planted faults (a mask shifted by one key, the ring
+   offset without the mod wrap, the last live page dropped) must land
+   outside the tolerance. Times as in 3 at the first two shapes; the
+   library call runs over the rings unrolled to position order; both
+   kernels' bounds count the K and V of each row's live span (what the
+   function needs), ``swa_decode``'s log line also the bytes it streams;
 4. golden: the port's engine replays the reference engine's float32 greedy
    trace (``src/repro_torch/testdata/golden_stablelm_smoke.json``) and must
    reproduce its tokens exactly;
@@ -39,6 +55,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    pool that preempts, a host tier that swaps and demotes/promotes); tokens
    and the counters (preemptions, pages swapped out and in, pages demoted,
    promote hits, prefill tokens, CoW copies) must be the reference's;
+4c. golden ring: the reference's float32 ring-mode trace
+   (``golden_stablelm_smoke_ring.json``: the ring engine chunked with a
+   window its prompts wrap, interleaved, with paged decode off; the
+   windowed paged engine; the windowed single-batch path): every token;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -61,6 +81,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    wall, device time, launches and idle share. The kernels line's
    ``int8_encode`` row is the decode step's pool write (256 rows of 64),
    the shape of almost all its launches;
+5c. ring main path: stablelm-1.6b at its published widths over 4 slots of
+   4096-slot rings (window 4096, 3.2 GB), chunked prefill, prompts of
+   6144/5000/2048/700/300/96 tokens x 32: budgets, finite logits,
+   ``paged_decode_ring`` and ``flash_prefill`` launched, one decode step's
+   logits over two wrapped and two short rows (kernel vs plain, the two
+   ring kernels bitwise, planted faults). Printed: the trace with paged decode off
+   (``swa_decode``), the decode step's profile for both, the trace over
+   the windowed paged pool (token agreement), an interleaved trace (4
+   prompts of <= 64 tokens x 16);
+5d. single batch: ``generate_batch`` at full width, batch 4, prompt 64, gen
+   64, window 96 (the ring wraps; its shape is checked in 3c);
+   ``swa_decode`` must launch;
 6. channel kernels: top-k, int8, the DP norm and clip/noise against their
    plain versions on the card at the training path's leaves (the embedding,
    100352 x 2048, and one stacked MLP leaf, 24 x 2048 x 5632, fp32, k = 3):
@@ -74,9 +106,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    one sync round from a copy of the trained state through the kernels and
    through the plain versions (and a planted fault) with the same noise
    seed, whose new global parameters must agree;
-8. a ``{"kernels": [...]}`` line (ten kernels: launches from the fp main
-   path, the int8 main path and the training run), then
-   ``{"ok": true, "device": {...}}`` last.
+8. a ``{"kernels": [...]}`` line (twelve kernels: launches from the fp
+   main path, the int8 main path, the ring main path (``swa_decode``'s from
+   its paged-decode-off run, at the shape 3c times) and the training run),
+   then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -120,6 +153,8 @@ REPLACES = {
     "topk_sparsify": "src/repro/kernels/topk_compress.py:50",
     "sq_norm": "src/repro/kernels/dp_clip.py:36",
     "clip_noise": "src/repro/kernels/dp_clip.py:58",
+    "paged_decode_ring": "src/repro/kernels/paged_decode.py:144",
+    "swa_decode": "src/repro/kernels/swa_decode.py:85",
 }
 SOURCES = {
     "paged_decode": "src/repro_torch/csrc/paged_decode.cu",
@@ -132,6 +167,8 @@ SOURCES = {
     "topk_sparsify": "src/repro_torch/csrc/topk_compress.cu",
     "sq_norm": "src/repro_torch/csrc/dp_clip.cu",
     "clip_noise": "src/repro_torch/csrc/dp_clip.cu",
+    "paged_decode_ring": "src/repro_torch/csrc/paged_decode.cu",
+    "swa_decode": "src/repro_torch/csrc/swa_decode.cu",
 }
 SERVING = ("paged_decode", "flash_prefill", "suffix_prefill")
 # the int8 serving path: cold prefill attends fp k/v (flash_prefill), every
@@ -178,10 +215,12 @@ def expect(cond: bool, what: str) -> None:
 
 def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
     """(device ms, wall ms) per call of ``fn``. Device time is the sum of
-    the profiler's kernel rows (every kernel the call launched); wall time
-    is CUDA events around ``iters`` back-to-back calls, host work included."""
+    the profiler's kernel rows (every kernel the call launched) over a
+    window of ``iters`` calls that follows a warm-up window of as many
+    (the profiler drops its records); wall time is CUDA events around
+    ``iters`` back-to-back calls, host work included."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
@@ -192,13 +231,38 @@ def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(dev > 0, "the profiler saw no kernel: device time not measured")
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # (the step's own annotation has a device row spanning its kernels)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
+        dev = sum(e.self_device_time_total for e in rows)
+        check(dev > 0, "the profiler saw no kernel: device time not measured")
+        # A sound window holds every kernel of the iters calls once: each
+        # kernel's record count a multiple of iters, and no more device
+        # time than the back-to-back wall. Without the warm-up window, the
+        # first records of windows over calls of a millisecond went missing
+        # (up to half of them) on an H100; with it, now and then a few.
+        counts = {e.key: e.count for e in rows}
+        if not any(n % iters for n in counts.values()) and dev / iters / 1e3 <= 1.02 * wall:
+            break
+        evs = prof.events()
+        kern = [e.time_range for e in evs
+                if e.device_type == cuda and not e.name.startswith("ProfilerStep")]
+        host = [e.time_range for e in evs if e.device_type != cuda]
+        t0 = min(t.start for t in host)
+        log(f"[timing] suspect profiler window (attempt {attempt + 1} of 3): device "
+            f"{dev / iters / 1e3:.4f} ms vs wall {wall:.4f} ms per call over {iters} calls; "
+            f"kernel records {counts}; kernel span {min(t.start for t in kern) - t0:.1f}.."
+            f"{max(t.end for t in kern) - t0:.1f} us, host span 0.."
+            f"{max(t.end for t in host) - t0:.1f} us")
     return dev / iters / 1e3, wall
 
 
@@ -317,15 +381,16 @@ def plain_kernels(**swap):
     writes through the plain versions, on whatever device the tensors are:
     the reference run of the logit comparison. ``swap`` replaces some of
     them (``paged_decode=``, ``flash_prefill=``, ``suffix_prefill=``,
-    ``kv_quant=``), e.g. with a planted fault."""
+    ``kv_quant=``, ``ring_decode=``), e.g. with a planted fault."""
     from repro_torch.kernels import ops, ref
 
     names = {"paged_decode": "paged_decode_attention",
              "flash_prefill": "flash_prefill_attention",
              "suffix_prefill": "suffix_prefill_attention",
-             "kv_quant": "kv_quant"}
+             "kv_quant": "kv_quant", "ring_decode": "swa_decode_attention"}
     plain = {"paged_decode": _plain_decode, "flash_prefill": ref.flash_prefill_ref,
-             "suffix_prefill": _plain_suffix, "kv_quant": ref.kv_quant_ref, **swap}
+             "suffix_prefill": _plain_suffix, "kv_quant": ref.kv_quant_ref,
+             "ring_decode": _plain_ring, **swap}
     saved = {k: getattr(ops, attr) for k, attr in names.items()}
     for k, attr in names.items():
         setattr(ops, attr, plain[k])
@@ -813,6 +878,209 @@ def phase_kernels_int8(smi):
     return rows
 
 
+# ----------------------------------------------------------------- phase 3c
+def _ring_plain(q, k, v, pos, window=0, fault=None):
+    """The plain ring decode (``ref.swa_decode_ref``'s mask and softmax),
+    optionally with one planted fault in its mask: "newest" leaves out the
+    key at slot pos mod C (a mask shifted by one key); "nowrap" reconstructs
+    gpos without the mod wrap (keys written in an earlier lap drop out);
+    "lastpage" leaves out the ring page (``ring_page(C)`` keys) holding the
+    newest key."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_decode import ring_page
+
+    b, cap = k.shape[:2]
+    pos = ref._row_pos(pos, b, q.device)
+    valid = ref._ring_valid(pos, cap, window)
+    slots = torch.arange(cap, device=q.device)[None, :]
+    newest = (pos % cap)[:, None]
+    if fault == "newest":
+        valid &= slots != newest
+    elif fault == "nowrap":
+        valid &= slots <= newest
+    elif fault == "lastpage":
+        page = ring_page(cap)
+        valid &= slots // page != newest // page
+    return ref._attend(q[:, None], k, v, valid[:, None, None, None, :])[:, 0]
+
+
+def _plain_ring(q, k, v, pos, window=0, *, paged=True):
+    """ops.swa_decode_attention's plain route on any device."""
+    return _ring_plain(q, k, v, pos, window)
+
+
+def _ring_fault(kind):
+    def fn(q, k, v, pos, window=0, *, paged=True):
+        return _ring_plain(q, k, v, pos, window, fault=kind)
+    return fn
+
+
+RING_FAULTS = (("mask shifted by one key", "newest"), ("ring offset without the mod wrap",
+               "nowrap"), ("last live page dropped", "lastpage"))
+# The faults each phase-3c shape must catch. The missing mod wrap cannot
+# change the output where no row has wrapped (the GQA shape) or where the
+# newest key sits in the ring's last slot (long_500k: 524287 mod 8192 =
+# 8191): there it is printed, not gated.
+RING_FAULTS_GATED = {"path": ("newest", "nowrap", "lastpage"),
+                     "long_500k": ("newest", "lastpage"), "gqa": ("newest", "lastpage"),
+                     "batch": ("newest", "nowrap", "lastpage")}
+
+
+def _unrolled(k, v, pos, window):
+    """Rings (B, C, Hkv, hd) unrolled to position order up to each row's
+    live span (min(pos + 1, C, window) keys ending at pos), padded to the
+    longest: (K, V as (B, Hkv, L, hd), key mask (B, L))."""
+    import torch
+
+    b, cap = k.shape[:2]
+    spans = [min(int(p) + 1, cap, window or cap) for p in pos.tolist()]
+    n = max(spans)
+    idx = torch.zeros(b, n, dtype=torch.long)
+    mask = torch.zeros(b, n, dtype=torch.bool)
+    for r, (p, span) in enumerate(zip(pos.tolist(), spans)):
+        idx[r, :span] = torch.arange(p - span + 1, p + 1) % cap
+        mask[r, :span] = True
+    idx = idx.to(k.device)[:, :, None, None].expand(-1, -1, *k.shape[2:])
+    return (k.gather(1, idx).transpose(1, 2).contiguous(),
+            v.gather(1, idx).transpose(1, 2).contiguous(), mask.to(k.device), spans)
+
+
+def _as_pool(k, v, page, gen):
+    """The rings (B, C, Hkv, hd) as a shared pool of pages of ``page`` keys
+    at scattered physical pages (page 0 left as scratch) and the (B, C/page)
+    table that maps each row's logical pages to them."""
+    import torch
+
+    b, cap = k.shape[:2]
+    t_w = cap // page
+    table = (torch.randperm(b * t_w, generator=gen) + 1).reshape(b, t_w).to(torch.int32)
+    table = table.to(k.device)
+    pools = []
+    for ring in (k, v):
+        pool = ring.new_zeros(b * t_w + 1, page, *ring.shape[2:])
+        pool[table.long().reshape(-1)] = ring.reshape(b * t_w, page, *ring.shape[2:])
+        pools.append(pool)
+    return pools[0], pools[1], table
+
+
+def phase_kernels_ring(smi):
+    """``paged_decode_ring`` and ``swa_decode`` against their plain versions
+    and against each other (BITWISE), with planted faults, at the ring
+    path's shape (B 4, Hkv 32, G 1, hd 64, bf16, C 4096, window 4096, two
+    rows short of the ring and two wrapped), at long_500k's (B 1, C 8192,
+    pos 524287), at the single-batch path's (B 4, C = window = 96, every
+    row wrapped; a scalar pos and per-row ones) and at a GQA shape (G 4, hd
+    128, bf16 and f32, a scalar pos and a window shorter than C). Times
+    (kernels, plain version, and ``scaled_dot_product_attention`` over the
+    rings unrolled to position order, a yardstick only) at the first two
+    shapes. The table kernel
+    (``paged_decode``) over a pool holding the same rings in scattered pages
+    of 16 must give bitwise the ring kernels' output too."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_decode import paged_decode_ring, ring_page
+    from repro_torch.kernels.swa_decode import swa_decode
+
+    gen = torch.Generator().manual_seed(3)
+    rows = {}
+    shapes = [
+        ("path", torch.bfloat16, 4, 32, 1, 64, 4096, 4096, [200, 700, 5000, 6500]),
+        ("long_500k", torch.bfloat16, 1, 32, 1, 64, 8192, 8192, [524287]),
+        ("batch", torch.bfloat16, 4, 32, 1, 64, 96, 96, 127),
+        ("batch", torch.bfloat16, 4, 32, 1, 64, 96, 96, [96, 100, 113, 127]),
+        ("gqa", torch.bfloat16, 4, 8, 4, 128, 2048, 1000, 1500),
+        ("gqa", torch.float32, 4, 8, 4, 128, 2048, 1000, 1500),
+    ]
+    for label, dt, b, hkv, g, hd, cap, window, pos_arg in shapes:
+        q = torch.randn(b, hkv, g, hd, generator=gen).to(DEVICE, dt)
+        k = torch.randn(b, cap, hkv, hd, generator=gen).to(DEVICE, dt)
+        v = torch.randn(b, cap, hkv, hd, generator=gen).to(DEVICE, dt)
+        pos = torch.tensor(pos_arg, dtype=torch.int32, device=DEVICE)
+        pos_b = pos.reshape(-1).expand(b).contiguous()   # what ops does with a scalar
+        dname = str(dt).split(".")[-1]
+        shape = (f"{label} B{b} Hkv{hkv} G{g} hd{hd} C{cap} window{window} pos "
+                 f"{pos.tolist()}")
+        paged = paged_decode_ring(q, k, v, pos_b, window)
+        swa = swa_decode(q, k, v, pos_b, window)
+        plain = _ring_plain(q, k, v, pos, window)
+        tol = RTOL[dname]
+        rms = plain.float().pow(2).mean().sqrt().item()
+        same = torch.equal(paged, swa) and all(
+            torch.equal(paged_decode_ring(q, k, v, pos_b, window, page=pg), swa)
+            for pg in (64, 128, 256, 512) if cap % pg == 0)
+        expect(same, f"ring kernels {dname} {shape}: paged_decode_ring (at every page) not "
+                     "bitwise equal to swa_decode")
+        pk, pv, table = _as_pool(k, v, 16, gen)
+        same_table = torch.equal(ops.paged_decode_attention(q, pk, pv, pos_b, table, window), swa)
+        expect(same_table, f"ring kernels {dname} {shape}: the table kernel over the same keys "
+                           "in pool pages is not bitwise equal")
+        del pk, pv
+        msg = (f"[ring] {dname} {shape}: bitwise paged == swa at pages 64..512: {same}; "
+               f"table kernel over the same keys in pages of 16 == swa: {same_table}")
+        errs = {}
+        for name, out in (("paged_decode_ring", paged), ("swa_decode", swa)):
+            e = (out.float() - plain.float()).abs().max().item()
+            errs[name] = e
+            expect(e <= tol * rms, f"{name} {dname} {shape}: err/RMS {e / rms} > {tol}")
+            msg += f"; {name} err/RMS {e / rms:.3e} (tol {tol:g})"
+        for fname, kind in RING_FAULTS:
+            fe = (paged.float() - _ring_plain(q, k, v, pos, window, kind).float()).abs().max()
+            fe = fe.item()
+            gated = kind in RING_FAULTS_GATED[label]
+            msg += (f"; planted fault '{fname}' err/RMS {fe / rms:.3e}"
+                    + ("" if gated else " (not gated at this shape)"))
+            if gated:
+                expect(fe > tol * rms, f"ring {dname} {shape}: planted fault '{fname}' "
+                                       "within tolerance")
+        log(msg)
+        for name in errs:
+            if name in rows:
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], errs[name])
+        if label in ("gqa", "batch"):
+            continue
+        # times; the library call runs over the rings unrolled to position
+        # order (a copy made here, outside the timing)
+        ku, vu, mask, spans = _unrolled(k, v, pos_b, window)
+        qs = q.reshape(b, hkv, 1, hd)
+        lib = timed_ms(lambda: F.scaled_dot_product_attention(
+            qs, ku, vu, attn_mask=mask[:, None, None, :]))[0]
+        plain_ms = timed_ms(lambda: ref.ring_paged_decode_ref(q, k, v, pos_b, window),
+                            iters=5)[0]
+        page = ring_page(cap)
+        live = [min(-(-(min(p + 1, cap)) // page) * page, cap) for p in pos_b.tolist()]
+        elem = q.element_size()
+        qo = 2 * b * hkv * g * hd * elem + 4 * b           # q and out, pos
+        for name, fn, walked in (("paged_decode_ring", paged_decode_ring, live),
+                                 ("swa_decode", swa_decode, [cap] * b)):
+            ms, wall = timed_ms(lambda: fn(q, k, v, pos_b, window))
+            r = dict(max_abs_err=errs[name], ms=ms, wrapper_ms=wall, plain_ms=plain_ms,
+                     library_ms=lib,
+                     # the K and V the function needs: each row's live
+                     # span (the same for both kernels: their outputs are
+                     # bitwise equal), q, out and pos
+                     bytes=qo + 2 * sum(spans) * hkv * hd * elem,
+                     flops=4 * sum(spans) * hkv * g * hd)
+            streamed = qo + 2 * sum(walked) * hkv * hd * elem
+            t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+            t_ops = r["flops"] / (BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS) * 1e3
+            r["bound_ms"] = max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"[ring] {name} {label} ({smi}): kernel device ms {ms:.4f} (wrapper wall "
+                f"{wall:.4f}) plain_ms {plain_ms:.4f} library_ms {lib:.4f} bound_ms "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
+                f"{r['flops'] / 1e9:.3f} GFLOP); keys walked {sum(walked)} "
+                f"({streamed / 1e6:.2f} MB, {streamed / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+                f"HBM rate), live keys {sum(spans)}")
+            if label == "path":
+                rows[name] = r
+        del ku, vu
+    return rows
+
+
 # ------------------------------------------------------------------ phase 4
 def phase_golden():
     import torch
@@ -1011,15 +1279,17 @@ def _kernel_rows(prof):
 
 
 def _profile_decode(eng, smi, n=5, label="profile"):
-    """Host wall time and device time of one batched decode step (8 slots,
-    the engine's cache as the trace left it), and the kernels it launches."""
+    """Host wall time and device time of one batched decode step (all the
+    engine's slots, its cache as the trace left it), and the kernels it
+    launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     feed = torch.zeros((eng.num_slots, 1), dtype=torch.int32, device=DEVICE)
 
     def step():
-        eng.model.decode(eng.params, eng.cache, feed)
+        eng.model.decode(eng.params, eng.cache, feed, window=eng.window,
+                         paged=eng.paged_decode)
 
     step()
     torch.cuda.synchronize()
@@ -1044,6 +1314,23 @@ def _profile_decode(eng, smi, n=5, label="profile"):
         f"in {launches:.0f} kernel launches, device idle share {1 - dev_ms / host_ms:.3f}; "
         "top: " + "; ".join(f"{e.key[:40]} x{e.count // n} {e.self_device_time_total / n / 1e3:.3f}"
                             " ms" for e in top))
+
+
+def _finite_checked(model, finite: list):
+    """``model`` whose decode and prefill_slots append to ``finite`` whether
+    every real-vocabulary logit they return is finite (a device bool, read
+    once at the end of the run)."""
+    import torch
+
+    def checked(fn):
+        def run(*a, **kw):
+            cache, logits = fn(*a, **kw)
+            finite.append(torch.isfinite(logits[:, : model.cfg.vocab_size]).all())
+            return cache, logits
+        return run
+
+    return dataclasses.replace(model, decode=checked(model.decode),
+                               prefill_slots=checked(model.prefill_slots))
 
 
 def phase_main_path(smi):
@@ -1071,19 +1358,10 @@ def phase_main_path(smi):
     torch.cuda.empty_cache()
 
     eng = ServeEngine(model, params, num_slots=8, max_seq=384 + 32, page_size=16,
-                      prefix_cache=True, device=DEVICE)
+                      prefix_cache=True, paged_cache=True, device=DEVICE)
     eng.warm(sorted({len(r.prompt) for r in cold}), gen_tokens=2)
     finite = []
-
-    def checked(fn):
-        def run(*a, **kw):
-            cache, logits = fn(*a, **kw)
-            finite.append(torch.isfinite(logits[:, : cfg.vocab_size]).all())
-            return cache, logits
-        return run
-
-    eng.model = dataclasses.replace(model, decode=checked(model.decode),
-                                    prefill_slots=checked(model.prefill_slots))
+    eng.model = _finite_checked(model, finite)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1144,7 +1422,7 @@ def _serve_trace(model, params, cold, hits, smi, label, **engine_kw):
     from repro_torch.launch.engine import Request, ServeEngine
 
     eng = ServeEngine(model, params, num_slots=8, max_seq=384 + 64, page_size=16,
-                      prefix_cache=True, device=DEVICE, **engine_kw)
+                      prefix_cache=True, paged_cache=True, device=DEVICE, **engine_kw)
     eng.warm(sorted({len(r.prompt) for r in cold}), gen_tokens=2)
     # host wall of the tier's copies (each synchronous): device->host
     # gathers (swap-out, demotion) and host->device restores (swap-in,
@@ -1281,6 +1559,232 @@ def phase_main_path_int8(smi):
     gc.collect()
     torch.cuda.empty_cache()
     return int8_launches
+
+
+# ----------------------------------------------------------------- phase 4c
+RING_GOLDEN_KERNELS = ("paged_decode_ring", "swa_decode", "flash_prefill", "paged_decode")
+
+
+def phase_golden_ring():
+    """The reference's float32 ring-mode trace: the ring engine (chunked
+    with a window the prompts wrap, interleaved, paged decode off), the
+    windowed paged engine and the windowed single-batch path; every token
+    must be the reference's."""
+    import torch
+
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.launch.serve import generate_batch
+    from repro_torch.models.model import build_model
+
+    g = json.loads((ROOT / "src/repro_torch/testdata/golden_stablelm_smoke_ring.json")
+                   .read_text())
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), dtype="float32")
+    model = build_model(cfg)
+    params = params_from_numpy(numpy_params(cfg, g["seed"]), cfg, DEVICE)
+    before = dict(ops.LAUNCHES)
+    for run in g["runs"]:
+        eng = ServeEngine(model, params, device=DEVICE, **run["engine"])
+        outs = eng.run([Request(uid=u, prompt=p, max_new_tokens=g["max_new_tokens"])
+                        for u, p in enumerate(g["prompts"])])
+        got = [o.tokens for o in outs]
+        check(got == run["tokens"], f"golden ring run {run['name']}: tokens differ from the "
+                                    f"reference:\n{got}\n{run['tokens']}")
+    sb = g["serve_batch"]
+    gen, _, _ = generate_batch(model, params, torch.tensor(g["prompts"], device=DEVICE),
+                               g["max_new_tokens"], window=sb["window"])
+    check(gen.tolist() == sb["tokens"], f"golden serve_batch tokens differ from the "
+                                        f"reference:\n{gen.tolist()}\n{sb['tokens']}")
+    torch.cuda.synchronize()
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in RING_GOLDEN_KERNELS}
+    check(all(v > 0 for v in launched.values()), f"golden ring runs missed a kernel: "
+                                                 f"{launched}")
+    log(f"[golden-ring] {len(g['runs'])} engine runs ({', '.join(r['name'] for r in g['runs'])})"
+        f" and serve_batch window {sb['window']}: fp32 greedy tokens identical to the "
+        f"reference's; kernel launches {launched}")
+
+
+# ----------------------------------------------------------------- phase 5c
+RING_PROMPTS = (6144, 5000, 2048, 700, 300, 96)
+RING_WINDOW, RING_SLOTS, RING_GEN = 4096, 4, 32
+
+
+def _ring_trace(model, params, smi, label, lens=None, gen=RING_GEN, seed=13, **engine_kw):
+    """One engine over a trace of prompts of ``lens`` tokens (``gen`` greedy
+    tokens each): outputs, wall, launches, the engine. Every logit row the
+    model returns must be finite."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+
+    cfg = model.cfg
+    lens = lens or RING_PROMPTS
+    rng = np.random.default_rng(seed)
+    reqs = [Request(uid=u, prompt=rng.integers(0, cfg.vocab_size, n, dtype=np.int32),
+                    max_new_tokens=gen) for u, n in enumerate(lens)]
+    eng = ServeEngine(model, params, num_slots=RING_SLOTS, max_seq=max(lens) + gen,
+                      window=RING_WINDOW, device=DEVICE, **engine_kw)
+    finite = []
+    eng.model = _finite_checked(model, finite)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.model = model
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(len(outs) == len(lens) and all(len(o.tokens) == gen for o in outs),
+          f"{label}: not every request met its budget")
+    check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
+    tokens = sum(len(o.tokens) for o in outs)
+    ttft = float(np.percentile([o.ttft for o in outs], 50))
+    lat = float(np.percentile([o.latency for o in outs], 50))
+    log(f"[ring-main] {label} ({smi}): {len(outs)} requests, {tokens} tokens in {wall:.3f} s: "
+        f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, latency p50 "
+        f"{lat * 1e3:.1f} ms; {eng.steps} decode steps, {eng.prefill_dispatches} prefill "
+        f"dispatches, {eng.prefill_tokens} prefill tokens; launches {launches}")
+    return {o.uid: o.tokens for o in outs}, launches, eng
+
+
+def _ring_logit_parity(model, params, cfg):
+    """One decode step from a ring engine's cache after it admitted four of
+    the trace's prompts and decoded once (positions 6145, 5001, 701, 97: two
+    rows wrapped, two short of the ring): the kernel that skips dead pages,
+    the one that streams every slot (bitwise the same logits), the plain
+    version and its planted faults. (Dropping the newest key of a row of
+    thousands moves the logits by less than the bf16 tolerance; the 97-key
+    row shows it.)"""
+    import torch
+
+    from repro_torch.launch.engine import Request, ServeEngine
+
+    eng = ServeEngine(model, params, num_slots=RING_SLOTS, max_seq=max(RING_PROMPTS) + RING_GEN,
+                      window=RING_WINDOW, device=DEVICE)
+    rng = np.random.default_rng(17)
+    for u, n in enumerate((6144, 5000, 700, 96)):
+        eng.submit(Request(uid=u, prompt=rng.integers(0, cfg.vocab_size, n, dtype=np.int32),
+                           max_new_tokens=RING_GEN))
+    eng.step()
+    feed = torch.zeros((eng.num_slots, 1), dtype=torch.int32, device=DEVICE)
+    snap = {k: v.clone() for k, v in eng.cache.items()}
+
+    def step(paged=True):
+        twin = {k: v.clone() for k, v in snap.items()}
+        _, lg = eng.model.decode(eng.params, twin, feed, window=eng.window, paged=paged)
+        return lg[:, : cfg.vocab_size]
+
+    lk = step()
+    check(bool(torch.isfinite(lk).all()), "ring decode step: non-finite logits")
+    same = torch.equal(lk, step(paged=False))
+    expect(same, "ring decode step: paged_decode_ring and swa_decode logits not bitwise equal")
+    with plain_kernels():
+        lp = step()
+    tol = LOGIT_RTOL[cfg.dtype]
+    scale = max(lp.abs().max().item(), 1.0)
+    d = (lk - lp).abs().max().item()
+    expect(d <= tol * scale, f"ring decode step: logit diff {d} too large")
+    msg = (f"[ring-main] {cfg.dtype} decode step at positions {snap['pos'].tolist()}: swa vs "
+           f"paged logits bitwise equal: {same}; kernel vs plain max |dlogit| {d:.3e} = "
+           f"{d / scale:.3e} x logit scale {scale:.2f} (tol {tol:g} x scale)")
+    for fname, kind in RING_FAULTS:
+        with plain_kernels(ring_decode=_ring_fault(kind)):
+            fd = (lk - step()).abs().max().item()
+        msg += f"; planted fault '{fname}' {fd:.3e} = {fd / scale:.3e} x scale"
+        expect(fd > tol * scale, f"ring decode step: planted fault '{fname}' within tolerance")
+    log(msg)
+    del snap, eng
+
+
+def phase_main_path_ring(smi):
+    """Ring mode at stablelm-1.6b's published widths (bf16, seeded weights):
+    4 slots of 4096-slot rings (window 4096), chunked prefill, 6 prompts of
+    6144/5000/2048/700/300/96 tokens x 32. Gates: budgets, finite logits,
+    paged_decode_ring and flash_prefill launched (swa_decode in the run
+    with paged decode off), one decode step's logits
+    (kernel vs plain within tolerance, swa == paged bitwise, planted faults
+    outside; from an engine that admitted four of the prompts and decoded
+    once). Printed: the same trace with paged decode off (swa_decode),
+    the decode step's host wall, device time, launches and idle share for
+    both, the same trace over the windowed paged pool (token agreement),
+    and an interleaved trace of 4 prompts of <= 64 tokens x 16. Returns
+    the ring kernels' launches (paged_decode_ring's from the main run,
+    swa_decode's from the run with paged decode off) and the model and
+    parameters for 5d."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("stablelm-1.6b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    toks, launches, eng = _ring_trace(model, params, smi, "ring, chunked, paged decode")
+    check(launches.get("paged_decode_ring", 0) > 0 and launches.get("flash_prefill", 0) > 0
+          and not launches.get("swa_decode"), f"ring main path launches: {launches}")
+    ring_bytes = sum(eng.cache[n].numel() * eng.cache[n].element_size() for n in ("k", "v"))
+    log(f"[ring-main] rings: {RING_SLOTS} slots x {eng.cache['k'].shape[2]} slots x "
+        f"{cfg.n_layers} layers, {ring_bytes / 1e9:.2f} GB of K and V")
+    _profile_decode(eng, smi, label="profile ring paged")
+    del eng
+    torch.cuda.empty_cache()
+    _ring_logit_parity(model, params, cfg)
+    torch.cuda.empty_cache()
+    toks_swa, l_swa, eng = _ring_trace(model, params, smi, "ring, chunked, swa decode",
+                                       paged_decode=False)
+    check(l_swa.get("swa_decode", 0) > 0 and not l_swa.get("paged_decode_ring"),
+          f"swa run launches: {l_swa}")
+    _profile_decode(eng, smi, label="profile ring swa")
+    del eng
+    torch.cuda.empty_cache()
+    toks_pg, l_pg, eng = _ring_trace(model, params, smi, "windowed paged pool, page 16",
+                                     paged_cache=True, page_size=16)
+    check(l_pg.get("paged_decode", 0) > 0, f"windowed paged run launches: {l_pg}")
+    del eng
+    torch.cuda.empty_cache()
+
+    def match(a, b):
+        return sum(a[u] == b[u] for u in a) / len(a)
+
+    log(f"[ring-main] token agreement with the ring/paged-decode run: swa decode "
+        f"{match(toks, toks_swa):.3f}, windowed paged pool {match(toks, toks_pg):.3f} of "
+        "requests (bf16, random weights; no gate)")
+    _, l_il, eng = _ring_trace(model, params, smi, "ring, interleaved", lens=(64, 48, 33, 17),
+                               gen=16, prefill="interleaved")
+    check(l_il.get("paged_decode_ring", 0) > 0 and not l_il.get("flash_prefill")
+          and eng.prefill_dispatches == 0, f"interleaved run launches: {l_il}")
+    del eng
+    torch.cuda.empty_cache()
+    return ({"paged_decode_ring": launches["paged_decode_ring"],
+             "swa_decode": l_swa["swa_decode"]}, model, params)
+
+
+# ----------------------------------------------------------------- phase 5d
+def phase_serve_batch(smi, model, params):
+    """The single-batch path at full width: batch 4, prompt 64, gen 64,
+    window 96 (the ring wraps at step 96); swa_decode must launch."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import synthetic_prompts
+    from repro_torch.launch.serve import generate_batch
+
+    cfg = model.cfg
+    prompts = torch.from_numpy(synthetic_prompts(cfg, 4, 64, 0)).to(DEVICE)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    gen, t_prefill, t_gen = generate_batch(model, params, prompts, 64, window=96)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(gen.shape == (4, 64) and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"serve_batch output {tuple(gen.shape)} out of range")
+    check(launches.get("swa_decode", 0) > 0 and not launches.get("paged_decode_ring"),
+          f"serve_batch launches: {launches}")
+    log(f"[serve-batch] ({smi}): batch 4, prompt 64 teacher-forced in {t_prefill:.3f} s, 64 "
+        f"tokens/row in {t_gen:.3f} s: {4 * 64 / t_gen:.1f} tok/s; window 96, ring 96 slots; "
+        f"launches {launches}")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1575,10 +2079,18 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(smi)
     rows.update(phase_kernels_int8(smi))
+    rows.update(phase_kernels_ring(smi))
     phase_golden()
     phase_golden_int8()
+    phase_golden_ring()
     launches = phase_main_path(smi)
     launches.update(phase_main_path_int8(smi))
+    ring_launches, model, params = phase_main_path_ring(smi)
+    launches.update(ring_launches)
+    phase_serve_batch(smi, model, params)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
     rows.update(phase_channel_kernels(smi))
     train_launches = phase_training(smi)
     launches.update({k: train_launches[k] for k in CHANNEL})

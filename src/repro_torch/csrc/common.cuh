@@ -1,7 +1,7 @@
-// Shared device code of the port's attention kernels (paged decode, flash
-// prefill, suffix prefill): element conversion, tile loads from device
-// memory into shared memory, the masked score tile, and the ONE online-
-// softmax tile update all three kernels run.
+// Shared device code of the port's attention kernels (paged and ring
+// decode, flash prefill, suffix prefill): element conversion, tile loads
+// from device memory into shared memory, the masked score tile, and the ONE
+// online-softmax tile update every one of them runs.
 //
 // Every kernel keeps the same state per query row as the TPU kernels did in
 // VMEM scratch: the running max m, the running denominator l and the output
@@ -101,10 +101,14 @@ __device__ __forceinline__ void load_rows(const RowPtr& row_ptr, int nrows, floa
   }
 }
 
-// Logical token slot c of the current chunk of a row's pages [j0, j0 + ...),
-// read through the row's page table: the pool slot (phys * page + offset),
-// or -1 for a page at or past `pages` (the row's live pages; never read, and
-// its table entry never dereferenced).
+// The two addressing policies of the pool/ring loaders: each maps tile
+// column c to a slot index of the flattened (slots, Hkv, hd) K/V tensor, or
+// -1 for a column that is not read (filled with zeros).
+//
+// PageSlots: logical token slot c of the current chunk of a row's pages
+// [j0, j0 + ...), read through the row's page table: the pool slot (phys *
+// page + offset), or -1 for a page at or past `pages` (the row's live pages;
+// never read, and its table entry never dereferenced).
 struct PageSlots {
   const int* table_row;
   int j0, pages, page;
@@ -115,10 +119,22 @@ struct PageSlots {
   }
 };
 
-template <typename TP, int HD>
+// RingSlots: per-row contiguous rings (B, C, Hkv, hd), no table: ring slot
+// s = s0 + c of row b is slot b * C + s (`base` = b * C), or -1 at or past
+// `limit` (the slots the kernel walks).
+struct RingSlots {
+  long long base;
+  int s0, limit;
+  __device__ long long operator()(int c) const {
+    const int s = s0 + c;
+    return s < limit ? base + s : -1;
+  }
+};
+
+template <typename TP, int HD, typename Slots>
 struct PoolRow {  // kv head h's row of pool slot slots(c), or nullptr
   const TP* pool;
-  PageSlots slots;
+  Slots slots;
   int Hkv, h;
   __device__ const TP* operator()(int c) const {
     const long long s = slots(c);
@@ -126,7 +142,8 @@ struct PoolRow {  // kv head h's row of pool slot slots(c), or nullptr
   }
 };
 
-// Load kv head h's rows of `nrows` pool slots into dst (row stride ld floats).
+// Load kv head h's rows of `nrows` slots (pool pages or ring rows, by the
+// addressing policy) into dst (row stride ld floats).
 // An fp pool (TP == T) is read as it is. An int8 pool (TP == int8_t) has one
 // f32 scale per (slot, kv head) in `scale`, and each element becomes
 // (float)q * s rounded to the query type T, then widened: the value set of
@@ -134,9 +151,9 @@ struct PoolRow {  // kv head h's row of pool slot slots(c), or nullptr
 // int8 kernels compute bitwise what the fp kernels compute over that pool.
 // A 16-byte vector holds 16 int8 elements; hd in {32, 64, 128} keeps every
 // row (h * hd bytes into its slot) 16-byte aligned.
-template <typename T, typename TP, int HD>
+template <typename T, typename TP, int HD, typename Slots>
 __device__ __forceinline__ void load_pool_rows(const TP* pool, const float* scale,
-                                               const PageSlots& slots, int Hkv, int h,
+                                               const Slots& slots, int Hkv, int h,
                                                int nrows, float* dst, int ld) {
   if constexpr (std::is_same<TP, int8_t>::value) {
     constexpr int E = 16;
@@ -160,7 +177,7 @@ __device__ __forceinline__ void load_pool_rows(const TP* pool, const float* scal
     }
   } else {
     static_assert(std::is_same<TP, T>::value, "an fp pool has the query's type");
-    load_rows<TP, HD>(PoolRow<TP, HD>{pool, slots, Hkv, h}, nrows, dst, ld);
+    load_rows<TP, HD>(PoolRow<TP, HD, Slots>{pool, slots, Hkv, h}, nrows, dst, ld);
   }
 }
 
@@ -184,14 +201,20 @@ __device__ __forceinline__ void scores(const Tile& t, int rows, int cols, float 
     const float* kc = t.k + (size_t)c * (HD + 1);
     float dot = 0.0f;
 #pragma unroll 16
-    for (int d = 0; d < HD; ++d) dot += qr[d] * kc[d];
+    for (int d = 0; d < HD; ++d) dot = __fmaf_rn(qr[d], kc[d], dot);
     t.s[(size_t)r * t.ld_s + c] = live(r, c) ? dot * scale : NEG;
   }
 }
 
-// The online-softmax tile update shared by all three kernels:
+// The online-softmax tile update shared by every attention kernel:
 //   m' = max(m, max_c s);  p = exp(s - m');  alpha = exp(m - m')
 //   l' = l * alpha + sum_c p;  acc' = acc * alpha + p @ v
+// Every product that may meet a sum is an explicit __fmaf_rn / __fmul_rn
+// (here and in the score tile), so no instantiation leaves the choice of
+// what to contract into an FMA to the compiler: a kernel whose tile width is
+// a compile-time constant and one whose width is a runtime value round
+// alike, which is what makes the ring and table decode kernels bitwise
+// equal over the same keys.
 // Expects the score tile and the value tile in shared memory and a barrier
 // after both were written; ends with a barrier, so the caller may overwrite
 // the k/v/s tiles next.
@@ -216,14 +239,14 @@ __device__ __forceinline__ void online_softmax_update(const Tile& t, int rows, i
     const float* sr = t.s + (size_t)r * t.ld_s;
     float sum = 0.0f;
     for (int c = 0; c < cols; ++c) sum += sr[c];
-    t.l[r] = t.l[r] * t.alpha[r] + sum;
+    t.l[r] = __fmaf_rn(t.l[r], t.alpha[r], sum);
   }
   for (int i = threadIdx.x; i < rows * HD; i += blockDim.x) {
     const int r = i / HD;
     const int d = i - r * HD;
     const float* sr = t.s + (size_t)r * t.ld_s;
-    float a = t.acc[i] * t.alpha[r];
-    for (int c = 0; c < cols; ++c) a += sr[c] * t.v[(size_t)c * HD + d];
+    float a = __fmul_rn(t.acc[i], t.alpha[r]);
+    for (int c = 0; c < cols; ++c) a = __fmaf_rn(sr[c], t.v[(size_t)c * HD + d], a);
     t.acc[i] = a;
   }
   __syncthreads();

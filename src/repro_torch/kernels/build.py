@@ -24,8 +24,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = (
-    "paged_decode", "flash_prefill", "flash_suffix_prefill", "quantize", "topk_compress",
-    "dp_clip",
+    "paged_decode", "swa_decode", "flash_prefill", "flash_suffix_prefill", "quantize",
+    "topk_compress", "dp_clip",
 )
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -38,6 +38,7 @@ LAUNCHES: dict[str, int] = {
     "paged_decode": 0, "flash_prefill": 0, "suffix_prefill": 0,
     "paged_decode_int8": 0, "suffix_prefill_int8": 0, "int8_encode": 0,
     "int8_roundtrip": 0, "topk_sparsify": 0, "sq_norm": 0, "clip_noise": 0,
+    "paged_decode_ring": 0, "swa_decode": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -55,6 +56,8 @@ SIGNATURES = {
     "topk_sparsify": (P, P, L, I, P),
     "sq_norm": (P, P, P, L, I, P),
     "clip_noise": (P, P, P, P, L, F, I, P),
+    "paged_decode_ring": (P,) * 5 + (I,) * 8 + (F, P),
+    "swa_decode": (P,) * 5 + (I,) * 7 + (F, P),
 }
 ENTRY = {
     "paged_decode": "paged_decode",
@@ -67,6 +70,8 @@ ENTRY = {
     "topk_sparsify": "topk_compress",
     "sq_norm": "dp_clip",
     "clip_noise": "dp_clip",
+    "paged_decode_ring": "paged_decode",
+    "swa_decode": "swa_decode",
 }
 
 

@@ -12,7 +12,8 @@ from repro_torch.kernels import dp_clip, quantize, ref, topk_compress
 from repro_torch.kernels.build import LAUNCHES, reset_launches  # noqa: F401
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_suffix_prefill import suffix_prefill, suffix_prefill_int8
-from repro_torch.kernels.paged_decode import paged_decode, paged_decode_int8
+from repro_torch.kernels.paged_decode import paged_decode, paged_decode_int8, paged_decode_ring
+from repro_torch.kernels.swa_decode import swa_decode
 from repro_torch.utils.tree import tree_leaves
 
 
@@ -33,6 +34,26 @@ def paged_decode_attention(
     if q.is_cuda:
         return paged_decode(q, k_pool, v_pool, pos, table, window)
     return ref.paged_decode_ref(q, k_pool, v_pool, pos, table, window)
+
+
+def swa_decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, window: int = 0, *,
+    paged: bool,
+) -> torch.Tensor:
+    """(B, Hkv, G, hd) queries over per-row contiguous rings (B, C, Hkv, hd)
+    → (B, Hkv, G, hd). ``pos`` is () for a lockstep batch or (B,) for
+    per-slot positions; it is broadcast to a (B,) int32 tensor on q's device
+    (no host read). ``paged`` selects the kernel that skips each row's dead
+    pages (``paged_decode_ring``) over the one that streams the whole ring
+    (``swa_decode``): bitwise the same output."""
+    b = q.shape[0]
+    if torch.is_tensor(pos):
+        pos = pos.to(device=q.device, dtype=torch.int32).reshape(-1).expand(b).contiguous()
+    else:
+        pos = torch.full((b,), int(pos), dtype=torch.int32, device=q.device)
+    if q.is_cuda:
+        return (paged_decode_ring if paged else swa_decode)(q, k, v, pos, window)
+    return (ref.ring_paged_decode_ref if paged else ref.swa_decode_ref)(q, k, v, pos, window)
 
 
 def flash_prefill_attention(

@@ -7,7 +7,12 @@ never read. Plain version: ``ref.paged_decode_ref``.
 
 ``paged_decode_int8`` is the TPU kernel's ``k_scale``/``v_scale`` branch:
 int8 pools with f32 scales (P, page, Hkv), dequantized in the kernel to q's
-dtype. Plain version: ``ref.paged_decode_int8_ref``."""
+dtype. Plain version: ``ref.paged_decode_int8_ref``.
+
+``paged_decode_ring`` is the TPU kernel's contiguous branch
+(``paged_decode`` without a table): per-row rings (B, C, Hkv, hd), pages
+of ``ring_page(C)`` keys, pages past a row's live span never read; bitwise
+``swa_decode``'s output. Plain version: ``ref.ring_paged_decode_ref``."""
 from __future__ import annotations
 
 import torch
@@ -72,5 +77,54 @@ def paged_decode_int8(
         k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), table.data_ptr(),
         out.data_ptr(), build.dtype_code(q), b, hkv, g, hd, page, table.shape[1], window,
         hd**-0.5,
+    )
+    return out
+
+
+def ring_page(cap: int) -> int:
+    """Page of the contiguous branch: the largest of 512/256/128/64 that
+    divides the ring capacity, else the whole ring (the reference's
+    ``swa_decode._chunk``)."""
+    for ck in (512, 256, 128, 64):
+        if cap % ck == 0 and cap >= ck:
+            return ck
+    return cap
+
+
+def check_ring(name, q, k, v, pos):
+    """Operands of the ring kernels: q (B, Hkv, G, hd), rings k/v (B, C,
+    Hkv, hd) of q's dtype, pos (B,) int32, all contiguous on one card."""
+    build.check_cuda(name, q=q, k=k, v=v, pos=pos)
+    b, hkv, g, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if k.dim() != 4 or k.shape[0] != b or k.shape[2:] != (hkv, hd) or v.shape != k.shape:
+        raise ValueError(f"{name}: rings {tuple(k.shape)}/{tuple(v.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q and the rings must share one dtype")
+    if pos.dtype != torch.int32 or pos.shape != (b,):
+        raise ValueError(f"{name}: pos must be int32 ({b},), got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    return b, k.shape[1], hkv, g, hd
+
+
+def paged_decode_ring(
+    q: torch.Tensor,    # (B, Hkv, G, hd)
+    k: torch.Tensor,    # (B, C, Hkv, hd)
+    v: torch.Tensor,
+    pos: torch.Tensor,  # (B,) int32
+    window: int = 0,
+    *,
+    page: int = 0,      # 0 = ring_page(C)
+) -> torch.Tensor:
+    b, cap, hkv, g, hd = check_ring("paged_decode_ring", q, k, v, pos)
+    page = page or ring_page(cap)
+    if cap % page:
+        raise ValueError(f"paged_decode_ring: ring {cap} is not a multiple of page {page}")
+    out = torch.empty_like(q)
+    build.launch(
+        "paged_decode_ring", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), build.dtype_code(q), b, cap, hkv, g, hd, page, window, hd**-0.5,
     )
     return out

@@ -1,12 +1,12 @@
 """Plain PyTorch versions of the port's kernels.
 
 One function per hand-written kernel: the attention kernels of the serving
-path (over fp and int8 pools), the int8 row quantizer of the pool writes,
-and the channel kernels of the federated uplink. Each computes the
-kernel's function the straightforward way, in fp32, and casts to q's dtype,
-as the reference package's oracles (``repro/kernels/ref.py``) do. They are
-what a wrapper runs for a CPU tensor, and what the kernels are held against
-on the card."""
+path (over fp and int8 pools, and over per-row contiguous rings), the int8
+row quantizer of the pool writes, and the channel kernels of the federated
+uplink. Each computes the kernel's function the straightforward way, in
+fp32, and casts to q's dtype, as the reference package's oracles
+(``repro/kernels/ref.py``) do. They are what a wrapper runs for a CPU
+tensor, and what the kernels are held against on the card."""
 from __future__ import annotations
 
 import torch
@@ -35,6 +35,51 @@ def _attend(q, k, v, mask):
     return out.to(q.dtype)
 
 
+def _ring_valid(pos: torch.Tensor, cap: int, window: int) -> torch.Tensor:
+    """(B, C) ring-validity mask: slot s of a ring of capacity C holds global
+    position pos - ((pos mod C) - s) mod C, valid iff it lies in
+    [max(pos - window + 1, 0), pos] (window 0: every cached position)."""
+    slot = pos % cap
+    slots = torch.arange(cap, device=pos.device)
+    gpos = pos[:, None] - (slot[:, None] - slots[None, :]) % cap
+    lo = (pos - (window - 1)).clamp(min=0) if window > 0 else torch.zeros_like(pos)
+    return (gpos >= lo[:, None]) & (gpos <= pos[:, None])
+
+
+def _row_pos(pos, b: int, device) -> torch.Tensor:
+    """``pos`` () (a lockstep batch) or (B,) (per-slot positions) as (B,)
+    int64."""
+    return torch.as_tensor(pos, device=device).long().reshape(-1).expand(b)
+
+
+def swa_decode_ref(
+    q: torch.Tensor,  # (B, Hkv, G, hd)
+    k: torch.Tensor,  # (B, C, Hkv, hd) — per-row contiguous rings (rotated keys)
+    v: torch.Tensor,
+    pos,              # () or (B,) — tokens already cached per row
+    window: int = 0,
+) -> torch.Tensor:
+    """One query per row over its ring's slots whose reconstructed global
+    position lies in [max(pos-window+1, 0), pos]. Mirrors
+    ``swa_decode_ref``."""
+    pos = _row_pos(pos, k.shape[0], q.device)
+    valid = _ring_valid(pos, k.shape[1], window)                      # (B, C)
+    return _attend(q[:, None], k, v, valid[:, None, None, None, :])[:, 0]
+
+
+def ring_paged_decode_ref(q, k, v, pos, window: int = 0) -> torch.Tensor:
+    """``swa_decode_ref`` with the live-span mask ``slot < min(pos + 1, C)``
+    intersected in: slots past the live span are already invalid under the
+    ring mask, so the output is bitwise ``swa_decode_ref``'s. The plain
+    version of the kernel that skips dead pages. Mirrors the reference's
+    contiguous ``paged_decode_ref``."""
+    b, cap = k.shape[:2]
+    pos = _row_pos(pos, b, q.device)
+    valid = _ring_valid(pos, cap, window)
+    valid &= torch.arange(cap, device=q.device)[None, :] < (pos + 1).clamp(max=cap)[:, None]
+    return _attend(q[:, None], k, v, valid[:, None, None, None, :])[:, 0]
+
+
 def paged_decode_ref(
     q: torch.Tensor,       # (B, Hkv, G, hd)
     k_pool: torch.Tensor,  # (P, page, Hkv, hd)
@@ -44,20 +89,11 @@ def paged_decode_ref(
     window: int = 0,
 ) -> torch.Tensor:
     """Page-table decode: gather each row's pages into a contiguous ring of
-    capacity C = T·page and attend one query per row over the ring slots
-    whose reconstructed global position lies in [max(pos-window+1, 0), pos].
-    Mirrors ``paged_table_decode_ref`` / ``swa_decode_ref``."""
-    k = gather_pages_ref(k_pool, table)
-    v = gather_pages_ref(v_pool, table)
-    cap = k.shape[1]
-    pos = pos.long()
-    slot = pos % cap
-    slots = torch.arange(cap, device=q.device)
-    gpos = pos[:, None] - (slot[:, None] - slots[None, :]) % cap
-    lo = (pos - (window - 1)).clamp(min=0) if window > 0 else torch.zeros_like(pos)
-    valid = (gpos >= lo[:, None]) & (gpos <= pos[:, None])          # (B, C)
-    out = _attend(q[:, None], k, v, valid[:, None, None, None, :])
-    return out[:, 0]
+    capacity C = T·page, then ``swa_decode_ref``. Mirrors the reference's
+    ``paged_table_decode_ref`` (the port's ``ring_paged_decode_ref`` is the
+    reference's contiguous ``paged_decode_ref``)."""
+    return swa_decode_ref(q, gather_pages_ref(k_pool, table), gather_pages_ref(v_pool, table),
+                          pos, window)
 
 
 def flash_prefill_ref(

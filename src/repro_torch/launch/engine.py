@@ -1,19 +1,29 @@
-"""Continuous-batching serve engine over the shared paged KV pool.
+"""Continuous-batching serve engine.
 
-The port of the reference engine's paged, chunked, batched and bucketed
-mode (greedy decoding):
+The port of the reference engine's batched and bucketed scheduler (greedy
+decoding) over either KV layout:
 
-* ONE shared pool of fixed-size physical pages plus per-slot page tables.
+* ``paged_cache=False`` (the default, as in the reference): every slot owns
+  a contiguous ring of C = window (0 < window < max_seq) or max_seq slots
+  per layer; a request must satisfy prompt + gen <= max_seq unless a window
+  lets the ring wrap. Decode attention over the rings skips each slot's dead
+  pages (``paged_decode=True``) or streams every slot.
+* ``paged_cache=True``: ONE shared pool of fixed-size physical pages plus per-slot page tables.
   A host-side ``PagePool`` (refcounts, LIFO free list, page 0 as scratch)
   hands out a request's prompt pages at admission and decode pages lazily,
   one per slot as decode crosses a page boundary. When the pool runs dry
   the youngest slot is preempted back to the head of the queue and later
   resumed by re-prefilling prompt + generated tokens. Admission keeps
   ``watermark_pages`` free while other slots are live.
-* Every admission round is one batched prefill, padded to a shape bucket
-  (pow2 width × pow2 length ladder), split into a cold dispatch (flash
-  prefill) and a prefix-hit dispatch (suffix prefill).
-* Prefix sharing (``prefix_cache=True``): retired prompts' full pages are
+  With a window the slot's logical ring is ceil(window/page) pages.
+* ``prefill="chunked"``: every admission round is one batched prefill,
+  padded to a shape bucket (pow2 width × pow2 length ladder), split into a
+  cold dispatch (flash prefill) and a prefix-hit dispatch (suffix prefill).
+  ``prefill="interleaved"``: prompt tokens are teacher-forced through the
+  decode step, one per iteration (paged: pages arrive lazily); a prompt
+  token's logits are discarded until the slot's last prompt token.
+* Prefix sharing (``prefix_cache=True``, paged pool, chunked, no window;
+  otherwise off with ``prefix_disabled_reason``): retired prompts' full pages are
   indexed in a radix trie; a later prompt maps its cached prefix onto the
   same physical pages and prefills only the suffix. A fully cached prompt
   re-prefills its last token into a copy-on-write split of its last page.
@@ -27,25 +37,30 @@ mode (greedy decoding):
   (swap instead of recompute), and prefix pages evicted from the index are
   demoted there and promoted back when a later prompt matches them.
 
-The pool and tables live on the engine's device and are updated in place
+The caches and tables live on the engine's device and are updated in place
 (the reference donated them through ``jit``). Settings of the reference
-engine that belong to later slices raise at construction."""
+engine that belong to later slices (a draft model, a mesh) raise at
+construction."""
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data.pipeline import SyntheticCorpus
 from repro_torch.launch.prefix_cache import PrefixCache
+from repro_torch.models.attention import ring_capacity
 from repro_torch.models.model import ModelAPI, build_model
-from repro_torch.models.transformer import KV_PLANES
+from repro_torch.models.transformer import KV_PLANES, reset_slot
 
 # Smallest padded prompt length of the bucket ladder.
 LEN_BUCKET_MIN = 8
+PREFILL_MODES = ("chunked", "interleaved")
 
 
 def bucket_width(n: int, num_slots: int) -> int:
@@ -76,7 +91,8 @@ def bucket_pages(pages: int, table_width: int) -> int:
 
 class AdmissionError(ValueError):
     """Submit-time rejection of a request the engine could never serve.
-    ``reason`` is ``"exceeds_pool"``."""
+    ``reason`` is ``"exceeds_pool"`` (paged) or ``"exceeds_max_seq"``
+    (rings)."""
 
     def __init__(self, uid: int, reason: str, message: str):
         super().__init__(message)
@@ -237,8 +253,10 @@ class _ResumeState:
     ``host_key`` marks a SWAPPED preemption: the slot's pages were copied to
     the ``HostTier`` before its pool refs dropped, and re-admission restores
     them (no prefill at all), bitwise the pages the slot held. ``pos`` is
-    the slot's write position at preemption (tokens written = prompt +
-    generated[:-1]). A dropped tier entry falls back to the re-prefill."""
+    the slot's write position at preemption (the tokens of prompt +
+    generated written so far; fewer than the prompt for a victim still
+    teacher-forcing its prompt). A dropped tier entry falls back to the
+    re-prefill."""
     generated: list[int]
     first_token_time: float
     admit_time: float
@@ -297,6 +315,8 @@ class _Slot:
     next_feed: int                # token the next decode step consumes
     admit_time: float
     feed: np.ndarray              # prompt, or prompt + generated[:-1] on resume
+    # feed tokens not yet fed (interleaved prefill)
+    pending: collections.deque = dataclasses.field(default_factory=collections.deque)
     prefix_len: int = 0           # leading feed tokens already in shared pages
     first_token_time: float = -1.0
     resumed: bool = False         # next emission is already known
@@ -305,19 +325,26 @@ class _Slot:
 
 
 class ServeEngine:
-    """Slot-based continuous-batching scheduler over the shared paged pool.
+    """Slot-based continuous-batching scheduler over per-slot rings or the
+    shared paged pool.
 
     Parameters follow the reference engine: ``num_slots`` (decode batch
-    width), ``max_seq`` (sizes the default pool and table width),
-    ``page_size``, ``num_pages`` (incl. scratch page 0; 0 = ring-equivalent
-    ``num_slots * ceil(max_seq/page_size) + 1``), ``watermark_pages``,
-    ``prefix_cache``, ``kv_dtype`` ("fp" or "int8" pages), ``host_pages``
-    (the host tier's capacity, 0 = none) and ``swap`` (whether preemption
-    swaps to that tier; prefix pages demote there either way). Each slot's
-    table holds ``num_slots * ceil(max_seq/page_size)`` logical pages. A request finishes after
-    ``max_new_tokens`` (no EOS); the clock is ``time.monotonic``.
-    ``device`` is where the pool lives and the model runs (``"cuda"``
-    unless the caller asks for the CPU)."""
+    width), ``max_seq`` (the ring capacity without a window; sizes the
+    default pool and table width), ``window`` (sliding-window span: 0 = full
+    attention; below max_seq it shrinks the ring, or the slot's logical
+    pages, to the window), ``prefill`` ("chunked" or "interleaved"),
+    ``paged_decode`` (ring decode skips dead pages; the same tokens either
+    way), ``paged_cache`` (the shared pool instead of rings), and for the
+    pool ``page_size``, ``num_pages`` (incl. scratch page 0; 0 =
+    ring-equivalent ``num_slots * ceil(capacity/page_size) + 1``),
+    ``watermark_pages``, ``prefix_cache``, ``kv_dtype`` ("fp" or "int8"
+    pages), ``host_pages`` (the host tier's capacity, 0 = none) and ``swap``
+    (whether preemption swaps to that tier; prefix pages demote there either
+    way). Without a window each slot's table holds ``num_slots *
+    ceil(max_seq/page_size)`` logical pages. A request finishes after
+    ``max_new_tokens`` (no EOS); the clock is ``time.monotonic``. ``device``
+    is where the caches live and the model runs (``"cuda"`` unless the
+    caller asks for the CPU)."""
 
     def __init__(
         self,
@@ -333,7 +360,8 @@ class ServeEngine:
         device="cuda",
         window: int = 0,
         prefill: str = "chunked",
-        paged_cache: bool = True,
+        paged_decode: bool = True,
+        paged_cache: bool = False,
         kv_dtype: str = "fp",
         host_pages: int = 0,
         swap: bool = True,
@@ -342,9 +370,6 @@ class ServeEngine:
         mesh=None,
     ):
         later = {
-            "window > 0 (sliding-window rings)": window != 0,
-            "prefill != 'chunked' (interleaved prefill)": prefill != "chunked",
-            "paged_cache=False (per-slot contiguous rings)": not paged_cache,
             "a draft model (speculative decoding)": draft_model is not None or spec_tokens != 0,
             "a mesh (tensor-parallel serving)": mesh is not None,
         }
@@ -353,14 +378,20 @@ class ServeEngine:
             raise NotImplementedError(
                 "not in the port yet (a later slice): " + "; ".join(blocked)
             )
+        if prefill not in PREFILL_MODES:
+            raise ValueError(f"prefill {prefill!r} not in {PREFILL_MODES}")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_seq < 1:
             raise ValueError(f"max_seq must be >= 1, got {max_seq}")
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
+        if kv_dtype == "int8" and not paged_cache:
+            raise ValueError("kv_dtype='int8' quantizes pool pages; it needs paged_cache=True")
         if host_pages < 0:
             raise ValueError(f"host_pages must be >= 0, got {host_pages}")
+        if host_pages > 0 and not paged_cache:
+            raise ValueError("host_pages tiers the page pool; it needs paged_cache=True")
         self.cfg = model.cfg
         self.model = model
         self.device = torch.device(device)
@@ -373,35 +404,67 @@ class ServeEngine:
         self.params = params
         self.num_slots = num_slots
         self.max_seq = max_seq
+        self.window = window
+        self.prefill_mode = prefill
+        self.paged_decode = paged_decode
+        self.paged_cache = paged_cache
+        self.kv_dtype = kv_dtype
         self._t0 = time.monotonic()
 
-        pages_per_ring = -(-max_seq // page_size)
-        if num_pages <= 0:
-            num_pages = num_slots * pages_per_ring + 1
-        self.page_size = page_size
-        self.num_pages = num_pages
-        self.table_width = num_slots * pages_per_ring
-        self.cap = self.table_width * page_size
-        self.pool = PagePool(num_pages, page_size)
-        self.watermark_pages = watermark_pages
-        self._table_np = np.zeros((num_slots, self.table_width), np.int32)
-        self._table_dirty = False
-        self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
-        self.kv_dtype = kv_dtype
-        self.cache = model.init_paged_cache(
-            num_slots, num_pages, page_size, self.table_width, device=self.device,
-            kv_dtype=kv_dtype,
-        )
+        self.prefix_disabled_reason = None
+        if paged_cache:
+            pages_per_ring = -(-ring_capacity(max_seq, window) // page_size)
+            if num_pages <= 0:
+                num_pages = num_slots * pages_per_ring + 1
+            self.page_size = page_size
+            self.num_pages = num_pages
+            if 0 < window < max_seq:
+                # the window bounds context: the slot's logical ring is the
+                # window's pages, which the physical pool must hold
+                self.table_width = pages_per_ring
+                if num_pages - 1 < self.table_width:
+                    raise ValueError(f"num_pages {num_pages} cannot back a table of "
+                                     f"{self.table_width} pages (window {window})")
+            else:
+                self.table_width = num_slots * pages_per_ring
+            self.cap = self.table_width * page_size
+            self.pool = PagePool(num_pages, page_size)
+            self.watermark_pages = watermark_pages
+            self._table_np = np.zeros((num_slots, self.table_width), np.int32)
+            self._table_dirty = False
+            self._slot_pages: list[list[int]] = [[] for _ in range(num_slots)]
+            self.cache = model.init_paged_cache(
+                num_slots, num_pages, page_size, self.table_width, device=self.device,
+                kv_dtype=kv_dtype,
+            )
+            self.host = HostTier(host_pages) if host_pages > 0 else None
+            if prefix_cache and window > 0:
+                self.prefix_disabled_reason = (
+                    f"window={window} (sliding-window ring wraps; prefix pages would be "
+                    "overwritten)")
+            elif prefix_cache and prefill != "chunked":
+                self.prefix_disabled_reason = (
+                    f"prefill={prefill!r} (suffix rounds need chunked batched admission)")
+        else:
+            self.pool = None
+            self.host = None
+            if prefix_cache:
+                self.prefix_disabled_reason = (
+                    "paged_cache=False (prefix sharing rides the page table)")
+            self.cache = model.init_slot_cache(num_slots, max_seq, window=window,
+                                               device=self.device)
+        if self.prefix_disabled_reason is not None:
+            logging.getLogger(__name__).warning(
+                "prefix_cache requested but disabled: %s", self.prefix_disabled_reason)
         # the planes that carry page content: what every page copy moves
         self._kv_names = tuple(n for n in KV_PLANES if n in self.cache)
-        self.host = HostTier(host_pages) if host_pages > 0 else None
         self.swap = swap and self.host is not None
         self.prefix = PrefixCache(
             self.pool,
             demote_fn=self._demote_prefix_page if self.host else None,
             promote_fn=self._promote_prefix_page if self.host else None,
-        ) if prefix_cache else None
-        self.prefix_cache = prefix_cache
+        ) if prefix_cache and self.prefix_disabled_reason is None else None
+        self.prefix_cache = self.prefix is not None
 
         self._resume: dict[int, _ResumeState] = {}
         self._admit_seq = 0
@@ -437,17 +500,19 @@ class ServeEngine:
         self.swapped_in_pages = 0
         self.host_demoted_pages = 0
         self.host_promote_hits = 0
-        self.pool.peak_in_use = self.pool.in_use
+        if self.paged_cache:
+            self.pool.peak_in_use = self.pool.in_use
         self.reset_clock()
 
     def warm(self, prompt_lens, *, gen_tokens: int = 2) -> None:
         """Run every (width, length) bucket a trace of ``prompt_lens`` can
         dispatch once (first-use costs: kernel builds and loads, allocator
-        growth), then clear the prefix index and the host tier and reset
-        metrics."""
+        growth; interleaved admission only sees width 1), then clear the
+        prefix index and the host tier and reset metrics."""
+        chunked = self.prefill_mode == "chunked"
         for p in sorted(set(prompt_lens)):
-            for w in range(1, self.num_slots + 1):
-                key = (bucket_width(w, self.num_slots), bucket_length(p))
+            for w in range(1, self.num_slots + 1) if chunked else [1]:
+                key = (bucket_width(w, self.num_slots), bucket_length(p)) if chunked else (w, p)
                 if key in self._warmed:
                     continue
                 self._warmed.add(key)
@@ -463,7 +528,11 @@ class ServeEngine:
         self.reset_metrics()
 
     @property
-    def pool_stats(self) -> dict:
+    def pool_stats(self) -> dict | None:
+        """Pool occupancy and the page, prefix and tier counters (None for
+        ring caches)."""
+        if not self.paged_cache:
+            return None
         occ = self.occupancy
         return {
             "page_size": self.page_size,
@@ -505,15 +574,27 @@ class ServeEngine:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
     def capacity_shortfall(self, req: Request) -> int:
-        """Tokens by which ``req`` exceeds the table width or the physical
-        pool (0 = servable)."""
-        limit = min(self.cap, self.pool.capacity * self.page_size)
-        return max(0, len(req.prompt) + req.max_new_tokens - limit)
+        """Tokens by which ``req`` exceeds the engine's static capacity (0 =
+        servable): none with a window (the ring wraps), else the table width
+        and the physical pool (paged) or ``max_seq`` (rings)."""
+        need = len(req.prompt) + req.max_new_tokens
+        if self.window != 0:
+            return 0
+        if self.paged_cache:
+            return max(0, need - min(self.cap, self.pool.capacity * self.page_size))
+        return max(0, need - self.max_seq)
 
     def submit(self, req: Request) -> None:
         """Enqueue a request, or raise ``AdmissionError`` if the engine could
         never hold it (it would wedge the head of the queue)."""
         short = self.capacity_shortfall(req)
+        if short > 0 and not self.paged_cache:
+            raise AdmissionError(
+                req.uid, "exceeds_max_seq",
+                f"request {req.uid}: prompt {len(req.prompt)} + gen {req.max_new_tokens} "
+                f"exceeds max_seq {self.max_seq} by {short} tokens (the full-attention ring "
+                "would overwrite live context)",
+            )
         if short > 0:
             raise AdmissionError(
                 req.uid, "exceeds_pool",
@@ -532,14 +613,18 @@ class ServeEngine:
         return logits[:, : self.cfg.vocab_size].argmax(dim=-1).tolist()
 
     def _admit(self, now: float) -> None:
-        """Fill free slots from the queue in submission order, one batched
-        prefill per round. Each claim takes its prompt pages up front (cached
-        prefix pages shared, the rest fresh); claiming stops, without
-        dequeuing, when the pool cannot cover the next request plus the
-        watermark (waived when no other slot is live). A request that
-        finishes on its first token frees its slot for the next round. A
-        swapped preemption comes back from the host tier without a prefill
-        (``_swap_in``), or through the re-prefill when the tier dropped it."""
+        """Fill free slots from the queue in submission order. Chunked
+        admission prefills each round's claims in one batched prefill;
+        interleaved admission only queues the prompt for the decode step. On
+        the paged pool each chunked claim takes its prompt pages up front
+        (cached prefix pages shared, the rest fresh; interleaved pages arrive
+        lazily); claiming stops, without dequeuing, when the pool cannot
+        cover the next request plus the watermark (waived when no other slot
+        is live). A request that finishes on its first token frees its slot
+        for the next round. A swapped preemption comes back from the host
+        tier without a prefill (``_swap_in``), or through the re-prefill when
+        the tier dropped it."""
+        chunked = self.prefill_mode == "chunked"
         while True:
             free = [i for i, s in enumerate(self.slots) if s is None]
             claimed: list[int] = []
@@ -556,62 +641,74 @@ class ServeEngine:
                 feed = req.prompt
                 if resume is not None and resume.generated:
                     feed = np.concatenate([req.prompt, np.asarray(resume.generated[:-1], np.int32)])
-                total_pages = min(-(-len(feed) // self.page_size), self.table_width)
                 hits: list[int] = []
                 suffix_start = 0
                 cow = False
-                if self.prefix is not None:
-                    # share the hits first so eviction below cannot recycle them
-                    hits = self.prefix.match(feed)
-                    for p in hits:
-                        self.pool.share(p)
-                    # at least one token must run through prefill (its logits
-                    # give the first emission): a fully cached prompt
-                    # re-prefills its last token into a copy of its last page
-                    suffix_start = min(len(hits) * self.page_size, len(feed) - 1)
-                    cow = len(hits) * self.page_size > suffix_start
-                n_fresh = total_pages - len(hits) + (1 if cow else 0)
-                hold = self.watermark_pages if any(s is not None for s in self.slots) else 0
-                if self.pool.available < n_fresh + hold:
-                    if self.prefix is not None:
-                        self.prefix.evict(n_fresh + hold - self.pool.available)
+                if self.paged_cache:
+                    n_fresh = 1  # interleaved: pages arrive lazily
+                    if chunked:
+                        total_pages = min(-(-len(feed) // self.page_size), self.table_width)
+                        if self.prefix is not None:
+                            # share the hits first so eviction below cannot
+                            # recycle them
+                            hits = self.prefix.match(feed)
+                            for p in hits:
+                                self.pool.share(p)
+                            # at least one token must run through prefill (its
+                            # logits give the first emission): a fully cached
+                            # prompt re-prefills its last token into a copy of
+                            # its last page
+                            suffix_start = min(len(hits) * self.page_size, len(feed) - 1)
+                            cow = len(hits) * self.page_size > suffix_start
+                        n_fresh = total_pages - len(hits) + (1 if cow else 0)
+                    hold = self.watermark_pages if any(s is not None for s in self.slots) else 0
                     if self.pool.available < n_fresh + hold:
-                        self.pool.free(hits)
-                        break  # stays queued
+                        if self.prefix is not None:
+                            self.prefix.evict(n_fresh + hold - self.pool.available)
+                        if self.pool.available < n_fresh + hold:
+                            self.pool.free(hits)
+                            break  # stays queued
                 self.waiting.popleft()
                 i = free.pop(0)
-                self.cache["pos"][i] = 0
+                reset_slot(self.cache, i)
                 slot = _Slot(req=req, generated=[], next_feed=-1, admit_time=now, feed=feed,
                              prefix_len=suffix_start)
                 self._admit_seq += 1
                 slot.seq = self._admit_seq
-                pages = list(hits)
-                if cow:
-                    src, dst = pages[-1], self.pool.alloc(1)[0]
-                    for name in self._kv_names:  # int8: the scale planes too
-                        self.cache[name][:, dst] = self.cache[name][:, src]
-                    self.pool.free([src])
-                    pages[-1] = dst
-                    self.cow_copies += 1
-                pages.extend(self.pool.alloc(total_pages - len(pages)))
-                self._slot_pages[i] = pages
-                self._table_np[i, :] = 0
-                self._table_np[i, : len(pages)] = pages
-                self._table_dirty = True
-                if resume is None:
-                    self.prefix_hit_pages += len(hits)
-                    self.prefix_hit_tokens += suffix_start
-                    self.prefix_lookup_tokens += len(feed)
-                else:
-                    self.prefix_resume_hit_tokens += suffix_start
+                if self.paged_cache:
+                    pages = list(hits)
+                    if cow:
+                        src, dst = pages[-1], self.pool.alloc(1)[0]
+                        for name in self._kv_names:  # int8: the scale planes too
+                            self.cache[name][:, dst] = self.cache[name][:, src]
+                        self.pool.free([src])
+                        pages[-1] = dst
+                        self.cow_copies += 1
+                    if chunked:
+                        pages.extend(self.pool.alloc(total_pages - len(pages)))
+                        if resume is None:
+                            self.prefix_hit_pages += len(hits)
+                            self.prefix_hit_tokens += suffix_start
+                            self.prefix_lookup_tokens += len(feed)
+                        else:
+                            self.prefix_resume_hit_tokens += suffix_start
+                    self._slot_pages[i] = pages
+                    self._table_np[i, :] = 0
+                    self._table_np[i, : len(pages)] = pages
+                    self._table_dirty = True
+                if resume is not None:
                     del self._resume[req.uid]
                     slot.generated = list(resume.generated)
                     slot.first_token_time = resume.first_token_time
                     slot.admit_time = resume.admit_time
                     slot.resumed = bool(resume.generated)
                 self.slots[i] = slot
-                slot.pos_host = len(feed)
-                claimed.append(i)
+                if chunked:
+                    slot.pos_host = len(feed)
+                    claimed.append(i)
+                else:  # the decode step consumes the feed, one token a step
+                    slot.pending = collections.deque(int(t) for t in feed)
+                    slot.next_feed = slot.pending.popleft()
             if not claimed:
                 return
             if not self._prefill_claimed(claimed):
@@ -648,12 +745,14 @@ class ServeEngine:
         self._table_np[i, :n_need] = pages
         self._table_dirty = True
         self.cache["pos"][i] = resume.pos
-        # written tokens = stream[:pos]; the slot feeds stream[pos] next
+        # written tokens = stream[:pos]; the slot feeds stream[pos] next and
+        # (a victim still teacher-forcing its prompt) the rest after it
         stream = np.concatenate([req.prompt, np.asarray(resume.generated, np.int32)])
         slot = _Slot(req=req, generated=list(resume.generated),
                      next_feed=int(stream[resume.pos]), admit_time=resume.admit_time,
                      feed=stream[: resume.pos], first_token_time=resume.first_token_time,
-                     pos_host=resume.pos)
+                     pos_host=resume.pos,
+                     pending=collections.deque(int(t) for t in stream[resume.pos + 1:]))
         self._admit_seq += 1
         slot.seq = self._admit_seq
         self.slots[i] = slot
@@ -700,7 +799,7 @@ class ServeEngine:
             else:
                 self.cache, logits = self.model.prefill_slots(
                     self.params, self.cache, self._tensor(tokens), self._tensor(lengths),
-                    self._tensor(slot_ids),
+                    self._tensor(slot_ids), window=self.window,
                 )
                 self.cold_dispatches += 1
             self.prefill_dispatches += 1
@@ -732,6 +831,8 @@ class ServeEngine:
             first_token_time=slot.first_token_time, finish_time=self._now(),
         ))
         self.slots[i] = None
+        if not self.paged_cache:
+            return
         if self.prefix is not None:
             # publish the FULL prompt pages (the index takes its own refs)
             # before the slot's refs drop
@@ -746,7 +847,7 @@ class ServeEngine:
     # ----------------------------------------------------------- paged pool
     def _sync_table(self) -> None:
         """Push the host page-table mirror (authoritative) to the device."""
-        if self._table_dirty:
+        if self.paged_cache and self._table_dirty:
             self.cache["table"].copy_(torch.from_numpy(self._table_np))
             self._table_dirty = False
 
@@ -852,12 +953,14 @@ class ServeEngine:
                     break
 
     def step(self) -> list[RequestOutput]:
-        """One iteration: admit → lazy pages → one batched decode step →
-        retire. Returns the requests that finished in it."""
+        """One iteration: admit → lazy pages (paged pool) → one batched
+        decode step → retire. A slot still teacher-forcing its prompt
+        (interleaved) discards its logits; a resumed slot re-feeds its last
+        known token. Returns the requests that finished in it."""
         n_done = len(self.finished)
         self._admit(self._now())
         live = [i for i, s in enumerate(self.slots) if s is not None]
-        if live:
+        if live and self.paged_cache:
             self._ensure_decode_pages(live)
             live = [i for i, s in enumerate(self.slots) if s is not None]
         if live:
@@ -865,14 +968,23 @@ class ServeEngine:
             feed = np.zeros((self.num_slots, 1), np.int32)
             for i in live:
                 feed[i, 0] = self.slots[i].next_feed
-            self.cache, logits = self.model.decode(self.params, self.cache, self._tensor(feed))
+            self.cache, logits = self.model.decode(self.params, self.cache, self._tensor(feed),
+                                                   window=self.window, paged=self.paged_decode)
             self.steps += 1
-            self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
+            if self.paged_cache:
+                self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
             greedy = self._greedy(logits)
             now = self._now()
             for i in live:
                 slot = self.slots[i]
                 slot.pos_host += 1
+                if slot.pending:  # mid-prefill: the logits are teacher-forced
+                    slot.next_feed = slot.pending.popleft()
+                    continue
+                if slot.resumed:  # an interleaved resume re-fed its history
+                    slot.resumed = False
+                    slot.next_feed = slot.generated[-1]
+                    continue
                 g = greedy[i]
                 if slot.first_token_time < 0:
                     slot.first_token_time = now
@@ -893,11 +1005,20 @@ class ServeEngine:
 
 
 # ----------------------------------------------------------------- helpers
+def synthetic_prompts(cfg, n: int, prompt_len: int, seed: int = 0) -> np.ndarray:
+    """(n, prompt_len) int32 prompts: the serving CLIs' law (the synthetic
+    corpus, 4 equally likely noiseless domains) drawn from ``seed + 1`` on a
+    ``torch.Generator`` (the reference's law, not its bits)."""
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, n_domains=4, noise=0.0)
+    gen = torch.Generator().manual_seed(seed + 1)
+    return corpus.sample(gen, torch.ones(4) / 4, n, prompt_len)["tokens"].numpy()
+
+
 def make_requests(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
                   seed: int = 0) -> list[Request]:
-    """Synthetic trace: uniform random prompts from ``seed``."""
-    rng = np.random.default_rng(seed + 1)
-    prompts = rng.integers(0, cfg.vocab_size, (n_requests, prompt_len), dtype=np.int32)
+    """Synthetic trace: row r of ``synthetic_prompts`` is request r, so uid
+    r's output is comparable with ``serve_batch``'s row r."""
+    prompts = synthetic_prompts(cfg, n_requests, prompt_len, seed)
     return [
         Request(uid=r, prompt=prompts[r], max_new_tokens=gen_tokens)
         for r in range(n_requests)
@@ -906,18 +1027,22 @@ def make_requests(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
 
 def serve_continuous(
     arch: str, *, smoke: bool = True, num_slots: int = 4, n_requests: int = 8,
-    prompt_len: int = 32, gen_tokens: int = 32, page_size: int = 16, num_pages: int = 0,
-    watermark_pages: int = 0, prefix_cache: bool = True, kv_dtype: str = "fp",
-    host_pages: int = 0, swap: bool = True, seed: int = 0, device="cuda", log_fn=print,
+    prompt_len: int = 32, gen_tokens: int = 32, window: int = 0, prefill: str = "chunked",
+    paged_decode: bool = True, paged_cache: bool = True, page_size: int = 16,
+    num_pages: int = 0, watermark_pages: int = 0, prefix_cache: bool = True,
+    kv_dtype: str = "fp", host_pages: int = 0, swap: bool = True, seed: int = 0,
+    device="cuda", log_fn=print,
 ) -> dict:
-    """Build a model with seeded random weights and an engine, serve a
-    synthetic trace after a warm-up run, report throughput and latency."""
+    """Build a model with seeded random weights and an engine (the shared
+    paged pool unless ``paged_cache=False``), serve a synthetic trace after
+    a warm-up run, report throughput and latency."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     generator = torch.Generator(device=device).manual_seed(seed)
     params = model.init(generator, device)
     engine = ServeEngine(
-        model, params, num_slots=num_slots, max_seq=prompt_len + gen_tokens,
+        model, params, num_slots=num_slots, max_seq=prompt_len + gen_tokens, window=window,
+        prefill=prefill, paged_decode=paged_decode, paged_cache=paged_cache,
         page_size=page_size, num_pages=num_pages, watermark_pages=watermark_pages,
         prefix_cache=prefix_cache, kv_dtype=kv_dtype, host_pages=host_pages, swap=swap,
         device=device,
@@ -939,6 +1064,10 @@ def serve_continuous(
         "n_requests": n_requests,
         "prompt_len": prompt_len,
         "gen_tokens": gen_tokens,
+        "window": window,
+        "prefill": prefill,
+        "paged_decode": paged_decode,
+        "paged_cache": paged_cache,
         "prefix_cache": engine.prefix_cache,
         "kv_dtype": kv_dtype,
         "host_pages": host_pages,
@@ -954,10 +1083,12 @@ def serve_continuous(
         "latency_p95": float(np.percentile(lat, 95)),
         "ttft_p50": float(np.percentile(ttft, 50)),
     }
-    pool_line = (
-        f", pool occ mean {ps['occupancy_mean']:.0%} / max {ps['occupancy_max']:.0%} over "
-        f"{ps['allocatable_pages']} pages, {ps['preemptions']} preemptions"
-    )
+    pool_line = ""
+    if ps is not None:
+        pool_line = (
+            f", pool occ mean {ps['occupancy_mean']:.0%} / max {ps['occupancy_max']:.0%} over "
+            f"{ps['allocatable_pages']} pages, {ps['preemptions']} preemptions"
+        )
     if engine.prefix_cache:
         pool_line += (
             f", prefix hit {ps['prefix_hit_rate']:.0%} "

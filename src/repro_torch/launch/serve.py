@@ -1,7 +1,14 @@
-"""Serving CLI of the port: the continuous-batching engine over the shared
-paged KV pool, greedy decoding, prefix sharing on by default.
+"""Serving CLI of the port: the single-batch path (``serve_batch``, the
+default mode: one fixed batch, the prompt teacher-forced through the decode
+step in lockstep, then greedy decoding; the oracle the engine's tokens are
+held against) and, with ``--continuous``, the continuous-batching engine
+(the shared paged KV pool with prefix sharing by default, or per-slot
+contiguous rings with ``--no-paged-cache``; chunked or interleaved prefill;
+sliding windows).
 
     # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 4 \\
+        --prompt-len 64 --gen 64 --window 96
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \\
         --slots 8 --requests 16 --prompt-len 128 --gen 32
 
@@ -11,7 +18,10 @@ paged KV pool, greedy decoding, prefix sharing on by default.
         --kv-dtype int8 --host-pages 256
 
     # on the CPU, with the kernels' plain versions
-    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --batch 2 \\
+        --prompt-len 8 --gen 4 --window 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
+        --no-paged-cache --prefill interleaved --window 4
     # int8 pages and a host tier on the CPU: a pool that preempts and swaps
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
         --requests 3 --gen 6 --prompt-len 8 --slots 2 --page-size 4 --num-pages 6 \\
@@ -20,6 +30,79 @@ paged KV pool, greedy decoding, prefix sharing on by default.
 from __future__ import annotations
 
 import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models.model import build_model
+
+
+def generate_batch(model, params, prompts: torch.Tensor, gen_tokens: int, *,
+                   window: int = 0) -> tuple[torch.Tensor, float, float]:
+    """Lockstep greedy generation over one fixed batch: a ring cache of
+    prompt + gen slots (the window's, when smaller), the prompts (B, P)
+    teacher-forced through the decode step, then ``gen_tokens`` greedy
+    tokens. Decode attention streams every ring slot (``swa_decode``).
+    Returns (generated (B, gen_tokens) int64 on the CPU, prefill seconds,
+    decode seconds); the argmax stays on the device until the end."""
+    b, p = prompts.shape
+    device = prompts.device
+    vocab = model.cfg.vocab_size
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    cache = model.init_cache(b, p + gen_tokens, window=window, device=device)
+    t0 = time.perf_counter()
+    logits = None
+    for i in range(p):
+        cache, logits = model.decode(params, cache, prompts[:, i:i + 1], window=window,
+                                     paged=False)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    generated = []
+    tok = logits[:, :vocab].argmax(dim=-1, keepdim=True)
+    t0 = time.perf_counter()
+    for _ in range(gen_tokens):
+        generated.append(tok)
+        cache, logits = model.decode(params, cache, tok, window=window, paged=False)
+        tok = logits[:, :vocab].argmax(dim=-1, keepdim=True)
+    sync()
+    t_gen = time.perf_counter() - t0
+    return torch.cat(generated, dim=1).cpu(), t_prefill, t_gen
+
+
+def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
+                gen_tokens: int = 32, window: int = 0, seed: int = 0, device="cuda",
+                log_fn=print) -> dict:
+    """The single-batch path: seeded random weights, ``batch`` synthetic
+    prompts (``engine.synthetic_prompts``: row r is the engine trace's
+    request r), ``generate_batch``; reports throughput."""
+    from repro_torch.launch.engine import synthetic_prompts
+
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed), device)
+    prompts = torch.from_numpy(synthetic_prompts(cfg, batch, prompt_len, seed)).to(device)
+    gen, t_prefill, t_gen = generate_batch(model, params, prompts, gen_tokens, window=window)
+    result = {
+        "arch": cfg.name,
+        "device": str(torch.device(device)),
+        "batch": batch,
+        "prompt_len": prompt_len,
+        "gen_tokens": gen_tokens,
+        "window": window,
+        "prefill_seconds": t_prefill,
+        "decode_seconds": t_gen,
+        "tokens_per_second": batch * gen_tokens / max(t_gen, 1e-9),
+        "generated": gen.tolist(),
+    }
+    log_fn(f"{cfg.name}: prefill {prompt_len} tok in {t_prefill:.2f}s; generated "
+           f"{gen_tokens} tok/seq × {batch} seqs in {t_gen:.2f}s "
+           f"({result['tokens_per_second']:.1f} tok/s)")
+    return result
 
 
 def main(argv=None):
@@ -30,49 +113,77 @@ def main(argv=None):
                     help="published widths instead of the smoke config")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--window", type=int, default=0,
+                    help="sliding-window span (0 = full attention)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=4, help="[single batch] lockstep batch size")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous-batching engine (the port's only serving mode)")
-    ap.add_argument("--slots", type=int, default=4, help="KV-cache slot pool size")
-    ap.add_argument("--requests", type=int, default=8, help="number of queued requests")
-    ap.add_argument("--page-size", type=int, default=16, help="tokens per physical KV page")
+                    help="continuous-batching engine instead of the single batch")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="[continuous] KV-cache slot pool size")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="[continuous] number of queued requests")
+    ap.add_argument("--prefill", choices=("chunked", "interleaved"), default="chunked",
+                    help="[continuous] prompt admission mode")
+    ap.add_argument("--no-paged-decode", dest="paged_decode", action="store_false",
+                    help="[continuous] ring decode streams every slot instead of skipping "
+                    "each slot's dead pages (the same tokens)")
+    ap.add_argument("--no-paged-cache", dest="paged_cache", action="store_false",
+                    help="[continuous] per-slot contiguous ring KV caches instead of the "
+                    "shared paged pool (prompt + gen <= max_seq without a window)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="[continuous] tokens per physical KV page")
     ap.add_argument("--num-pages", type=int, default=0,
-                    help="total physical pages incl. the reserved scratch page "
+                    help="[continuous] total physical pages incl. the reserved scratch page "
                     "(0 = ring-equivalent capacity)")
     ap.add_argument("--watermark-pages", type=int, default=0,
-                    help="free pages admission keeps in reserve while other slots are live")
+                    help="[continuous] free pages admission keeps in reserve while other "
+                    "slots are live")
     ap.add_argument("--no-prefix-cache", dest="prefix_cache", action="store_false",
-                    help="disable shared-prefix KV reuse")
+                    help="[continuous] disable shared-prefix KV reuse (off anyway with "
+                    "--no-paged-cache, a window or interleaved prefill)")
     ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp",
-                    help="KV page storage: the model dtype, or int8 with one f32 scale per "
-                    "token slot per kv head")
+                    help="[continuous] KV page storage: the model dtype, or int8 with one "
+                    "f32 scale per token slot per kv head")
     ap.add_argument("--host-pages", type=int, default=0,
-                    help="host-memory tier behind the pool, in pages: preemption swaps a "
-                    "slot's pages there instead of re-prefilling, and evicted prefix pages "
-                    "demote there (0 = no tier)")
+                    help="[continuous] host-memory tier behind the pool, in pages: "
+                    "preemption swaps a slot's pages there instead of re-prefilling, and "
+                    "evicted prefix pages demote there (0 = no tier)")
     ap.add_argument("--no-swap", dest="swap", action="store_false",
-                    help="with --host-pages, keep prefix demote/promote but resume "
-                    "preemptions by re-prefill instead of swap-in")
+                    help="[continuous] with --host-pages, keep prefix demote/promote but "
+                    "resume preemptions by re-prefill instead of swap-in")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if not args.continuous:
-        ap.error("the port serves through the continuous-batching engine only: pass "
-                 "--continuous (the single-batch oracle is a later slice)")
     # the reference's fail-fast contract: a flag the engine would have to
     # ignore is a configuration error, not a degraded run
+    for flag, hit in (("--kv-dtype int8", args.kv_dtype != "fp"),
+                      (f"--host-pages {args.host_pages}", args.host_pages > 0)):
+        blockers = []
+        if hit and not args.continuous:
+            blockers.append("batch mode (use --continuous)")
+        if hit and not args.paged_cache:
+            blockers.append("--no-paged-cache (it works on the page pool)")
+        if blockers:
+            ap.error(f"{flag} cannot be honored by this config: " + "; ".join(blockers))
     if args.host_pages < 0:
         ap.error(f"--host-pages {args.host_pages} cannot be honored: a tier holds >= 0 pages")
     if not args.swap and args.host_pages == 0:
         ap.error("--no-swap cannot be honored: it selects what the host tier does, and "
                  "--host-pages is 0")
+    if not args.continuous:
+        return serve_batch(args.arch, smoke=args.smoke, batch=args.batch,
+                           prompt_len=args.prompt_len, gen_tokens=args.gen,
+                           window=args.window, seed=args.seed, device=args.device)
     from repro_torch.launch.engine import serve_continuous
 
     return serve_continuous(
         args.arch, smoke=args.smoke, num_slots=args.slots, n_requests=args.requests,
-        prompt_len=args.prompt_len, gen_tokens=args.gen, page_size=args.page_size,
-        num_pages=args.num_pages, watermark_pages=args.watermark_pages,
-        prefix_cache=args.prefix_cache, kv_dtype=args.kv_dtype, host_pages=args.host_pages,
-        swap=args.swap, seed=args.seed, device=args.device,
+        prompt_len=args.prompt_len, gen_tokens=args.gen, window=args.window,
+        prefill=args.prefill, paged_decode=args.paged_decode, paged_cache=args.paged_cache,
+        page_size=args.page_size, num_pages=args.num_pages,
+        watermark_pages=args.watermark_pages, prefix_cache=args.prefix_cache,
+        kv_dtype=args.kv_dtype, host_pages=args.host_pages, swap=args.swap, seed=args.seed,
+        device=args.device,
     )
 
 

@@ -1,9 +1,12 @@
 """GQA attention: the training forward, and the serving path's cold
 prefill, suffix prefill over a cached prefix, and decode over the shared
-paged KV pool.
+paged KV pool or over per-row contiguous ring caches.
 
 Keys are stored rotated (RoPE at write time), so a read needs no position
-bookkeeping beyond the validity mask. The pool is one (P, page, Hkv, hd)
+bookkeeping beyond the validity mask. A ring cache is (B, C, Hkv, hd) per
+layer with C = the window when 0 < window < max_seq, else max_seq; slot
+pos mod C holds the token at position pos, and ``pos`` is () (a lockstep
+batch) or (B,) (per-slot positions). The pool is one (P, page, Hkv, hd)
 tensor per layer shared by every slot, with page 0 reserved as scratch; a
 slot's (T,) table row maps its logical ring pages into it (capacity
 T·page). Where the reference donated the pool through ``jit``, the port
@@ -172,4 +175,66 @@ def decode_attend_paged(
     _write_slots(cache, phys, off, k[:, 0], v[:, 0])
     out = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"], pos, table, window,
                                      k_scale=cache.get("ks"), v_scale=cache.get("vs"))
+    return out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]
+
+
+# ------------------------------------------------------------ ring caches
+def ring_capacity(max_seq: int, window: int = 0) -> int:
+    """Slots of a ring: the window when 0 < window < max_seq, else max_seq.
+    (The stacked rings of every layer are ``transformer.init_decode_cache``.)"""
+    return window if 0 < window < max_seq else max_seq
+
+
+def cache_capacity(cache: dict) -> int:
+    return cache["k"].shape[1]
+
+
+def fill_cache_rows(
+    cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    lengths: torch.Tensor, starts: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched per-row ring write: row r's first lengths[r] tokens of k/v
+    (n, S, Hkv, hd) into its ring row (n, C, Hkv, hd) from ring position
+    starts[r] (0 when None), leaving the state lengths[r] one-token writes
+    would. A gather, not a scatter: each ring slot c takes the LAST prompt
+    index landing on it (a scatter with duplicate indices has no defined
+    winner). Slots a row never reaches keep their old value. Returns the new
+    rows (new_k, new_v)."""
+    cap = cache_k.shape[1]
+    c = torch.arange(cap, device=k.device)[None, :]
+    last = lengths.long()[:, None] - 1
+    c_rel = c if starts is None else (c - starts.long()[:, None]) % cap
+    # the largest prompt index j < lengths[r] with j = c_rel (mod cap)
+    j_star = c_rel + cap * torch.div(last - c_rel, cap, rounding_mode="floor")
+    keep = (c_rel <= last)[:, :, None, None]
+    idx = j_star.clamp(0, k.shape[1] - 1)[:, :, None, None].expand(-1, -1, *k.shape[2:])
+    return (torch.where(keep, k.gather(1, idx), cache_k),
+            torch.where(keep, v.gather(1, idx), cache_v))
+
+
+def decode_attend(
+    params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, *, window: int = 0,
+    paged: bool = True,
+) -> torch.Tensor:
+    """One decode step over one layer's ring cache. x: (B, 1, D); cache:
+    {"k"/"v": (B, C, Hkv, hd), "pos": () or (B,)}. Row b's token (position
+    pos[b]) is written first, in place at slot pos[b] mod C, then attends
+    over its ring through ``ops.swa_decode_attention`` (``paged``: the
+    kernel that skips dead pages; else the one that streams every slot)."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    pos = cache["pos"]
+    cap = cache_capacity(cache)
+    pos_b = pos[:, None] if pos.dim() == 1 else pos.reshape(1, 1).expand(b, 1)
+    q = _queries(params, x, pos_b, cfg)                            # (B, 1, Hkv, G, hd)
+    k, v = compute_kv_for_prefill(params, x, pos_b, cfg)           # (B, 1, Hkv, hd)
+    slot = pos.long() % cap
+    if pos.dim() == 1:
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, slot] = k[:, 0]
+        cache["v"][rows, slot] = v[:, 0]
+    else:
+        cache["k"].index_copy_(1, slot.reshape(1), k)
+        cache["v"].index_copy_(1, slot.reshape(1), v)
+    out = ops.swa_decode_attention(q[:, 0], cache["k"], cache["v"], pos, window, paged=paged)
     return out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]

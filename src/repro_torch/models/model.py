@@ -19,7 +19,8 @@ class ModelAPI:
     loss: Callable[..., tuple[Any, dict]]
     # forward(params, batch) -> logits fp32 (B, S, Vp)
     forward: Callable[..., Any]
-    # decode(params, cache, tokens (B, 1), window=) -> (cache, logits (B, Vp))
+    # decode(params, cache, tokens (B, 1), window=, paged=) -> (cache, logits (B, Vp));
+    # either cache layout; ``paged`` picks the ring kernel that skips dead pages
     decode: Callable[..., tuple[dict, Any]]
     # prefill_slots(params, cache, tokens (n, S), lengths (n,), slots (n,),
     #               starts=None, prefix_pages=None, window=) -> (cache, logits (n, Vp))
@@ -27,6 +28,10 @@ class ModelAPI:
     # init_paged_cache(num_slots, num_pages, page_size, table_width, device=,
     #                  kv_dtype=) -> shared paged pool + per-slot page tables
     init_paged_cache: Callable[..., dict]
+    # init_cache(batch, max_seq, window=, device=) -> lockstep ring cache (pos ())
+    init_cache: Callable[..., dict]
+    # init_slot_cache(num_slots, max_seq, window=, device=) -> per-slot rings (pos (B,))
+    init_slot_cache: Callable[..., dict]
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
@@ -47,8 +52,8 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
     def forward(params, batch):
         return transformer.forward(cfg, params, batch["tokens"], window=cfg.window)[0]
 
-    def decode(params, cache, tokens, *, window=0):
-        return transformer.decode_step(cfg, params, cache, tokens, window=window)
+    def decode(params, cache, tokens, *, window=0, paged=True):
+        return transformer.decode_step(cfg, params, cache, tokens, window=window, paged=paged)
 
     def prefill_slots(params, cache, tokens, lengths, slots, *, starts=None,
                       prefix_pages=None, window=0):
@@ -64,4 +69,12 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             kv_dtype=kv_dtype,
         )
 
-    return ModelAPI(cfg, init, loss, forward, decode, prefill_slots, init_paged_cache)
+    def init_cache(batch, max_seq, *, window=0, device):
+        return transformer.init_decode_cache(cfg, batch, max_seq, window=window, device=device)
+
+    def init_slot_cache(num_slots, max_seq, *, window=0, device):
+        return transformer.init_decode_cache(cfg, num_slots, max_seq, window=window,
+                                             per_slot=True, device=device)
+
+    return ModelAPI(cfg, init, loss, forward, decode, prefill_slots, init_paged_cache,
+                    init_cache, init_slot_cache)

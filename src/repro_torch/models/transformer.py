@@ -1,5 +1,6 @@
 """Dense decoder transformer: parameters, the training forward and loss,
-the shared paged KV cache, batched prefill (cold and suffix) and one decode
+the KV caches (per-row contiguous rings, or the shared paged pool), prefill
+(whole prompts, one slot, or batched cold and suffix rounds) and one decode
 step.
 
 Parameters are the reference package's pytree as a dict of tensors with the
@@ -100,6 +101,30 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     return total, {"loss": loss, "accuracy": acc, "aux_loss": aux}
 
 
+def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *, window: int = 0,
+                      per_slot: bool = False, device) -> dict:
+    """Stacked (L, B, C, Hkv, hd) ring caches, C = window if 0 < window <
+    max_seq else max_seq. ``per_slot`` gives each row its own position
+    ((B,) instead of ()), so rows act as recyclable request slots."""
+    shape = (cfg.n_layers, batch, attn.ring_capacity(max_seq, window), cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dt = getattr(torch, cfg.dtype)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "pos": torch.zeros((batch,) if per_slot else (), dtype=torch.int32, device=device),
+    }
+
+
+def reset_slot(cache: dict, slot: int) -> dict:
+    """Recycle one slot of a per-slot cache: zero its position. Stale k/v
+    need no clearing (the decode mask derives from ``pos``)."""
+    if cache["pos"].dim() != 1:
+        raise ValueError("reset_slot needs a per-slot cache")
+    cache["pos"][slot] = 0
+    return cache
+
+
 def init_paged_cache(
     cfg: ModelConfig, num_slots: int, num_pages: int, page_size: int, table_width: int,
     *, device, kv_dtype: str = "fp",
@@ -131,10 +156,13 @@ KV_PLANES = ("k", "v", "ks", "vs")
 
 
 def layer_cache(cache: dict, i: int) -> dict:
-    """Layer i's views of the pool planes (``k``/``v`` and, for an int8
-    pool, ``ks``/``vs``) with the shared ``pos`` and ``table``."""
+    """Layer i's views of the cache planes (``k``/``v`` and, for an int8
+    pool, ``ks``/``vs``) with the shared ``pos`` and, for the paged pool,
+    ``table``."""
     out = {name: cache[name][i] for name in KV_PLANES if name in cache}
-    out["pos"], out["table"] = cache["pos"], cache["table"]
+    out["pos"] = cache["pos"]
+    if "table" in cache:
+        out["table"] = cache["table"]
     return out
 
 
@@ -144,15 +172,22 @@ def _mlp_residual(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
 
 def decode_step(
     cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor, *, window: int = 0,
+    paged: bool = True,
 ) -> tuple[dict, torch.Tensor]:
-    """One token for every slot. tokens (B, 1) → (cache, logits (B, Vp)).
-    Every row writes its token at its own position, then ``pos`` advances."""
+    """One token for every row. tokens (B, 1) → (cache, logits (B, Vp)).
+    Every row writes its token at its own position, then ``pos`` advances.
+    Works over both layouts: the shared paged pool (a ``table`` key) and
+    ring caches, whose decode attention skips dead pages when ``paged``
+    (else streams every slot; the same output)."""
     h = embed_tokens(params["embed"], tokens)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
-        h = h + attn.decode_attend_paged(lp["attn"], a, layer_cache(cache, i), cfg,
-                                         window=window)
+        lc = layer_cache(cache, i)
+        if "table" in cache:
+            h = h + attn.decode_attend_paged(lp["attn"], a, lc, cfg, window=window)
+        else:
+            h = h + attn.decode_attend(lp["attn"], a, lc, cfg, window=window, paged=paged)
         h = _mlp_residual(cfg, lp, h)
     h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
     cache["pos"] += 1
@@ -170,8 +205,10 @@ def prefill_slots(
     tokens (n, S) right-padded; lengths (n,); slots (n,) distinct slots. A
     row with length 0 is bucket padding: it writes nothing and leaves its
     slot's position alone. Row r's k/v land only at the ring slots its
-    tokens occupy, through its page table; returns (cache, logits (n, Vp))
-    at each row's last valid position.
+    tokens occupy (a prompt longer than the ring leaves its last C tokens,
+    each slot holding the last index that lands on it), through its page
+    table or, for a per-slot ring cache (no ``table``), in its ring row;
+    returns (cache, logits (n, Vp)) at each row's last valid position.
 
     Cold mode (``starts`` None): positions 0..S-1, attention through the
     flash-prefill kernel. Suffix mode: row r's tokens are the uncached
@@ -187,8 +224,13 @@ def prefill_slots(
     device = tokens.device
     slots = slots.long()
     lengths = lengths.to(torch.int32)
-    table_rows = cache["table"][slots].contiguous()
-    t_w = table_rows.shape[1]
+    ring = "table" not in cache
+    if ring:
+        if starts is not None:
+            raise ValueError("suffix prefill needs the paged pool")
+    else:
+        table_rows = cache["table"][slots].contiguous()
+        t_w = table_rows.shape[1]
     if starts is None:
         pos = positions_for(tokens)
         write_starts = torch.zeros(n, dtype=torch.int32, device=device)
@@ -213,9 +255,15 @@ def prefill_slots(
                 table_rows=table_rows, starts=starts, prefix_width=w_pfx,
             )
         h = _mlp_residual(cfg, lp, h + a)
-        # the prefix lanes were read above; the write touches only this
-        # round's own slots
-        attn.fill_pages_rows(lc, k, v, table_rows, write_starts, lengths)
+        if ring:
+            rows_k, rows_v = attn.fill_cache_rows(lc["k"][slots], lc["v"][slots], k, v,
+                                                  lengths)
+            lc["k"][slots] = rows_k
+            lc["v"][slots] = rows_v
+        else:
+            # the prefix lanes were read above; the write touches only this
+            # round's own slots
+            attn.fill_pages_rows(lc, k, v, table_rows, write_starts, lengths)
     h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
     last = h[torch.arange(n, device=device), (lengths.long() - 1).clamp(min=0)]
     logits = lm_logits(params["embed"], last[:, None], cfg)[:, 0]

@@ -2,7 +2,7 @@
 
 Both engines run the stablelm-1.6b smoke config in float32 on the same
 numpy-drawn weights (``repro_torch.bridge.numpy_params``) and the same
-explicit prompts, the reference with ``paged_cache=True``. Greedy decoding
+explicit prompts, both with ``paged_cache=True``. Greedy decoding
 must give IDENTICAL tokens and equal pool counters: at fp32 the two
 packages' logits agree to ~1e-6, far inside the gap between the top two
 logits of these traces, so any token difference is a scheduling or
@@ -52,7 +52,7 @@ def _serve_both(prompts, gen, seed=0, **engine_kw):
     ref_out = ref.run([ref_engine.Request(uid=u, prompt=p, max_new_tokens=gen)
                        for u, p in enumerate(prompts)])
     port = port_engine.ServeEngine(build_model(cfg), params_from_numpy(tree, cfg, "cpu"),
-                                   device="cpu", **engine_kw)
+                                   device="cpu", paged_cache=True, **engine_kw)
     port_out = port.run([port_engine.Request(uid=u, prompt=p, max_new_tokens=gen)
                          for u, p in enumerate(prompts)])
     return ref, ref_out, port, port_out
@@ -185,21 +185,37 @@ def test_submit_rejects_what_the_pool_can_never_hold():
     cfg, _ = _f32_configs()
     eng = port_engine.ServeEngine(
         build_model(cfg), params_from_numpy(numpy_params(cfg, 0), cfg, "cpu"),
-        num_slots=2, max_seq=16, page_size=4, num_pages=3, device="cpu")
+        num_slots=2, max_seq=16, page_size=4, num_pages=3, device="cpu", paged_cache=True)
     with pytest.raises(port_engine.AdmissionError) as err:
         eng.submit(port_engine.Request(uid=7, prompt=np.ones(9, np.int32), max_new_tokens=2))
     assert err.value.reason == "exceeds_pool" and err.value.uid == 7
     assert not eng.waiting
 
 
-@pytest.mark.parametrize("kw", [
-    dict(window=4), dict(prefill="interleaved"), dict(paged_cache=False),
-    dict(spec_tokens=2), dict(mesh=object()),
-])
+@pytest.mark.parametrize("kw", [dict(spec_tokens=2), dict(mesh=object())])
 def test_settings_outside_the_slice_raise(kw):
     cfg, _ = _f32_configs()
     with pytest.raises(NotImplementedError, match="later slice"):
         port_engine.ServeEngine(build_model(cfg), {}, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(window=4, paged_cache=True), dict(prefill="interleaved", paged_cache=True),
+    dict(paged_cache=False),
+])
+def test_ring_mode_settings_serve_a_trace(kw):
+    """The settings ring mode brought into the port (they raised before it):
+    each builds an engine that serves a short trace to its budgets (the
+    tokens are held against the reference in tests/test_torch_ring.py)."""
+    cfg, _ = _f32_configs()
+    eng = port_engine.ServeEngine(
+        build_model(cfg), params_from_numpy(numpy_params(cfg, 0), cfg, "cpu"),
+        num_slots=2, max_seq=16, page_size=4, device="cpu", **kw)
+    rng = np.random.default_rng(4)
+    outs = eng.run([port_engine.Request(uid=u, prompt=rng.integers(1, 512, n),
+                                        max_new_tokens=5) for u, n in enumerate((6, 9, 3))])
+    assert [len(o.tokens) for o in outs] == [5, 5, 5]
+    assert (eng.pool_stats is None) == (not kw.get("paged_cache"))
 
 
 def test_sampled_requests_raise():
@@ -214,7 +230,8 @@ def golden_trace() -> dict:
     return {
         "config": f"{ARCH} smoke, dtype float32",
         "seed": 0,
-        "engine": dict(num_slots=3, max_seq=32, page_size=4, prefix_cache=True),
+        "engine": dict(num_slots=3, max_seq=32, page_size=4, prefix_cache=True,
+                       paged_cache=True),
         "max_new_tokens": 6,
         "prompts": [p.tolist() for p in _shared_prefix_prompts()],
     }
@@ -227,8 +244,7 @@ def make_golden() -> dict:
     cfg, _ = _f32_configs()
     ref_params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32),
                                         numpy_params(cfg, g["seed"]))
-    ref = ref_engine.ServeEngine(ref_build_model(ref_cfg), ref_params, paged_cache=True,
-                                 **g["engine"])
+    ref = ref_engine.ServeEngine(ref_build_model(ref_cfg), ref_params, **g["engine"])
     outs = ref.run([ref_engine.Request(uid=u, prompt=np.asarray(p, np.int32),
                                        max_new_tokens=g["max_new_tokens"])
                     for u, p in enumerate(g["prompts"])])
@@ -261,9 +277,10 @@ def test_serve_cli_on_cpu(capsys):
                 "--prompt-len", "8", "--slots", "2"])
     assert res["device"] == "cpu" and len(res["generated"]) == 3
     assert all(len(t) == 3 for t in res["generated"])
+    assert res["paged_cache"] and res["pool"] is not None  # the CLI's engine default
     assert "reqs × 3 tok over 2 slots" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu"])  # only the continuous engine is ported
+    res = main(["--device", "cpu", "--batch", "2", "--gen", "3", "--prompt-len", "8"])
+    assert res["device"] == "cpu" and len(res["generated"]) == 2  # the single-batch default
 
 
 if __name__ == "__main__":

@@ -190,9 +190,14 @@ def test_cpu_tensors_take_the_plain_versions_without_a_launch():
         ref.paged_decode_int8_ref(q, q8, q8, s8, s8, pos, table), rtol=0, atol=0)
     torch.testing.assert_close(ops.int8_encode_leaf(x)[:2], ref.int8_encode_ref(ref._blocks(x)),
                                rtol=0, atol=0)
+    ring = (q, ref.gather_pages_ref(kp, table), ref.gather_pages_ref(vp, table))
+    for paged, plain in ((True, ref.ring_paged_decode_ref), (False, ref.swa_decode_ref)):
+        torch.testing.assert_close(ops.swa_decode_attention(*ring, pos, 5, paged=paged),
+                                   plain(*ring, pos, 5), rtol=0, atol=0)
     assert set(ops.LAUNCHES) == {"paged_decode", "flash_prefill", "suffix_prefill",
                                  "paged_decode_int8", "suffix_prefill_int8", "int8_encode",
-                                 "int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise"}
+                                 "int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise",
+                                 "paged_decode_ring", "swa_decode"}
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
@@ -200,11 +205,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA entry points never take a CPU tensor (no silent fallback)."""
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.flash_suffix_prefill import suffix_prefill
-    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_decode import paged_decode, paged_decode_ring
+    from repro_torch.kernels.swa_decode import swa_decode
 
     q, kp, vp, pos, table = (_to_torch(a, np.float32) for a in _decode_inputs(8, 2, 1, 32))
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode(q, kp, vp, pos, table)
+    ring = ref.gather_pages_ref(kp, table)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_decode_ring(q, ring, ring, pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        swa_decode(q, ring, ring, pos)
     x = torch.zeros(1, 8, 2, 1, 32)
     kv = torch.zeros(1, 8, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -501,3 +512,56 @@ def test_int8_launch_counters_cuda(sm90):
         ops.paged_decode_attention(q, kq.float(), kq.float(), pos, table, k_scale=ks,
                                    v_scale=ks)
     assert ops.LAUNCHES["paged_decode_int8"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32)])
+def test_ring_kernels_match_plain_and_each_other_cuda(sm90, dtype, g, hd):
+    """``paged_decode_ring`` and ``swa_decode`` against their plain versions
+    (tolerances as above), over rings of 256 (pages of 256, or 64 and 128
+    when asked) and of 40 (one page, a ragged tile): rows short of the ring,
+    wrapped, per-row and scalar positions, windows 0 and 7. The two kernels
+    are BITWISE equal, the page size changes no bit, and neither does the
+    layout: the table kernel over the same keys in pool pages of 8 gives the
+    same bits."""
+    from repro_torch.kernels.paged_decode import paged_decode_ring
+    from repro_torch.kernels.swa_decode import swa_decode
+
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator().manual_seed(g * hd + 1)
+    for cap in (256, 40):
+        q = torch.randn(3, 2, g, hd, generator=gen).to("cuda", dtype)
+        k, v = (torch.randn(3, cap, 2, hd, generator=gen).to("cuda", dtype) for _ in "kv")
+        for pos in ([5, cap + 9, 2 * cap - 1], [cap + 3] * 3, [70, 3, 200]):
+            pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            for window in (0, 7):
+                swa = swa_decode(q, k, v, pos, window)
+                torch.testing.assert_close(
+                    swa.float(), ref.swa_decode_ref(q, k, v, pos, window).float(), rtol=0,
+                    atol=tol)
+                for page in ((0, 64, 128) if cap == 256 else (0,)):
+                    torch.testing.assert_close(paged_decode_ring(q, k, v, pos, window, page=page),
+                                               swa, rtol=0, atol=0)
+                table = (torch.arange(3 * cap // 8, dtype=torch.int32) + 1).flip(0)
+                table = table.reshape(3, cap // 8).cuda()
+                pools = [torch.zeros(3 * cap // 8 + 1, 8, 2, hd, dtype=dtype, device="cuda")
+                         for _ in "kv"]
+                for pool, ring in zip(pools, (k, v)):
+                    pool[table.long().reshape(-1)] = ring.reshape(-1, 8, 2, hd)
+                torch.testing.assert_close(ops.paged_decode_attention(q, *pools, pos, table, window),
+                                           swa, rtol=0, atol=0)
+
+
+def test_ring_launch_counters_cuda(sm90):
+    build.reset_launches()
+    q = torch.randn(2, 2, 1, 64, device="cuda")
+    ring = torch.randn(2, 128, 2, 64, device="cuda")
+    pos = torch.tensor(7, dtype=torch.int32, device="cuda")   # a lockstep position
+    for paged in (True, True, False):
+        ops.swa_decode_attention(q, ring, ring, pos, 0, paged=paged)
+    assert ops.LAUNCHES["paged_decode_ring"] == 2 and ops.LAUNCHES["swa_decode"] == 1
+    with pytest.raises(ValueError, match="head dim"):
+        ops.swa_decode_attention(torch.randn(2, 2, 1, 48, device="cuda"),
+                                 torch.randn(2, 128, 2, 48, device="cuda"),
+                                 torch.randn(2, 128, 2, 48, device="cuda"), 3, paged=True)
+    assert ops.LAUNCHES["paged_decode_ring"] == 2

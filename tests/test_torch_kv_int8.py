@@ -294,7 +294,7 @@ def _serve_both(prompts, gen, **kw):
     ref_out = ref.run([ref_engine.Request(uid=u, prompt=p, max_new_tokens=gen)
                        for u, p in enumerate(prompts)])
     port = port_engine.ServeEngine(build_model(cfg), params_from_numpy(tree, cfg, "cpu"),
-                                   device="cpu", **kw)
+                                   device="cpu", paged_cache=True, **kw)
     port_out = port.run([port_engine.Request(uid=u, prompt=p, max_new_tokens=gen)
                          for u, p in enumerate(prompts)])
     assert [o.tokens for o in port_out] == [o.tokens for o in ref_out]
@@ -358,7 +358,7 @@ def test_int8_cow_split_copies_the_scale_planes():
     cfg, _ = _f32_configs()
     eng = port_engine.ServeEngine(
         build_model(cfg), params_from_numpy(numpy_params(cfg, 0), cfg, "cpu"),
-        device="cpu", prefix_cache=True, **dict(BASE, num_slots=1))
+        device="cpu", prefix_cache=True, paged_cache=True, **dict(BASE, num_slots=1))
     p = _prompts([8])[0]
     eng.run([port_engine.Request(uid=0, prompt=p, max_new_tokens=2)])
     src = eng.prefix.match(p)[-1]

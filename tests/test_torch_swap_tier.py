@@ -105,7 +105,7 @@ def _prompts(lens, seed=0):
 
 def _port(**kw):
     cfg, _ = _f32_configs()
-    kw = {"num_slots": 2, "max_seq": P + G, "page_size": 4, **kw}
+    kw = {"num_slots": 2, "max_seq": P + G, "page_size": 4, "paged_cache": True, **kw}
     return port_engine.ServeEngine(
         build_model(cfg), params_from_numpy(numpy_params(cfg, 0), cfg, "cpu"), device="cpu",
         **kw)
@@ -115,8 +115,8 @@ def _ref(**kw):
     _, ref_cfg = _f32_configs()
     cfg, _ = _f32_configs()
     params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), numpy_params(cfg, 0))
-    kw = {"num_slots": 2, "max_seq": P + G, "page_size": 4, **kw}
-    return ref_engine.ServeEngine(ref_build_model(ref_cfg), params, paged_cache=True, **kw)
+    kw = {"num_slots": 2, "max_seq": P + G, "page_size": 4, "paged_cache": True, **kw}
+    return ref_engine.ServeEngine(ref_build_model(ref_cfg), params, **kw)
 
 
 def _run(eng, prompts, gen=G, mod=port_engine, uid0=0):
@@ -305,7 +305,7 @@ def golden_trace() -> dict:
         "config": f"{ARCH} smoke, dtype float32",
         "seed": 0,
         "engine": dict(num_slots=3, max_seq=32, page_size=4, prefix_cache=True,
-                       kv_dtype="int8", num_pages=9, host_pages=32),
+                       kv_dtype="int8", num_pages=9, host_pages=32, paged_cache=True),
         "max_new_tokens": 6,
         "prompts": [p.tolist() for p in _golden_prompts()],
     }
