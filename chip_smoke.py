@@ -8,7 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: needs CUDA; prints the card's name and power limit, turns off
    TF32 and reduced-precision bf16 reductions in matrix products;
 2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all at once);
+   (one ``nvcc`` per source, all at once), prints each prefill kernel's
+   registers, shared memory and spills, and checks that the
+   ``flash_prefill`` and ``flash_suffix_prefill`` libraries hold
+   tensor-core wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, at the serving path's shapes (stablelm-1.6b: Hkv 32, G 1, hd 64,
    bf16, page 16, scattered tables with shared pages and scratch tails), at
@@ -18,7 +21,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    version and one PyTorch library call (``scaled_dot_product_attention``
    over the same K/V, gathered up to each row's live span — a yardstick
    only, the port never calls it) as device time from the profiler's
-   kernel rows, and the wrapper's wall time per call;
+   kernel rows, and the wrapper's wall time per call. ``flash_prefill``
+   also at the ring path's cold round (B 4, S = T = 8192, window 4096):
+   device times against SDPA with the windowed causal mask, the bound over
+   the live (query, key) pairs, no plain time (its fp32 scores: 34 GB),
+   and the timed output against the plain version one row and 8 kv heads
+   at a time, one-ulp flips of the bf16 outputs left out of the error;
 3b. int8 kernels: the int8-pool decode and suffix kernels at the same
    shapes over int8 pools, within the tolerance of their plain versions
    AND bitwise equal to the fp kernels over the dequantized pool; planted
@@ -467,6 +475,30 @@ def phase_device():
 
 
 # ------------------------------------------------------------------ phase 2
+# The bf16 prefill kernels run on the tensor cores through TMA: their
+# libraries must hold wgmma (HGMMA) and TMA-load (UTMALDG) instructions.
+TC_SOURCES = ("flash_prefill", "flash_suffix_prefill")
+TC_OPCODES = ("HGMMA", "UTMALDG")
+
+
+def _ptxas_by_kernel(report: str) -> list[str]:
+    """'kernel: registers, shared memory[, spills]' per entry function of an
+    ``-Xptxas -v`` report, the names demangled where ``c++filt`` exists."""
+    rows, name = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            rows.append([name])
+        elif name is not None and ("Used" in line or "spill" in line):
+            rows[-1].append(line.split("ptxas info    : ")[-1].strip())
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+    except (OSError, subprocess.CalledProcessError):
+        names = [r[0] for r in rows]
+    return [f"{n}: {'; '.join(r[1:])}" for n, r in zip(names, rows)]
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -474,9 +506,19 @@ def phase_build():
     reports = build.build_all()
     log(f"[build] {len(reports)} kernel libraries built in {time.perf_counter() - t0:.1f} s")
     for name, out in reports.items():
+        if name in TC_SOURCES:
+            for row in _ptxas_by_kernel(out):
+                log(f"[build] {name}: {row}")
+            continue
         regs = sorted({line.split("ptxas info    : ")[-1] for line in out.splitlines()
                        if "registers" in line})
         log(f"[build] {name}: {'; '.join(regs)}")
+    for name in TC_SOURCES:
+        ops = build.sass_opcodes(name)
+        has = {op: op in ops for op in TC_OPCODES}
+        log(f"[build] {name} SASS: HGMMA (tensor-core wgmma) {has['HGMMA']}, UTMALDG (TMA "
+            f"load) {has['UTMALDG']}")
+        check(all(has.values()), f"{name}: SASS lacks {[op for op, h in has.items() if not h]}")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -595,6 +637,8 @@ def phase_kernels(smi):
         bytes=4 * n * s * hkv * hd * elem,
         flops=4 * n * hkv * hd * s * (s + 1) // 2,
     )
+    del q5, k4, v4, qt, kt, vt
+    _ring_prefill_row(smi, gen, rows["flash_prefill"])
 
     # --- suffix prefill at the hit round's shape: 8 rows of 64-token
     # suffixes behind a 256-token prefix shared by all (16 pages, W 16)
@@ -663,6 +707,98 @@ def phase_kernels(smi):
             f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.3f} GFLOP)")
     return rows
+
+
+# The ring path's first cold round: 4 rows padded to an 8192-token bucket,
+# window 4096 (stablelm-1.6b: Hkv 32, G 1, hd 64, bf16). The plain version's
+# fp32 scores at that shape would take 34 GB, so the kernel's output is held
+# against it slice by slice: one row and RING_HEADS kv heads at a time (2.1 GB
+# of scores each; every block of the kernel is one (row, kv head) pair).
+RING_COLD = dict(b=4, s=8192, hkv=32, hd=64, window=4096)
+RING_HEADS = 8
+
+
+def _ring_prefill_row(smi, gen, path_row):
+    """``flash_prefill`` at the ring path's cold round: device times at the
+    full shape against SDPA with the windowed causal mask (the bound counts
+    the live (query, key) pairs only), then the timed output against the
+    plain version over every (row, block of kv heads) slice.
+
+    Gate: err/RMS <= RTOL per slice, where err leaves out one-ulp flips:
+    elements where the kernel's and the plain version's bf16 outputs are
+    adjacent bf16 numbers (the last bit of two roundings of nearly equal
+    fp32 values). At this shape the early positions' outputs (few keys,
+    values of 0.5-4) are 10-80x the slice's RMS (~0.05), so one flip there
+    is 0.08-0.3 x RMS while the plain version's own bf16 output is as far
+    from its fp32 value (both logged): the plain err/RMS would fail any
+    kernel that does not reproduce the plain version bit for bit. The raw
+    err (flips included) joins the path row's ``max_abs_err``; the
+    shifted-mask fault is held outside the tolerance on the first slice."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    c = RING_COLD
+    b, s, hkv, hd, w = c["b"], c["s"], c["hkv"], c["hd"], c["window"]
+    tol = RTOL["bfloat16"]
+    q5 = torch.randn(b, s, hkv, 1, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    k4 = torch.randn(b, s, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    v4 = torch.randn(b, s, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    qt, kt, vt = (x.reshape(b, s, hkv, hd).transpose(1, 2) for x in (q5, k4, v4))
+    pos = torch.arange(s, device=DEVICE)
+    wmask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < w)
+    ms, wall = timed_ms(lambda: ops.flash_prefill_attention(q5, k4, v4, window=w), iters=5)
+    lib = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=wmask),
+                   iters=5)[0]
+    del qt, kt, vt, wmask
+    out = ops.flash_prefill_attention(q5, k4, v4, window=w)
+    raw = gated = own = 0.0
+    flips = 0
+    for r in range(b):
+        for h in range(0, hkv, RING_HEADS):
+            sl = (slice(r, r + 1), slice(None), slice(h, h + RING_HEADS))
+            exact = ref.flash_prefill_ref(q5[sl].float(), k4[sl].float(), v4[sl].float(),
+                                          window=w)
+            plain = exact.to(torch.bfloat16)   # the plain version on the bf16 inputs
+            rms = plain.float().pow(2).mean().sqrt().item()
+            diff = (out[sl].float() - plain.float()).abs()
+            ulps = (out[sl].view(torch.int16).int() - plain.view(torch.int16).int()).abs()
+            beyond = diff[ulps > 1]
+            e_gated = beyond.max().item() / rms if beyond.numel() else 0.0
+            where = f"row {r} kv heads {h}-{h + RING_HEADS - 1}"
+            expect(e_gated <= tol, f"flash_prefill bfloat16 ring cold round {where}: err/RMS "
+                                   f"beyond one-ulp flips {e_gated} > {tol}")
+            if r == h == 0:
+                fault = _prefill_shift(q5[sl], k4[sl], v4[sl], window=w)
+                fe = (out[sl].float() - fault.float()).abs().max().item() / rms
+                expect(fe > tol, "flash_prefill bfloat16 ring cold round: planted fault 'mask "
+                                 "shifted by one' within tolerance")
+                del fault
+            path_row["max_abs_err"] = max(path_row["max_abs_err"], diff.max().item())
+            raw = max(raw, diff.max().item() / rms)
+            gated = max(gated, e_gated)
+            own = max(own, (plain.float() - exact).abs().max().item() / rms)
+            flips += int(((ulps == 1) & (diff > tol * rms)).sum())
+            del exact, plain, diff, ulps, beyond
+            torch.cuda.empty_cache()
+    log(f"[kernels] flash_prefill bfloat16 ring cold round B{b} S{s} Hkv{hkv} G1 hd{hd} window{w}"
+        f", {b * hkv // RING_HEADS} slices of one row and {RING_HEADS} kv heads: largest err/RMS "
+        f"beyond one-ulp flips {gated:.3e} (tol {tol:g}); with them {raw:.3e} ({flips} flips "
+        f"above tol x RMS); the plain version's own bf16 rounding {own:.3e} x RMS; planted fault "
+        f"'mask shifted by one' err/RMS {fe:.3e} (row 0 kv heads 0-{RING_HEADS - 1})")
+    pairs = sum(min(i + 1, w) for i in range(s))           # live (query, key) pairs per head
+    flops = 4 * b * hkv * hd * pairs
+    nbytes = 4 * b * s * hkv * hd * 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    log(f"[kernels] flash_prefill ring cold-round shape B{b} S{s} T{s} Hkv{hkv} G1 hd{hd} "
+        f"window{w} ({smi}): kernel device ms {ms:.4f} (wrapper wall {wall:.4f}) plain_ms "
+        f"null (its fp32 score tensor would take {b * hkv * s * s * 4 / 1e9:.1f} GB) "
+        f"library_ms {lib:.4f} (SDPA, windowed causal mask) bound_ms {max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e6:.2f} MB, "
+        f"{flops:.4e} FLOP over {pairs} live pairs per head)")
+    del q5, k4, v4, out
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- phase 3b

@@ -174,6 +174,38 @@ def check_cuda(name: str, **tensors: torch.Tensor) -> None:
 
 
 
+def check_tma(name: str, **tensors: torch.Tensor) -> None:
+    """Operands of the tensor-core kernels (read through TMA tensor maps or
+    with 16-byte loads) start at 16-byte aligned addresses; raise otherwise.
+    Their strides need no check: ``check_cuda`` takes contiguous tensors
+    only, whose rows of ``HEAD_DIMS`` bf16 are multiples of 16 bytes."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start at a 16-byte aligned address")
+
+
+def sass_opcodes(source: str) -> set[str]:
+    """The SASS opcodes (``cuobjdump -sass``) of a built library: e.g.
+    ``HGMMA`` (tensor-core wgmma) and ``UTMALDG`` (TMA load)."""
+    so = library_path(source)
+    if not so.exists():
+        build_all((source,))
+    cuobjdump = pathlib.Path(_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                         check=True).stdout
+    ops = set()
+    for line in out.splitlines():
+        # "        /*0120*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], ..."
+        parts = line.split("*/", 1)
+        if len(parts) == 2 and parts[0].strip().startswith("/*"):
+            words = parts[1].replace(";", " ").split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                ops.add(words[0].split(".")[0])
+    return ops
+
+
 def check_pool(name: str, q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                k_scale: torch.Tensor | None, v_scale: torch.Tensor | None) -> None:
     """The pools' types against the query's: fp pools (no scales) share q's

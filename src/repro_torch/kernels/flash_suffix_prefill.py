@@ -8,14 +8,20 @@ causally. Plain version: ``ref.suffix_prefill_ref``.
 ``suffix_prefill_int8`` is the TPU kernel's ``pool_k_scale``/
 ``pool_v_scale`` branch: int8 prefix pages with f32 scales (P, page, Hkv),
 dequantized in the kernel to q's dtype; the suffix's k/v stay in q's dtype.
-Plain version: ``ref.suffix_prefill_int8_ref``."""
+Plain version: ``ref.suffix_prefill_int8_ref``.
+
+As in ``flash_prefill``, the C entry points pick their body by dtype:
+bfloat16 on the tensor cores (``csrc/prefill_tc.cuh``: the prefix pages
+written into the swizzled tile by the producer warps through the page
+table, int8 pages dequantized there; the suffix's k/v by TMA), float32 on
+the SIMT body of ``csrc/common.cuh``. In both, the int8 kernel is bitwise
+the fp kernel over the pool dequantized to q's dtype."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_prefill import MAX_GROUP
-from repro_torch.kernels.paged_decode import HEAD_DIMS
+from repro_torch.kernels.flash_prefill import check_group
 
 
 def _check(name, q, k_suf, v_suf, pool_k, pool_v, pool_k_scale, pool_v_scale, table,
@@ -26,9 +32,7 @@ def _check(name, q, k_suf, v_suf, pool_k, pool_v, pool_k_scale, pool_v_scale, ta
                      table=table, starts=starts, **scales)
     n, s, hkv, g, hd = q.shape
     p, page = pool_k.shape[:2]
-    if hd not in HEAD_DIMS or g > MAX_GROUP:
-        raise ValueError(f"{name}: head dim {hd} (need {HEAD_DIMS}) / group {g} "
-                         f"(need <= {MAX_GROUP}) unsupported")
+    check_group(name, hd, g)
     if k_suf.shape != (n, s, hkv, hd) or v_suf.shape != k_suf.shape:
         raise ValueError(f"{name}: suffix k/v do not match q")
     if pool_k.shape != (p, page, hkv, hd) or pool_v.shape != pool_k.shape:
@@ -42,6 +46,8 @@ def _check(name, q, k_suf, v_suf, pool_k, pool_v, pool_k_scale, pool_v_scale, ta
         raise ValueError(f"{name}: table / starts do not match the row count")
     if prefix_width < 1:
         raise ValueError(f"{name}: prefix_width must be >= 1, got {prefix_width}")
+    if q.dtype == torch.bfloat16:
+        build.check_tma(name, q=q, k_suf=k_suf, v_suf=v_suf, pool_k=pool_k, pool_v=pool_v)
     t_w = table.shape[1]
     return (n, s, hkv, g, hd, page, t_w, min(prefix_width, t_w))
 

@@ -565,3 +565,223 @@ def test_ring_launch_counters_cuda(sm90):
                                  torch.randn(2, 128, 2, 48, device="cuda"),
                                  torch.randn(2, 128, 2, 48, device="cuda"), 3, paged=True)
     assert ops.LAUNCHES["paged_decode_ring"] == 2
+
+
+# ------------------------------------------- bf16 prefill on the tensor cores
+# chip_smoke.py's gates: kernel vs plain max abs error relative to the RMS
+# of the plain output.
+RTOL = {"bfloat16": 0.05, "float32": 1e-4}
+LOG2E = 1.4426950408889634
+BK_TC = 128   # keys per K/V tile of the tensor-core body
+
+
+def _err_rms(out, want):
+    w = want.float()
+    return ((out.float() - w).abs().max() / w.pow(2).mean().sqrt()).item()
+
+
+def _tc_prefill_emulation(q, k, v, window=0, p_terms=3):
+    """The bf16 tensor-core flash prefill's rounding points, on the CPU:
+    scores from the bf16 inputs summed in fp32, scale·log2(e) folded into
+    them and exp2 for the exponential, masked scores NEG, the online softmax
+    over tiles of 128 keys in fp32, P into P·V as three bf16 terms (hi =
+    bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid); ``p_terms=1``: hi
+    alone, the one rounding of most tensor-core flash attentions) with its
+    sum l unrounded, fp32 accumulation, the output rounded to bf16."""
+    b, s, hkv, g, hd = q.shape
+    t = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale_log2 = torch.tensor(hd**-0.5 * LOG2E, dtype=torch.float32)
+    m = torch.full((b, hkv, g, s), ref.NEG)
+    l = torch.zeros(b, hkv, g, s)
+    o = torch.zeros(b, hkv, g, s, hd)
+    qpos = torch.arange(s)[:, None]
+    for k_lo in range(0, t, BK_TC):
+        kk, vv = kf[:, k_lo:k_lo + BK_TC], vf[:, k_lo:k_lo + BK_TC]
+        kpos = torch.arange(k_lo, k_lo + kk.shape[1])[None, :]
+        live = kpos <= qpos
+        if window > 0:
+            live &= qpos - kpos < window
+        sc = torch.einsum("bqkgd,bckd->bkgqc", qf, kk) * scale_log2
+        sc = torch.where(live, sc, torch.full_like(sc, ref.NEG))
+        mx = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(sc - mx[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None]
+        for _ in range(p_terms):
+            term = p.to(torch.bfloat16).float()
+            o = o + torch.einsum("bkgqc,bckd->bkgqd", term, vv)
+            p = p - term
+        m = mx
+    out = o / l.clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,s,hkv,g,hd,window", [
+    (2, 160, 2, 2, 32, 0),      # smoke widths (hd 32), ragged last tile
+    (2, 160, 2, 2, 32, 40),
+    (1, 300, 2, 1, 64, 0),      # the serving path's head dim, three tiles
+    (1, 300, 2, 1, 64, 130),    # a window wider than a tile
+    (1, 200, 1, 4, 128, 0),     # GQA at hd 128
+    (1, 200, 1, 8, 64, 1),      # a window of one key
+])
+def test_tensor_core_rounding_points_stay_inside_the_bf16_gate(b, s, hkv, g, hd, window):
+    """The bf16 kernel differs from the plain versions (fp32 softmax, fp32
+    P·V) in where it rounds: bf16 products summed in fp32, exp2 of scores
+    with scale·log2(e) folded in, the online rescaling per tile, and P as
+    three bf16 terms (~24 bits). Each moves an output by ~1e-7 of itself
+    before its bf16 rounding, as the SIMT body's fp32 arithmetic does, so
+    kernel and plain version round to the same bf16 but for rare one-ulp
+    flips: inside RTOL["bfloat16"] = 0.05 × RMS, where the sound readings on
+    the card were <= 0.024. The emulation of those rounding points is held
+    against the port's plain version and the JAX package's oracle at that
+    gate, and the planted fault stays outside it."""
+    from repro.kernels import ref as jref
+
+    rng = np.random.default_rng(s + g + hd + window)
+    q = rng.standard_normal((b, s, hkv, g, hd), np.float32)
+    k = rng.standard_normal((b, s, hkv, hd), np.float32)
+    v = rng.standard_normal((b, s, hkv, hd), np.float32)
+    qt, kt, vt = (_to_torch(a, "bfloat16") for a in (q, k, v))
+    got = _tc_prefill_emulation(qt, kt, vt, window)
+    plain = ref.flash_prefill_ref(qt, kt, vt, window=window)
+    oracle = torch.from_numpy(np.asarray(jref.flash_prefill_ref(
+        *(_to_jax(a, "bfloat16") for a in (q, k, v)), causal=True, window=window),
+        np.float32))
+    assert got.shape == plain.shape
+    assert _err_rms(got, plain) <= RTOL["bfloat16"]
+    assert _err_rms(got, oracle) <= RTOL["bfloat16"]
+    # the planted fault of chip_smoke.py (mask shifted by one key) stays
+    # outside the gate at these shapes
+    shifted = torch.cat([ref.flash_prefill_ref(qt[:, :1], kt[:, :1], vt[:, :1], window=window),
+                         ref.flash_prefill_ref(qt[:, 1:], kt[:, :-1], vt[:, :-1],
+                                               window=window)], 1)
+    assert _err_rms(got, shifted) > RTOL["bfloat16"]
+
+
+def test_one_bf16_rounding_of_p_would_cross_the_bf16_gate():
+    """Why P goes into P·V as three bf16 terms: with one rounding (8 bits of
+    p, as most tensor-core flash attentions keep) an early row's output
+    (few keys, values of 1-4) moves by ~2**-9 of itself and its bf16
+    rounding flips by one ulp, 0.0156 at a value above 2: here that is
+    beyond RTOL["bfloat16"] × RMS of the serving path's shape (hd 64, a
+    512-token bucket, 16 heads), where the three terms stay inside."""
+    rng = np.random.default_rng(15)
+    q = _to_torch(rng.standard_normal((1, 512, 16, 1, 64), np.float32), "bfloat16")
+    k, v = (_to_torch(rng.standard_normal((1, 512, 16, 64), np.float32), "bfloat16")
+            for _ in "kv")
+    plain = ref.flash_prefill_ref(q, k, v)
+    assert _err_rms(_tc_prefill_emulation(q, k, v, p_terms=1), plain) > RTOL["bfloat16"]
+    assert _err_rms(_tc_prefill_emulation(q, k, v), plain) <= RTOL["bfloat16"]
+
+
+@pytest.mark.parametrize("offset", [1, 4, 7])
+def test_check_tma_refuses_misaligned_operands(offset):
+    """The tensor-core kernels' operands start at 16-byte aligned addresses:
+    a contiguous view that starts ``offset`` bf16 elements (2-14 bytes) past
+    an aligned one is refused, the aligned views beside it pass."""
+    x = torch.zeros(2 * 8 * 64 + 8, dtype=torch.bfloat16)
+    assert x.data_ptr() % 16 == 0
+    build.check_tma("t", q=x[:2 * 8 * 64].view(2, 8, 64), k=x[8:].view(2, 8, 64))
+    with pytest.raises(ValueError, match="k must start at a 16-byte aligned"):
+        build.check_tma("t", q=x[8:].view(2, 8, 64),
+                        k=x[offset:offset + 2 * 8 * 64].view(2, 8, 64))
+
+
+def _prefill_case(gen, dtype, b, s, hkv, g, hd):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    return rnd(b, s, hkv, g, hd), rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
+
+
+def _suffix_tables(gen, page, n_pages, t_w=6):
+    """Rows 0-2 at starts 0, page-unaligned (37) and beyond the prefix
+    width's 3 pages (5 pages and 3 keys); row 2's first page aliases row
+    1's; scratch page 0 past each row's pages."""
+    perm = torch.randperm(n_pages - 1, generator=gen) + 1
+    table = torch.zeros(3, t_w, dtype=torch.int32)
+    table[1, :2] = perm[:2]
+    table[2, :] = torch.cat([perm[:1], perm[2:7]])
+    starts = torch.tensor([0, 37, 5 * page + 3], dtype=torch.int32)
+    return table.cuda(), starts.cuda()
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_bf16_prefill_tensor_core_kernels_match_plain_cuda(sm90, hd, g):
+    """The bf16 tensor-core flash and suffix prefill against their plain
+    versions within RTOL["bfloat16"] of the plain output's RMS: ragged S
+    (100, 129, 1000), windows 0, 1, 40 and 4096; suffix rows at starts 0,
+    page-unaligned and beyond the prefix width, pages of 12, 16 and 256;
+    suffix_prefill_int8 BITWISE equal to suffix_prefill over the pool
+    dequantized to bf16, and within the gate of its plain version."""
+    dt, tol = torch.bfloat16, RTOL["bfloat16"]
+    gen = torch.Generator().manual_seed(hd * 10 + g)
+    for s in (100, 129, 1000):
+        q, k, v = _prefill_case(gen, dt, 2, s, 2, g, hd)
+        for window in (0, 1, 40, 4096):
+            out = ops.flash_prefill_attention(q, k, v, window=window)
+            want = ref.flash_prefill_ref(q, k, v, window=window)
+            assert _err_rms(out, want) <= tol, (s, window)
+    for page in (12, 16, 256):
+        n_pages = 8
+        kp, vp = (torch.randn(n_pages, page, 2, hd, generator=gen).to("cuda", dt) for _ in "kv")
+        kq, ks = ref.kv_quant_ref(kp)
+        vq, vs = ref.kv_quant_ref(vp)
+        kd, vd = ref.dequant_pool_ref(kq, ks, dt), ref.dequant_pool_ref(vq, vs, dt)
+        table, starts = _suffix_tables(gen, page, n_pages)
+        for s in (64, 129):
+            q, ksuf, vsuf = _prefill_case(gen, dt, 3, s, 2, g, hd)
+            for width in (3, 6):
+                out = ops.suffix_prefill_attention(q, ksuf, vsuf, kp, vp, table, starts,
+                                                   prefix_width=width)
+                want = ref.suffix_prefill_ref(q, ksuf, vsuf, kp, vp, table, starts,
+                                              prefix_width=width)
+                assert _err_rms(out, want) <= tol, (page, s, width)
+                out8 = ops.suffix_prefill_attention(q, ksuf, vsuf, kq, vq, table, starts,
+                                                    prefix_width=width, pool_k_scale=ks,
+                                                    pool_v_scale=vs)
+                assert torch.equal(out8, ops.suffix_prefill_attention(
+                    q, ksuf, vsuf, kd, vd, table, starts, prefix_width=width)), (page, s, width)
+                want8 = ref.suffix_prefill_int8_ref(q, ksuf, vsuf, kq, vq, ks, vs, table, starts,
+                                                    prefix_width=width)
+                assert _err_rms(out8, want8) <= tol, (page, s, width)
+
+
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (8, 32)])
+def test_fp32_prefill_stays_on_the_simt_body_cuda(sm90, g, hd):
+    """float32 runs the SIMT body in fp32 FMAs: within RTOL["float32"] =
+    1e-4 of the plain version's RMS, which TF32 (~3 digits) would miss."""
+    gen = torch.Generator().manual_seed(g + hd)
+    tol = RTOL["float32"]
+    q, k, v = _prefill_case(gen, torch.float32, 2, 129, 2, g, hd)
+    for window in (0, 40):
+        assert _err_rms(ops.flash_prefill_attention(q, k, v, window=window),
+                        ref.flash_prefill_ref(q, k, v, window=window)) <= tol
+    kp, vp = (torch.randn(8, 16, 2, hd, generator=gen).cuda() for _ in "kv")
+    table, starts = _suffix_tables(gen, 16, 8)
+    q, ksuf, vsuf = _prefill_case(gen, torch.float32, 3, 64, 2, g, hd)
+    assert _err_rms(ops.suffix_prefill_attention(q, ksuf, vsuf, kp, vp, table, starts,
+                                                 prefix_width=3),
+                    ref.suffix_prefill_ref(q, ksuf, vsuf, kp, vp, table, starts,
+                                           prefix_width=3)) <= tol
+
+
+def test_prefill_libraries_run_on_tensor_cores_cuda(sm90):
+    """The built prefill libraries hold tensor-core wgmma (HGMMA) and TMA
+    loads (UTMALDG); the tensor-core wrappers refuse a misaligned operand and
+    a group a block cannot hold, and count only launches."""
+    for source in ("flash_prefill", "flash_suffix_prefill"):
+        assert {"HGMMA", "UTMALDG"} <= build.sass_opcodes(source), source
+    build.reset_launches()
+    x = torch.randn(2 * 16 * 2 * 64 + 1, device="cuda").bfloat16()
+    kv = x[1:].view(2, 16, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_prefill_attention(kv[:, :, :, None].contiguous(), kv, kv)
+    with pytest.raises(ValueError, match="group 65"):
+        ops.flash_prefill_attention(torch.zeros(1, 4, 1, 65, 64, device="cuda"),
+                                    torch.zeros(1, 4, 1, 64, device="cuda"),
+                                    torch.zeros(1, 4, 1, 64, device="cuda"))
+    assert ops.LAUNCHES["flash_prefill"] == 0
