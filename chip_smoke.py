@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    TF32 and reduced-precision bf16 reductions in matrix products;
 2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once), prints each prefill kernel's
-   registers, shared memory and spills, and checks that the
+   registers, shared memory and spills (the other libraries': their
+   registers and largest spill), and checks that the
    ``flash_prefill`` and ``flash_suffix_prefill`` libraries hold
    tensor-core wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -26,7 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    device times against SDPA with the windowed causal mask, the bound over
    the live (query, key) pairs, no plain time (its fp32 scores: 34 GB),
    and the timed output against the plain version one row and 8 kv heads
-   at a time, one-ulp flips of the bf16 outputs left out of the error;
+   at a time, one-ulp flips of the bf16 outputs left out of the error.
+   ``paged_decode`` (a split-KV kernel, ``csrc/decode.cuh``) also prints
+   its launch (keys per range by ``paged_decode.split_len``, ranges per row,
+   blocks launched and with a live range), and each of its 8 rows run
+   alone must give bitwise the row's output in the batch;
 3b. int8 kernels: the int8-pool decode and suffix kernels at the same
    shapes over int8 pools, within the tolerance of their plain versions
    AND bitwise equal to the fp kernels over the dequantized pool; planted
@@ -38,7 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    step's, and the int8 main path's suffix round's) and at the
    embedding leaf (205,520,896 elements, rows of 256), with a planted fault
    (divisor 128). Times as in 3; the library call is
-   ``scaled_dot_product_attention`` over the K/V dequantized beforehand;
+   ``scaled_dot_product_attention`` over the K/V dequantized beforehand.
+   ``paged_decode_int8``'s launch is printed and its rows are held alone
+   against the batch (bitwise) at the path shape, as in 3;
 3c. ring kernels: ``paged_decode_ring`` (dead pages skipped) and
    ``swa_decode`` (every slot) against their plain versions and BITWISE
    against each other (the former at every page of 64-512 keys; the table
@@ -51,8 +58,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (G 4, hd 128, bf16 and f32, a scalar position, window 1000 < C);
    planted faults (a mask shifted by one key, the ring
    offset without the mod wrap, the last live page dropped) must land
-   outside the tolerance. Times as in 3 at the first two shapes; the
-   library call runs over the rings unrolled to position order; both
+   outside the tolerance. Each shape prints the split-KV launch of both
+   kernels (keys per range, ranges per row, blocks launched and with a
+   live range); at the ring path's shape each row run alone must give
+   bitwise its output in the batch, for both ring kernels and the table
+   kernel over the same keys. Times as in 3 at the first two shapes, and
+   the table kernel's over the same keys in pool pages of 16 there; the
+   library call runs over the rings unrolled to position order; the
    kernels' bounds count the K and V of each row's live span (what the
    function needs), ``swa_decode``'s log line also the bytes it streams;
 4. golden: the port's engine replays the reference engine's float32 greedy
@@ -252,12 +264,17 @@ def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
         rows = [e for e in prof.key_averages()
                 if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
         dev = sum(e.self_device_time_total for e in rows)
-        check(dev > 0, "the profiler saw no kernel: device time not measured")
         # A sound window holds every kernel of the iters calls once: each
         # kernel's record count a multiple of iters, and no more device
         # time than the back-to-back wall. Without the warm-up window, the
         # first records of windows over calls of a millisecond went missing
-        # (up to half of them) on an H100; with it, now and then a few.
+        # (up to half of them) on an H100; with it, now and then a few, and
+        # now and then all of them (windows of cuDNN's SDPA kernels): such a
+        # window is taken again, and a call whose every window is empty
+        # fails below.
+        if dev == 0:
+            log(f"[timing] the profiler saw no kernel (attempt {attempt + 1} of 3)")
+            continue
         counts = {e.key: e.count for e in rows}
         if not any(n % iters for n in counts.values()) and dev / iters / 1e3 <= 1.02 * wall:
             break
@@ -271,6 +288,7 @@ def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
             f"kernel records {counts}; kernel span {min(t.start for t in kern) - t0:.1f}.."
             f"{max(t.end for t in kern) - t0:.1f} us, host span 0.."
             f"{max(t.end for t in host) - t0:.1f} us")
+    check(dev > 0, "the profiler saw no kernel: device time not measured")
     return dev / iters / 1e3, wall
 
 
@@ -512,7 +530,10 @@ def phase_build():
             continue
         regs = sorted({line.split("ptxas info    : ")[-1] for line in out.splitlines()
                        if "registers" in line})
-        log(f"[build] {name}: {'; '.join(regs)}")
+        spills = [int(line.split(" bytes spill stores")[0].split()[-1])
+                  for line in out.splitlines() if " bytes spill stores" in line]
+        log(f"[build] {name}: {'; '.join(regs)}; largest spill stores of its "
+            f"{len(spills)} kernels: {max(spills, default=0)} bytes")
     for name in TC_SOURCES:
         ops = build.sass_opcodes(name)
         has = {op: op in ops for op in TC_OPCODES}
@@ -558,6 +579,30 @@ def _unique_tokens(table, spans, page):
     its logical token slots 0..spans[r]-1 through its table row."""
     tab = table.cpu().tolist()
     return len({(tab[r][c // page], c % page) for r, n in enumerate(spans) for c in range(n)})
+
+
+def _split_plan(cap, q_shape, limits):
+    """The split-KV decode kernels' launch at this shape, by the split rule
+    of ``kernels/paged_decode.py`` (``launch_plan``): keys per range, ranges
+    per row, blocks launched, and the blocks whose range holds a slot the
+    kernel reads (``limits``: per row, the live span in whole pages, or the
+    ring for ``swa_decode``); the others write the identity partial."""
+    from repro_torch.kernels.paged_decode import launch_plan
+
+    plan = launch_plan(cap, tuple(q_shape))
+    per_range = plan["blocks"] // (plan["ranges"] * q_shape[0])
+    live = sum(-(-lim // plan["split"]) for lim in limits) * per_range
+    return (f"split {plan['split']} slots, {plan['ranges']} ranges per row, {plan['blocks']} "
+            f"blocks launched, {live} with a live range")
+
+
+def _rows_alone(call, b):
+    """Whether ``call(rows)`` over the whole batch equals, row by row and
+    bitwise, ``call`` over each row alone (``rows``: a slice of the batch)."""
+    import torch
+
+    whole = call(slice(0, b))
+    return all(torch.equal(whole[r:r + 1], call(slice(r, r + 1))) for r in range(b))
 
 
 def phase_kernels(smi):
@@ -618,6 +663,13 @@ def phase_kernels(smi):
     )
     log(f"[kernels] paged_decode bound counts {uniq} distinct live tokens "
         f"({sum(spans)} over the rows)")
+    alone = _rows_alone(lambda r: ops.paged_decode_attention(
+        q[r].contiguous(), kp, vp, pos[r].contiguous(), table[r].contiguous()), b)
+    expect(alone, "paged_decode B8 page16: a row's output alone differs from its output in "
+                  "the batch")
+    log(f"[kernels] paged_decode B{b} page{page} T{t_w}: "
+        f"{_split_plan(t_w * page, q.shape, [n * page for n in live])}; each row alone "
+        f"bitwise equal to its output in the batch: {alone}")
 
     # --- flash prefill at the cold round's shape: 8 rows, bucket 512
     n, s = 8, 512
@@ -877,6 +929,16 @@ def phase_kernels_int8(smi):
         e_dec = compare("paged_decode_int8", dt, shape, out, _plain_decode(*dargs, **dkw),
                         ops.paged_decode_attention(q, kd, vd, pos, table),
                         faults_of("decode", dargs, dkw))
+        limits = [min(-(-(p + 1) // page), t_w) * page for p in pos_list]
+        msg = (f"[int8] paged_decode_int8 {str(dt).split('.')[-1]} {shape}: "
+               f"{_split_plan(t_w * page, q.shape, limits)}")
+        if label == "path":
+            alone = _rows_alone(lambda r: ops.paged_decode_attention(
+                q[r].contiguous(), kq, vq, pos[r].contiguous(), table[r].contiguous(), **dkw), b)
+            expect(alone, f"paged_decode_int8 {shape}: a row's output alone differs from its "
+                          "output in the batch")
+            msg += f"; each row alone bitwise equal to its output in the batch: {alone}"
+        log(msg)
         # suffix rows: 64-token suffixes (100 in the GQA and f32 cases)
         # behind the cached prefix of the first live pages
         n, s_suf = b, (64 if label == "path" else 100)
@@ -1154,9 +1216,29 @@ def phase_kernels_ring(smi):
         same_table = torch.equal(ops.paged_decode_attention(q, pk, pv, pos_b, table, window), swa)
         expect(same_table, f"ring kernels {dname} {shape}: the table kernel over the same keys "
                            "in pool pages is not bitwise equal")
-        del pk, pv
         msg = (f"[ring] {dname} {shape}: bitwise paged == swa at pages 64..512: {same}; "
                f"table kernel over the same keys in pages of 16 == swa: {same_table}")
+        page = ring_page(cap)
+        live = [min(-(-(min(p + 1, cap)) // page) * page, cap) for p in pos_b.tolist()]
+        msg += (f"; paged_decode_ring: {_split_plan(cap, q.shape, live)}; swa_decode: "
+                f"{_split_plan(cap, q.shape, [cap] * b)}")
+        if label == "path":
+            calls = {
+                "paged_decode_ring": lambda r: paged_decode_ring(
+                    q[r].contiguous(), k[r].contiguous(), v[r].contiguous(), pos_b[r].contiguous(),
+                    window),
+                "swa_decode": lambda r: swa_decode(
+                    q[r].contiguous(), k[r].contiguous(), v[r].contiguous(), pos_b[r].contiguous(),
+                    window),
+                "paged_decode over the same keys": lambda r: ops.paged_decode_attention(
+                    q[r].contiguous(), pk, pv, pos_b[r].contiguous(), table[r].contiguous(),
+                    window),
+            }
+            for name, call in calls.items():
+                alone = _rows_alone(call, b)
+                expect(alone, f"{name} {dname} {shape}: a row's output alone differs from its "
+                              "output in the batch")
+                msg += f"; {name}: each row alone bitwise equal to its output in the batch: {alone}"
         errs = {}
         for name, out in (("paged_decode_ring", paged), ("swa_decode", swa)):
             e = (out.float() - plain.float()).abs().max().item()
@@ -1177,6 +1259,7 @@ def phase_kernels_ring(smi):
             if name in rows:
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], errs[name])
         if label in ("gqa", "batch"):
+            del pk, pv
             continue
         # times; the library call runs over the rings unrolled to position
         # order (a copy made here, outside the timing)
@@ -1186,8 +1269,6 @@ def phase_kernels_ring(smi):
             qs, ku, vu, attn_mask=mask[:, None, None, :]))[0]
         plain_ms = timed_ms(lambda: ref.ring_paged_decode_ref(q, k, v, pos_b, window),
                             iters=5)[0]
-        page = ring_page(cap)
-        live = [min(-(-(min(p + 1, cap)) // page) * page, cap) for p in pos_b.tolist()]
         elem = q.element_size()
         qo = 2 * b * hkv * g * hd * elem + 4 * b           # q and out, pos
         for name, fn, walked in (("paged_decode_ring", paged_decode_ring, live),
@@ -1213,7 +1294,16 @@ def phase_kernels_ring(smi):
                 f"HBM rate), live keys {sum(spans)}")
             if label == "path":
                 rows[name] = r
-        del ku, vu
+        # the table kernel over the same keys in pool pages of 16: its bound
+        # adds the live table entries
+        ms, wall = timed_ms(lambda: ops.paged_decode_attention(q, pk, pv, pos_b, table, window))
+        pages16 = sum(-(-n // 16) for n in spans)
+        t_bytes = (qo + 2 * sum(spans) * hkv * hd * elem + 4 * pages16) / HBM_BYTES_PER_S * 1e3
+        read16 = [min(-(-min(p + 1, cap) // 16) * 16, cap) for p in pos_b.tolist()]
+        log(f"[ring] paged_decode (table, pages of 16) {label} ({smi}): kernel device ms "
+            f"{ms:.4f} (wrapper wall {wall:.4f}) library_ms {lib:.4f} bound_ms {t_bytes:.4f} "
+            f"(bytes); {_split_plan(cap, q.shape, read16)}")
+        del ku, vu, pk, pv
     return rows
 
 

@@ -1,7 +1,9 @@
-// Shared device code of the port's attention kernels (paged and ring
-// decode, flash prefill, suffix prefill): element conversion, tile loads
-// from device memory into shared memory, the masked score tile, and the ONE
-// online-softmax tile update every one of them runs.
+// Shared device code of the port's attention kernels: element conversion
+// (every kernel) and, for the fp32 SIMT prefill bodies (flash prefill,
+// suffix prefill), tile loads from device memory into shared memory, the
+// masked score tile, and the ONE online-softmax tile update they run. The
+// decode kernels (decode.cuh) keep their softmax in registers and dequantize
+// an int8 pool at use exactly as load_pool_rows does here.
 //
 // Every kernel keeps the same state per query row as the TPU kernels did in
 // VMEM scratch: the running max m, the running denominator l and the output
@@ -101,9 +103,9 @@ __device__ __forceinline__ void load_rows(const RowPtr& row_ptr, int nrows, floa
   }
 }
 
-// The two addressing policies of the pool/ring loaders: each maps tile
-// column c to a slot index of the flattened (slots, Hkv, hd) K/V tensor, or
-// -1 for a column that is not read (filled with zeros).
+// The addressing policy of the pool loader: it maps tile column c to a
+// slot index of the flattened (slots, Hkv, hd) K/V tensor, or -1 for a
+// column that is not read (filled with zeros).
 //
 // PageSlots: logical token slot c of the current chunk of a row's pages
 // [j0, j0 + ...), read through the row's page table: the pool slot (phys *
@@ -116,18 +118,6 @@ struct PageSlots {
     const int j = j0 + c / page;
     if (j >= pages) return -1;
     return (long long)table_row[j] * page + (c - (c / page) * page);
-  }
-};
-
-// RingSlots: per-row contiguous rings (B, C, Hkv, hd), no table: ring slot
-// s = s0 + c of row b is slot b * C + s (`base` = b * C), or -1 at or past
-// `limit` (the slots the kernel walks).
-struct RingSlots {
-  long long base;
-  int s0, limit;
-  __device__ long long operator()(int c) const {
-    const int s = s0 + c;
-    return s < limit ? base + s : -1;
   }
 };
 
@@ -213,8 +203,7 @@ __device__ __forceinline__ void scores(const Tile& t, int rows, int cols, float 
 // (here and in the score tile), so no instantiation leaves the choice of
 // what to contract into an FMA to the compiler: a kernel whose tile width is
 // a compile-time constant and one whose width is a runtime value round
-// alike, which is what makes the ring and table decode kernels bitwise
-// equal over the same keys.
+// alike.
 // Expects the score tile and the value tile in shared memory and a barrier
 // after both were written; ends with a barrier, so the caller may overwrite
 // the k/v/s tiles next.

@@ -46,18 +46,18 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of every C entry point: pointers and the stream are c_void_p
 SIGNATURES = {
-    "paged_decode": (P,) * 6 + (I,) * 8 + (F, P),
+    "paged_decode": (P,) * 7 + (I,) * 9 + (F, P),
     "flash_prefill": (P,) * 4 + (I,) * 8 + (F, P),
     "suffix_prefill": (P,) * 8 + (I,) * 9 + (F, P),
-    "paged_decode_int8": (P,) * 8 + (I,) * 8 + (F, P),
+    "paged_decode_int8": (P,) * 9 + (I,) * 9 + (F, P),
     "suffix_prefill_int8": (P,) * 10 + (I,) * 9 + (F, P),
     "int8_encode": (P, P, P, L, I, L, I, P),
     "int8_roundtrip": (P, P, L, P),
     "topk_sparsify": (P, P, L, I, P),
     "sq_norm": (P, P, P, L, I, P),
     "clip_noise": (P, P, P, P, L, F, I, P),
-    "paged_decode_ring": (P,) * 5 + (I,) * 8 + (F, P),
-    "swa_decode": (P,) * 5 + (I,) * 7 + (F, P),
+    "paged_decode_ring": (P,) * 6 + (I,) * 9 + (F, P),
+    "swa_decode": (P,) * 6 + (I,) * 8 + (F, P),
 }
 ENTRY = {
     "paged_decode": "paged_decode",

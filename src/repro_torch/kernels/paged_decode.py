@@ -12,7 +12,12 @@ dtype. Plain version: ``ref.paged_decode_int8_ref``.
 ``paged_decode_ring`` is the TPU kernel's contiguous branch
 (``paged_decode`` without a table): per-row rings (B, C, Hkv, hd), pages
 of ``ring_page(C)`` keys, pages past a row's live span never read; bitwise
-``swa_decode``'s output. Plain version: ``ref.ring_paged_decode_ref``."""
+``swa_decode``'s output. Plain version: ``ref.ring_paged_decode_ref``.
+
+All four decode entry points (these three and ``swa_decode``) run one
+split-KV body: each row's ring of ``cap`` logical slots is cut into ranges
+of ``split_len(cap, hd)`` slots, reduced to partials in a scratch buffer
+the wrapper allocates (``partials``), and merged in range order."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +25,45 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (32, 64, 128)
+RING_TILE = 64       # keys per tile of the decode body; ranges start at multiples of it
+MAX_RANGES = 16      # ranges per row at most (csrc/decode.cuh holds the same bound)
+RANGE_ELEMS = 16384  # K elements a range holds at least (256 keys at hd 64)
+
+
+def split_len(cap: int, hd: int) -> int:
+    """Keys per range of the split-KV decode kernels for a ring of ``cap``
+    logical slots (``C`` for the rings, ``T * page`` for the table) at head
+    dim ``hd``: the smallest multiple of RING_TILE that cuts the ring into
+    at most MAX_RANGES ranges, and at least RANGE_ELEMS / hd keys, so a
+    range moves tens of KB. A function of the capacity and the head dim
+    alone: never of the batch, the positions or the card, so a row's output
+    does not depend on the rows beside it, and every entry point walks the
+    same ranges at equal capacity (what makes them bitwise equal)."""
+    per_range = -(-cap // MAX_RANGES)
+    return max(-(-per_range // RING_TILE) * RING_TILE, RANGE_ELEMS // hd)
+
+
+def launch_plan(cap: int, q_shape) -> dict:
+    """What one call over rings of ``cap`` slots launches for queries of
+    ``q_shape`` (B, Hkv, G, hd): keys per range, ranges per row, and the
+    split kernel's blocks, one per (kv head and chunk of query rows, row,
+    range) with chunks of 1 row at G 1 and of 4 otherwise (csrc/decode.cuh)."""
+    b, hkv, g, hd = q_shape
+    split = split_len(cap, hd)
+    ranges = -(-cap // split)
+    chunks = 1 if g == 1 else -(-g // 4)
+    return dict(split=split, ranges=ranges, blocks=ranges * hkv * chunks * b)
+
+
+def partials(q: torch.Tensor, cap: int) -> tuple[torch.Tensor, int]:
+    """The f32 scratch of the per-range partials (acc[hd], m, l) of every
+    (row, kv head, query row), on q's device, and the split length. The
+    wrapper drops it after the launch: the caching allocator hands its
+    memory only to work queued behind the kernels on the same stream."""
+    b, hkv, g, hd = q.shape
+    plan = launch_plan(cap, q.shape)
+    return torch.empty(b * hkv * g * plan["ranges"] * (hd + 2), dtype=torch.float32,
+                       device=q.device), plan["split"]
 
 
 def _check(name, q, k_pool, v_pool, k_scale, v_scale, pos, table):
@@ -50,11 +94,13 @@ def paged_decode(
     window: int = 0,
 ) -> torch.Tensor:
     b, hkv, g, hd, page = _check("paged_decode", q, k_pool, v_pool, None, None, pos, table)
+    t_w = table.shape[1]
+    part, split = partials(q, t_w * page)
     out = torch.empty_like(q)
     build.launch(
         "paged_decode", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        pos.data_ptr(), table.data_ptr(), out.data_ptr(), build.dtype_code(q),
-        b, hkv, g, hd, page, table.shape[1], window, hd**-0.5,
+        pos.data_ptr(), table.data_ptr(), part.data_ptr(), out.data_ptr(),
+        build.dtype_code(q), b, hkv, g, hd, page, t_w, window, split, hd**-0.5,
     )
     return out
 
@@ -71,12 +117,14 @@ def paged_decode_int8(
 ) -> torch.Tensor:
     b, hkv, g, hd, page = _check("paged_decode_int8", q, k_pool, v_pool, k_scale, v_scale,
                                  pos, table)
+    t_w = table.shape[1]
+    part, split = partials(q, t_w * page)
     out = torch.empty_like(q)
     build.launch(
         "paged_decode_int8", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), table.data_ptr(),
-        out.data_ptr(), build.dtype_code(q), b, hkv, g, hd, page, table.shape[1], window,
-        hd**-0.5,
+        part.data_ptr(), out.data_ptr(), build.dtype_code(q), b, hkv, g, hd, page, t_w,
+        window, split, hd**-0.5,
     )
     return out
 
@@ -122,9 +170,11 @@ def paged_decode_ring(
     page = page or ring_page(cap)
     if cap % page:
         raise ValueError(f"paged_decode_ring: ring {cap} is not a multiple of page {page}")
+    part, split = partials(q, cap)
     out = torch.empty_like(q)
     build.launch(
         "paged_decode_ring", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), build.dtype_code(q), b, cap, hkv, g, hd, page, window, hd**-0.5,
+        part.data_ptr(), out.data_ptr(), build.dtype_code(q), b, cap, hkv, g, hd, page,
+        window, split, hd**-0.5,
     )
     return out

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.paged_decode import split_len
 
 TOL = {np.float32: 1e-5, "bfloat16": 1e-2}
 PAGE, T_W, P = 8, 4, 12
@@ -550,6 +551,78 @@ def test_ring_kernels_match_plain_and_each_other_cuda(sm90, dtype, g, hd):
                     pool[table.long().reshape(-1)] = ring.reshape(-1, 8, 2, hd)
                 torch.testing.assert_close(ops.paged_decode_attention(q, *pools, pos, table, window),
                                            swa, rtol=0, atol=0)
+    # rings long enough to split into ranges of split_len(C, hd) slots (at
+    # C 2048: 512 / 256 / 128 at hd 32 / 64 / 128): rows ending mid-range,
+    # on a range boundary, and wrapped; and long_500k's shape (B 1, C 8192,
+    # pos 524287), cut to 2 kv heads. Same tolerances, same bitwise checks.
+    for cap, b in ((2048, 4), (8192, 1)):
+        split = split_len(cap, hd)
+        q = torch.randn(b, 2, g, hd, generator=gen).to("cuda", dtype)
+        k, v = (torch.randn(b, cap, 2, hd, generator=gen).to("cuda", dtype) for _ in "kv")
+        positions = ([[split - 1, 2 * split - 1, split + 37, cap + split - 1],
+                      [3 * split + 5, 2 * split, cap + 3, 5]] if b > 1 else [[524287]])
+        for pos in positions:
+            pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            for window in (0, 7, split // 2 + 3):
+                swa = swa_decode(q, k, v, pos, window)
+                torch.testing.assert_close(
+                    swa.float(), ref.swa_decode_ref(q, k, v, pos, window).float(), rtol=0,
+                    atol=tol)
+                for page in (0, 64, 128, 256, 512):
+                    assert torch.equal(paged_decode_ring(q, k, v, pos, window, page=page), swa)
+                pk, pv, table = _ring_as_pool(k, v, 16)
+                assert torch.equal(ops.paged_decode_attention(q, pk, pv, pos, table, window), swa)
+
+
+def _ring_as_pool(k, v, page):
+    """Rings (B, C, Hkv, hd) as a pool of pages of ``page`` keys at
+    scattered physical pages (page 0 left as scratch) and the (B, C/page)
+    table mapping each row's logical pages to them."""
+    b, cap = k.shape[:2]
+    t_w = cap // page
+    table = (torch.randperm(b * t_w, generator=torch.Generator().manual_seed(cap)) + 1)
+    table = table.reshape(b, t_w).to(torch.int32).to(k.device)
+    pools = []
+    for ring in (k, v):
+        pool = ring.new_zeros(b * t_w + 1, page, *ring.shape[2:])
+        pool[table.long().reshape(-1)] = ring.reshape(b * t_w, page, *ring.shape[2:])
+        pools.append(pool)
+    return pools[0], pools[1], table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32)])
+def test_decode_rows_are_batch_invariant_cuda(sm90, dtype, g, hd):
+    """A row's output from a B 4 call is bitwise that row run alone (B 1),
+    for the ring, swa and table entries over fp and int8 pools: the split
+    depends on the capacity only, so a row's ranges do not depend on the
+    rows beside it."""
+    from repro_torch.kernels.paged_decode import paged_decode_ring
+    from repro_torch.kernels.swa_decode import swa_decode
+
+    gen = torch.Generator().manual_seed(3 * g + hd)
+    b, cap = 4, 2048
+    split = split_len(cap, hd)
+    q = torch.randn(b, 2, g, hd, generator=gen).to("cuda", dtype)
+    k, v = (torch.randn(b, cap, 2, hd, generator=gen).to("cuda", dtype) for _ in "kv")
+    pos = torch.tensor([split - 1, 700, cap + 100, 5], dtype=torch.int32, device="cuda")
+    pk, pv, table = _ring_as_pool(k, v, 16)
+    kq, ks = ref.kv_quant_ref(pk)
+    vq, vs = ref.kv_quant_ref(pv)
+    entries = {
+        "paged_decode_ring": lambda q, k, v, pos, table, w: paged_decode_ring(q, k, v, pos, w),
+        "swa_decode": lambda q, k, v, pos, table, w: swa_decode(q, k, v, pos, w),
+        "paged_decode": lambda q, k, v, pos, table, w: ops.paged_decode_attention(
+            q, pk, pv, pos, table, w),
+        "paged_decode_int8": lambda q, k, v, pos, table, w: ops.paged_decode_attention(
+            q, kq, vq, pos, table, w, k_scale=ks, v_scale=vs),
+    }
+    for window in (0, 300):
+        for name, fn in entries.items():
+            batch = fn(q, k, v, pos, table, window)
+            for r in range(b):
+                alone = fn(*(x[r:r + 1].contiguous() for x in (q, k, v, pos, table)), window)
+                assert torch.equal(batch[r:r + 1], alone), (name, window, r)
 
 
 def test_ring_launch_counters_cuda(sm90):
