@@ -117,12 +117,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain versions on the card at the training path's leaves (the embedding,
    100352 x 2048, and one stacked MLP leaf, 24 x 2048 x 5632, fp32, k = 3):
    bitwise (the norm within 1e-6 relative), each with a planted fault that
-   must fail its check; times at the embedding leaf;
+   must fail its check; clip/noise also in bf16 and on a view 4 bytes off
+   a 16-byte boundary, the norm also in bf16 and twice (equal bits); times
+   at the embedding leaf, each with its kernels' device time one by one,
+   and beside the rows the clip alone (sigma 0, against ``torch.mul``) and
+   the bf16 norm;
 7. training: ``run_training`` over stablelm-1.6b at its published widths
    (2 clouds, H = 2, 4 steps, batch 8 x 256 per cloud, topk+int8 with error
    feedback, DP clip 1.0 and noise 0.1, FedAvg): finite losses, every
    channel kernel launched, local-step and sync-round times, the sync's
-   device time by stage, the idle share of a local step, peak memory; then
+   device time by stage, the idle share of a local step, the device time of
+   the DP kernels in a local step and in the sync, peak memory; then
    one sync round from a copy of the trained state through the kernels and
    through the plain versions (and a planted fault) with the same noise
    seed, whose new global parameters must agree;
@@ -196,10 +201,10 @@ SERVING = ("paged_decode", "flash_prefill", "suffix_prefill")
 SERVING_INT8 = ("flash_prefill", "paged_decode_int8", "suffix_prefill_int8", "int8_encode")
 CHANNEL = ("int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise")
 FP32_FLOPS = 67e12             # H100 SXM fp32 peak outside the tensor cores
-# The DP norm, kernel vs plain: both sum in fp32 in other orders (two fixed
-# passes vs PyTorch's reduction); over 2e8 squares the relative error of
-# either is ~1e-7. A dropped 2048-element chunk or ragged tail moves it by
-# far more than 1e-6.
+# The DP norm, kernel vs plain: both sum in fp32 in other orders (the
+# kernel's fixed chunks and butterflies vs PyTorch's reduction); over 2e8
+# squares the relative error of either is ~1e-7. A dropped chunk
+# (``dp_clip.CHUNK`` elements) or ragged tail moves it by far more than 1e-6.
 SQ_NORM_RTOL = 1e-6
 # The training path's settings.
 TOPK_RATIO, DP_CLIP, DP_NOISE, NOISE_SEED = 0.01, 1.0, 0.1, 1234
@@ -233,12 +238,21 @@ def expect(cond: bool, what: str) -> None:
         FAILED.append(what)
 
 
-def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
+# The last sound window of ``timed_ms``: per kernel name, (launches per
+# call, device ms per call).
+LAST_KERNELS: dict[str, tuple[float, float]] = {}
+
+
+def timed_ms(fn, iters: int = 20, bound_ms: float = 0.0) -> tuple[float, float]:
     """(device ms, wall ms) per call of ``fn``. Device time is the sum of
     the profiler's kernel rows (every kernel the call launched) over a
     window of ``iters`` calls that follows a warm-up window of as many
     (the profiler drops its records); wall time is CUDA events around
-    ``iters`` back-to-back calls, host work included."""
+    ``iters`` back-to-back calls, host work included. ``bound_ms``, if
+    given, is the least time the card could take for a call: a window that
+    reads less lost records. If every window lost records, each kernel is
+    timed per record it kept, times its launches per call. The window's
+    rows by kernel are left in ``LAST_KERNELS``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -252,6 +266,7 @@ def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
     cuda = torch.autograd.DeviceType.CUDA
+    lost = True
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -265,18 +280,21 @@ def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
                 if e.device_type == cuda and not e.key.startswith("ProfilerStep")]
         dev = sum(e.self_device_time_total for e in rows)
         # A sound window holds every kernel of the iters calls once: each
-        # kernel's record count a multiple of iters, and no more device
-        # time than the back-to-back wall. Without the warm-up window, the
-        # first records of windows over calls of a millisecond went missing
-        # (up to half of them) on an H100; with it, now and then a few, and
-        # now and then all of them (windows of cuDNN's SDPA kernels): such a
-        # window is taken again, and a call whose every window is empty
-        # fails below.
+        # kernel's record count a multiple of iters, no less device time
+        # than the bound and no more than the back-to-back wall. Without the
+        # warm-up window, the first records of windows over calls of a
+        # millisecond went missing (up to half of them) on an H100; with it,
+        # now and then a few, and now and then all of them (windows of
+        # cuDNN's SDPA kernels): such a window is taken again, and a call
+        # whose every window is empty fails below. Some calls lost records
+        # in every window (the plain sigma = 0 clip kept 3 or 4 of 5).
         if dev == 0:
             log(f"[timing] the profiler saw no kernel (attempt {attempt + 1} of 3)")
             continue
         counts = {e.key: e.count for e in rows}
-        if not any(n % iters for n in counts.values()) and dev / iters / 1e3 <= 1.02 * wall:
+        per_call = dev / iters / 1e3
+        lost = any(n % iters for n in counts.values()) or per_call < bound_ms
+        if not lost and per_call <= 1.02 * wall:
             break
         evs = prof.events()
         kern = [e.time_range for e in evs
@@ -284,12 +302,20 @@ def timed_ms(fn, iters: int = 20) -> tuple[float, float]:
         host = [e.time_range for e in evs if e.device_type != cuda]
         t0 = min(t.start for t in host)
         log(f"[timing] suspect profiler window (attempt {attempt + 1} of 3): device "
-            f"{dev / iters / 1e3:.4f} ms vs wall {wall:.4f} ms per call over {iters} calls; "
+            f"{per_call:.4f} ms vs wall {wall:.4f} ms and bound {bound_ms:.4f} ms per call over "
+            f"{iters} calls; "
             f"kernel records {counts}; kernel span {min(t.start for t in kern) - t0:.1f}.."
             f"{max(t.end for t in kern) - t0:.1f} us, host span 0.."
             f"{max(t.end for t in host) - t0:.1f} us")
     check(dev > 0, "the profiler saw no kernel: device time not measured")
-    return dev / iters / 1e3, wall
+    if lost:
+        log(f"[timing] every window lost records: {sum(counts.values())} kept; each kernel "
+            "timed per record, times its launches per call")
+    LAST_KERNELS.clear()
+    for e in rows:
+        calls = max(1, round(e.count / iters)) if lost else e.count / iters
+        LAST_KERNELS[e.key] = (calls, e.self_device_time_total / e.count * calls / 1e3)
+    return sum(t for _, t in LAST_KERNELS.values()), wall
 
 
 # The plain versions behind the ops entry points, fp or int8 pools by
@@ -2014,6 +2040,11 @@ def phase_serve_batch(smi, model, params):
 
 
 # ------------------------------------------------------------------ phase 6
+def _short(kernel: str) -> str:
+    """A profiler kernel name without its namespace and argument list."""
+    return kernel.replace("(anonymous namespace)::", "").split("(")[0][-48:]
+
+
 def phase_channel_kernels(smi):
     """The four channel kernels against their plain versions at the
     training path's leaves, each with a planted fault; times at the
@@ -2064,9 +2095,25 @@ def phase_channel_kernels(smi):
         }
         bitwise("clip_noise", f"{lname} clip scale 0.37, no noise", ops.clip_noise(x, scale),
                 ref.clip_noise_ref(x, scale), [("scale left out", x)])
+        xb = x.bfloat16()
+        bitwise("clip_noise", f"{lname} bf16 scale 0.37, sigma {sigma}",
+                ops.clip_noise(xb, scale, noise, sigma),
+                ref.clip_noise_ref(xb, scale, noise, sigma),
+                [("noise term left out", ref.clip_noise_ref(xb, scale))])
+        bitwise("clip_noise", f"{lname} bf16 clip scale 0.37, no noise",
+                ops.clip_noise(xb, scale), ref.clip_noise_ref(xb, scale), [("scale left out", xb)])
         flat = x.reshape(-1)
+        # a view 4 bytes past a 16-byte boundary, x and noise alike
+        xv, nv = flat[1:], noise.reshape(-1)[1:]
+        bitwise("clip_noise", f"{lname} view at +4 bytes, sigma {sigma}",
+                ops.clip_noise(xv, scale, nv, sigma), ref.clip_noise_ref(xv, scale, nv, sigma),
+                [("noise term left out", ref.clip_noise_ref(xv, scale))])
         ragged = flat[: 1_000_077]
         got, want = ops.sq_norm(x), ref.sq_norm_ref(x)
+        again = ops.sq_norm(x)
+        got_b, want_b = ops.sq_norm(xb), ref.sq_norm_ref(xb)
+        expect(torch.equal(got, again), f"sq_norm {lname}: two calls differ ({got} vs {again})")
+        expect(rel(got_b, want_b) <= SQ_NORM_RTOL, f"sq_norm {lname} bf16: {rel(got_b, want_b)}")
         got_r, want_r = ops.sq_norm(ragged), ref.sq_norm_ref(ragged)
         f_chunk = rel(got, ref.sq_norm_ref(flat[:-CHUNK]))
         f_tail = rel(got_r, ref.sq_norm_ref(ragged[:1_000_000]))
@@ -2076,7 +2123,9 @@ def phase_channel_kernels(smi):
         expect(f_chunk > SQ_NORM_RTOL and f_tail > SQ_NORM_RTOL,
                f"sq_norm planted faults not caught: {f_chunk}, {f_tail}")
         log(f"[channel] sq_norm {lname}: rel err {rel(got, want):.3e} (tol {SQ_NORM_RTOL:g}); "
-            f"ragged n=1000077 rel err {rel(got_r, want_r):.3e}; planted faults: last "
+            f"bf16 rel err {rel(got_b, want_b):.3e}; a second call bitwise equal "
+            f"{torch.equal(got, again)}; ragged n=1000077 rel err {rel(got_r, want_r):.3e}; "
+            "planted faults: last "
             f"{CHUNK}-element chunk dropped {f_chunk:.3e}, ragged tail dropped {f_tail:.3e}")
         if lname.startswith("embed"):
             nb_rounds = k  # continuous data: no ties, so exactly k rounds per block
@@ -2091,27 +2140,39 @@ def phase_channel_kernels(smi):
                 "clip_noise": (lambda: ops.clip_noise(x, one, noise, sigma),
                                lambda: ref.clip_noise_ref(x, one, noise, sigma),
                                lambda: torch.add(x, noise, alpha=sigma), 12 * n + 4, 3 * n),
+                # logged beside the rows: the clip alone (x read, out
+                # written) and the norm of a bf16 leaf (no single call)
+                "clip_noise sigma 0": (lambda: ops.clip_noise(x, scale),
+                                       lambda: ref.clip_noise_ref(x, scale),
+                                       lambda: torch.mul(x, scale), 8 * n + 4, n),
+                "sq_norm bf16": (lambda: ops.sq_norm(xb), lambda: ref.sq_norm_ref(xb), None,
+                                 2 * n + 4, 2 * n),
             }
             for name, (kern, plain, lib, nbytes, flops) in timing.items():
-                ms, wall = timed_ms(kern)
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / FP32_FLOPS * 1e3
-                rows[name] = dict(
-                    max_abs_err=errs[name], ms=ms, wrapper_ms=wall,
-                    plain_ms=timed_ms(plain, iters=5)[0],
-                    library_ms=None if lib is None else timed_ms(lib)[0],
-                    bound_ms=max(t_bytes, t_ops),
+                bound = max(t_bytes, t_ops)
+                ms, wall = timed_ms(kern, bound_ms=bound)
+                split = "; ".join(f"{_short(key)} x{c:g} {t:.4f} ms"
+                                  for key, (c, t) in LAST_KERNELS.items())
+                r = dict(
+                    max_abs_err=errs.get(name, 0.0), ms=ms, wrapper_ms=wall,
+                    plain_ms=timed_ms(plain, iters=5, bound_ms=bound)[0],
+                    library_ms=None if lib is None else timed_ms(lib, bound_ms=bound)[0],
+                    bound_ms=bound,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                 )
-                r = rows[name]
+                if name in CHANNEL:
+                    rows[name] = r
+                lib_ms = "null" if lib is None else format(r["library_ms"], ".4f")
                 log(f"[channel] {name} {lname} ({smi}): kernel device ms {r['ms']:.4f} "
                     f"(wrapper wall {r['wrapper_ms']:.4f}) plain_ms {r['plain_ms']:.4f} "
-                    f"library_ms {r['library_ms'] if lib is None else format(r['library_ms'], '.4f')} "
-                    f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: {nbytes / 1e9:.3f} GB)")
+                    f"library_ms {lib_ms} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: "
+                    f"{nbytes / 1e9:.3f} GB); kernels per call: {split}")
         else:
             for name, e in errs.items():
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
-        del x, noise, flat, ragged
+        del x, xb, noise, flat, ragged, xv, nv
     torch.cuda.empty_cache()
     return rows
 
@@ -2131,6 +2192,16 @@ def _stage(kernel_name: str) -> str:
     if "normal" in n or "philox" in n:
         return "noise"
     return "delta/EF/aggregate"
+
+
+def _dp_split(ev) -> str:
+    """Device ms and launches of the DP kernels among profiler kernel rows."""
+    parts = []
+    for name in ("sq_norm", "clip_noise"):
+        es = [e for e in ev if name in e.key]
+        parts.append(f"{name} {sum(e.self_device_time_total for e in es) / 1e3:.3f} ms in "
+                     f"{sum(e.count for e in es)} launches")
+    return ", ".join(parts)
 
 
 def phase_training(smi):
@@ -2219,8 +2290,10 @@ def phase_training(smi):
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:4]
     log(f"[train] {smi}: one local step (1 cloud, {batch} x {seq}) host wall {host_ms:.1f} ms, "
         f"device time {dev_ms:.1f} ms in {sum(e.count for e in ev)} kernel launches, device "
-        f"idle share {max(0.0, 1 - dev_ms / host_ms):.3f}; top: " + "; ".join(
-            f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
+        f"idle share {max(0.0, 1 - dev_ms / host_ms):.3f}; the gradient clip: {_dp_split(ev)}"
+        "; top: "
+        + "; ".join(f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
+                    for e in top))
 
     # one sync round from a copy of the trained state: kernels, plain, fault
     for c in state["clouds"]:
@@ -2262,11 +2335,13 @@ def phase_training(smi):
         prof_wall = (time.perf_counter() - t) * 1e3
     got = host(tree_leaves(state["global"]["params"]))
     stages: dict[str, float] = {}
-    for e in _kernel_rows(prof):
+    ev = _kernel_rows(prof)
+    for e in ev:
         stages[_stage(e.key)] = stages.get(_stage(e.key), 0.0) + e.self_device_time_total / 1e3
     log(f"[train] {smi}: profiled sync round wall {prof_wall:.1f} ms, device time "
         f"{sum(stages.values()):.2f} ms by stage: "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(stages.items(), key=lambda x: -x[1])))
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(stages.items(), key=lambda x: -x[1]))
+        + f"; of which {_dp_split(ev)}")
 
     def compare(what, faults=False):
         differ = total_n = beyond = 0

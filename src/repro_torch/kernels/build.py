@@ -54,7 +54,7 @@ SIGNATURES = {
     "int8_encode": (P, P, P, L, I, L, I, P),
     "int8_roundtrip": (P, P, L, P),
     "topk_sparsify": (P, P, L, I, P),
-    "sq_norm": (P, P, P, L, I, P),
+    "sq_norm": (P, P, P, P, L, I, P),
     "clip_noise": (P, P, P, P, L, F, I, P),
     "paged_decode_ring": (P,) * 6 + (I,) * 9 + (F, P),
     "swa_decode": (P,) * 6 + (I,) * 8 + (F, P),
