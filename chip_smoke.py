@@ -8,11 +8,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: needs CUDA; prints the card's name and power limit, turns off
    TF32 and reduced-precision bf16 reductions in matrix products;
 2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all at once), prints each prefill kernel's
-   registers, shared memory and spills (the other libraries': their
-   registers and largest spill), and checks that the
+   (one ``nvcc`` per source, all at once), prints each prefill and channel
+   block kernel's registers, shared memory and spills (the other
+   libraries': their registers and largest spill), and checks that the
    ``flash_prefill`` and ``flash_suffix_prefill`` libraries hold
-   tensor-core wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions;
+   tensor-core wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions,
+   and the ``topk_compress`` and ``quantize`` libraries warp reductions
+   (``REDUX``) and no block barrier (``BAR``);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, at the serving path's shapes (stablelm-1.6b: Hkv 32, G 1, hd 64,
    bf16, page 16, scattered tables with shared pages and scratch tails), at
@@ -118,19 +120,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    100352 x 2048, and one stacked MLP leaf, 24 x 2048 x 5632, fp32, k = 3):
    bitwise (the norm within 1e-6 relative), each with a planted fault that
    must fail its check; clip/noise also in bf16 and on a view 4 bytes off
-   a 16-byte boundary, the norm also in bf16 and twice (equal bits); times
-   at the embedding leaf, each with its kernels' device time one by one,
-   and beside the rows the clip alone (sigma 0, against ``torch.mul``) and
+   a 16-byte boundary, the norm also in bf16 and twice (equal bits). Top-k
+   and int8 also bitwise on the sync's kind of update (a bf16-grid
+   difference times a clip scale, ``kernels/channel_cases.py``) and on it
+   with edge blocks planted (all zeros, 1 or 2 nonzeros at k = 3, int8 half
+   steps of the scale), whole, at a ragged length (n = 1,000,077) and as a
+   view 4 bytes on; the planted faults there (top-k keeping exactly k per
+   block, int8 rounding half away from zero, where the data holds half
+   steps, else the divisor 128) must differ. Times at the embedding leaf,
+   each with its kernels' device time one by one and its time by CUDA
+   events back to back, and beside the rows top-k and int8 on the
+   bf16-grid update, the clip alone (sigma 0, against ``torch.mul``) and
    the bf16 norm;
 7. training: ``run_training`` over stablelm-1.6b at its published widths
    (2 clouds, H = 2, 4 steps, batch 8 x 256 per cloud, topk+int8 with error
    feedback, DP clip 1.0 and noise 0.1, FedAvg): finite losses, every
-   channel kernel launched, local-step and sync-round times, the sync's
+   channel kernel launched, the first sync's share of blocks whose k-th
+   magnitude is tied at the embedding leaves (embed.tok, embed.unembed),
+   local-step and sync-round times, the sync's
    device time by stage, the idle share of a local step, the device time of
    the DP kernels in a local step and in the sync, peak memory; then
    one sync round from a copy of the trained state through the kernels and
-   through the plain versions (and a planted fault) with the same noise
-   seed, whose new global parameters must agree;
+   through the plain versions (and two planted faults: top-k keeping k - 1,
+   and exactly k, per block) with the same noise seed, whose new global
+   parameters must agree;
 8. a ``{"kernels": [...]}`` line (twelve kernels: launches from the fp
    main path, the int8 main path, the ring main path (``swa_decode``'s from
    its paged-decode-off run, at the shape 3c times) and the training run),
@@ -475,25 +488,6 @@ def plain_channel(**swap):
             setattr(mod, k, saved[k])
 
 
-def _topk_short(x, k):
-    """Planted fault: top-k keeping k - 1 per block."""
-    from repro_torch.kernels import ref
-
-    return ref.topk_sparsify_ref(x, k - 1)
-
-
-def _int8_div128(x):
-    """Planted fault: the int8 scale with 128 in place of 127."""
-    import torch
-
-    from repro_torch.kernels import ref
-
-    rows = ref._blocks(x)
-    amax = rows.abs().amax(dim=1, keepdim=True)
-    scale = (amax / amax.new_tensor(128.0)).clamp(min=1e-12)
-    return ref._unblocks(torch.round(rows / scale).clamp(-127, 127) * scale, x)
-
-
 # ------------------------------------------------------------------ phase 1
 def phase_device():
     import torch
@@ -523,6 +517,9 @@ def phase_device():
 # libraries must hold wgmma (HGMMA) and TMA-load (UTMALDG) instructions.
 TC_SOURCES = ("flash_prefill", "flash_suffix_prefill")
 TC_OPCODES = ("HGMMA", "UTMALDG")
+# the channel's block kernels: one warp per block, warp reductions (REDUX),
+# no block barrier (BAR)
+BLOCK_SOURCES = ("topk_compress", "quantize")
 
 
 def _ptxas_by_kernel(report: str) -> list[str]:
@@ -550,7 +547,7 @@ def phase_build():
     reports = build.build_all()
     log(f"[build] {len(reports)} kernel libraries built in {time.perf_counter() - t0:.1f} s")
     for name, out in reports.items():
-        if name in TC_SOURCES:
+        if name in TC_SOURCES + BLOCK_SOURCES:
             for row in _ptxas_by_kernel(out):
                 log(f"[build] {name}: {row}")
             continue
@@ -566,6 +563,11 @@ def phase_build():
         log(f"[build] {name} SASS: HGMMA (tensor-core wgmma) {has['HGMMA']}, UTMALDG (TMA "
             f"load) {has['UTMALDG']}")
         check(all(has.values()), f"{name}: SASS lacks {[op for op, h in has.items() if not h]}")
+    for name in BLOCK_SOURCES:
+        ops = build.sass_opcodes(name)
+        log(f"[build] {name} SASS: REDUX (warp reduction) {'REDUX' in ops}, BAR (block "
+            f"barrier) {'BAR' in ops}")
+        check("REDUX" in ops and "BAR" not in ops, f"{name}: SASS has BAR or lacks REDUX")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -2047,10 +2049,12 @@ def _short(kernel: str) -> str:
 
 def phase_channel_kernels(smi):
     """The four channel kernels against their plain versions at the
-    training path's leaves, each with a planted fault; times at the
-    embedding leaf."""
+    training path's leaves, each with a planted fault; top-k and int8 also
+    on the sync's kind of update and on edge blocks; times at the embedding
+    leaf."""
     import torch
 
+    from repro_torch.kernels import channel_cases as cc
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.dp_clip import CHUNK
 
@@ -2084,10 +2088,10 @@ def phase_channel_kernels(smi):
             "topk_sparsify": bitwise("topk_sparsify", f"{lname} k={k}",
                                      ops.topk_sparsify_leaf(x, TOPK_RATIO),
                                      ref.topk_sparsify_ref(x, k),
-                                     [("keeps k-1 per block", _topk_short(x, k))]),
+                                     [("keeps k-1 per block", cc.topk_short(x, k))]),
             "int8_roundtrip": bitwise("int8_roundtrip", lname, ops.int8_roundtrip_leaf(x),
                                       ref.int8_roundtrip_ref(x),
-                                      [("divisor 128", _int8_div128(x))]),
+                                      [("divisor 128", cc.int8_div128(x))]),
             "clip_noise": bitwise("clip_noise", f"{lname} scale 1, sigma {sigma}",
                                   ops.clip_noise(x, one, noise, sigma),
                                   ref.clip_noise_ref(x, one, noise, sigma),
@@ -2127,14 +2131,47 @@ def phase_channel_kernels(smi):
             f"{torch.equal(got, again)}; ragged n=1000077 rel err {rel(got_r, want_r):.3e}; "
             "planted faults: last "
             f"{CHUNK}-element chunk dropped {f_chunk:.3e}, ragged tail dropped {f_tail:.3e}")
+        # the sync's kind of update (a bf16-grid difference times a clip
+        # scale: the k-th magnitude ties in most blocks), and edge blocks
+        # planted into it (all zeros, 1 or 2 nonzeros at k = 3, int8 half
+        # steps), whole, at a ragged length and as a view 4 bytes on
+        u = cc.bf16_grid_update(torch.randn(shape, generator=gen, device=DEVICE) * 0.02,
+                                torch.randn(shape, generator=gen, device=DEVICE))
+        edge = cc.plant_edge_blocks(u).reshape(-1)
+        div128 = ("divisor 128", cc.int8_div128)
+        half_away = ("rounds half away from zero", cc.int8_half_away)
+        for cname, xc, int8_faults in (
+                ("bf16-grid update", u, (div128,)),
+                ("edge blocks", edge, (half_away, div128)),
+                ("edge blocks, ragged n=1000077", edge[:1_000_077], (half_away,)),
+                ("edge blocks, view at +4 bytes", edge[1:], (half_away,))):
+            st = cc.tie_stats(xc, k)
+            log(f"[channel] {lname} {cname}: of {st['blocks']} blocks, k-th magnitude tied in "
+                f"{st['kth_tied']:.4f}, all zeros {st['all_zero']:.4f}, fewer than {k} nonzeros "
+                f"{st['under_k_nonzero']:.4f}; top-k rounds per block {st['rounds']:.4f}")
+            e_t = bitwise("topk_sparsify", f"{lname} {cname} k={k}",
+                          ops.topk_sparsify_leaf(xc, TOPK_RATIO), ref.topk_sparsify_ref(xc, k),
+                          [("keeps exactly k per block", cc.topk_exact_k(xc, k))])
+            e_q = bitwise("int8_roundtrip", f"{lname} {cname}", ops.int8_roundtrip_leaf(xc),
+                          ref.int8_roundtrip_ref(xc), [(f, fn(xc)) for f, fn in int8_faults])
+            errs["topk_sparsify"] = max(errs["topk_sparsify"], e_t)
+            errs["int8_roundtrip"] = max(errs["int8_roundtrip"], e_q)
+        del edge
         if lname.startswith("embed"):
-            nb_rounds = k  # continuous data: no ties, so exactly k rounds per block
+            rounds = {what: cc.tie_stats(xc, k)["rounds"] for what, xc in (("x", x), ("u", u))}
             timing = {
                 "topk_sparsify": (lambda: ops.topk_sparsify_leaf(x, TOPK_RATIO),
                                   lambda: ref.topk_sparsify_ref(x, k), None,
-                                  8 * n, n * (2 + 2 * nb_rounds)),
+                                  8 * n, n * (2 + 2 * rounds["x"])),
                 "int8_roundtrip": (lambda: ops.int8_roundtrip_leaf(x),
                                    lambda: ref.int8_roundtrip_ref(x), None, 8 * n, 6 * n),
+                # logged beside the rows: both on the sync's kind of update
+                "topk_sparsify bf16-grid update": (
+                    lambda: ops.topk_sparsify_leaf(u, TOPK_RATIO),
+                    lambda: ref.topk_sparsify_ref(u, k), None, 8 * n, n * (2 + 2 * rounds["u"])),
+                "int8_roundtrip bf16-grid update": (lambda: ops.int8_roundtrip_leaf(u),
+                                                    lambda: ref.int8_roundtrip_ref(u), None,
+                                                    8 * n, 6 * n),
                 "sq_norm": (lambda: ops.sq_norm(x), lambda: ref.sq_norm_ref(x),
                             lambda: torch.dot(flat, flat), 4 * n + 4, 2 * n),
                 "clip_noise": (lambda: ops.clip_noise(x, one, noise, sigma),
@@ -2166,13 +2203,14 @@ def phase_channel_kernels(smi):
                     rows[name] = r
                 lib_ms = "null" if lib is None else format(r["library_ms"], ".4f")
                 log(f"[channel] {name} {lname} ({smi}): kernel device ms {r['ms']:.4f} "
-                    f"(wrapper wall {r['wrapper_ms']:.4f}) plain_ms {r['plain_ms']:.4f} "
+                    f"(CUDA events per call, back to back {r['wrapper_ms']:.4f}) "
+                    f"plain_ms {r['plain_ms']:.4f} "
                     f"library_ms {lib_ms} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: "
                     f"{nbytes / 1e9:.3f} GB); kernels per call: {split}")
         else:
             for name, e in errs.items():
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
-        del x, xb, noise, flat, ragged, xv, nv
+        del x, xb, noise, flat, ragged, xv, nv, u
     torch.cuda.empty_cache()
     return rows
 
@@ -2210,7 +2248,7 @@ def phase_training(smi):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import channel_cases, ops, topk_compress
     from repro_torch.launch.train import run_training
     from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
@@ -2218,6 +2256,26 @@ def phase_training(smi):
     torch.cuda.reset_peak_memory_stats()
     clouds, batch, seq = 2, 8, 256
     walls = {"local": [], "sync": []}
+
+    # The first sync's top-k inputs at the embedding leaves (embed.tok, then
+    # embed.unembed, each for cloud 0 and 1: its first four top-k calls):
+    # how often the k-th magnitude of a block is tied. The time this takes
+    # is left out of the sync round's wall.
+    kernel_topk = topk_compress.topk_sparsify
+    embed_n = 100352 * 2048
+    ties = []
+    probe = {"s": 0.0}
+
+    def topk_probe(x, k):
+        out = kernel_topk(x, k)
+        if len(ties) < 2 * clouds and x.numel() == embed_n:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ties.append(channel_cases.tie_stats(x, k))
+            probe["s"] += time.perf_counter() - t
+        return out
+
+    topk_compress.topk_sparsify = topk_probe
 
     def step_fn(trainer, state, b, arrived, alphas):
         if "untimed_sync" not in trainer.__dict__:   # time the sync round on its own
@@ -2228,7 +2286,8 @@ def phase_training(smi):
                 t = time.perf_counter()
                 out = sync(*a)
                 torch.cuda.synchronize()
-                walls["sync"].append(time.perf_counter() - t)
+                walls["sync"].append(time.perf_counter() - t - probe["s"])
+                probe["s"] = 0.0
                 return out
             trainer.__dict__["untimed_sync"] = sync
             trainer._sync = timed_sync
@@ -2243,13 +2302,23 @@ def phase_training(smi):
 
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = run_training("stablelm-1.6b", smoke=False, steps=4, seq_len=seq,
-                       per_cloud_batch=batch, n_clouds=clouds, local_steps=2,
-                       aggregation="fedavg", compression="topk+int8", topk_ratio=TOPK_RATIO,
-                       dp_clip=DP_CLIP, dp_noise=DP_NOISE, log_every=1, device=DEVICE,
-                       log_fn=lambda m: log(f"[train] {m}"), step_fn=step_fn)
+    try:
+        res = run_training("stablelm-1.6b", smoke=False, steps=4, seq_len=seq,
+                           per_cloud_batch=batch, n_clouds=clouds, local_steps=2,
+                           aggregation="fedavg", compression="topk+int8", topk_ratio=TOPK_RATIO,
+                           dp_clip=DP_CLIP, dp_noise=DP_NOISE, log_every=1, device=DEVICE,
+                           log_fn=lambda m: log(f"[train] {m}"), step_fn=step_fn)
+    finally:
+        topk_compress.topk_sparsify = kernel_topk
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
+    check(len(ties) == 2 * clouds, f"the first sync's embedding leaves not seen: {len(ties)}")
+    for (leaf, c), st in zip([(lf, c) for lf in ("embed.tok", "embed.unembed")
+                              for c in range(clouds)], ties):
+        log(f"[train] first sync, {leaf} cloud {c}, top-k input: of {st['blocks']} blocks, "
+            f"k-th magnitude tied in {st['kth_tied']:.4f}, all zeros {st['all_zero']:.4f}, "
+            f"fewer than {ops.topk_k(TOPK_RATIO)} nonzeros {st['under_k_nonzero']:.4f}; "
+            f"rounds per block {st['rounds']:.4f}")
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [x for h in res["history"] for x in h["per_cloud_loss"]]
@@ -2366,8 +2435,10 @@ def phase_training(smi):
 
     with plain_channel():
         compare("plain versions")
-    with plain_channel(topk_sparsify=_topk_short):
+    with plain_channel(topk_sparsify=channel_cases.topk_short):
         compare("planted fault: top-k keeps k-1 per block", faults=True)
+    with plain_channel(topk_sparsify=channel_cases.topk_exact_k):
+        compare("planted fault: top-k keeps exactly k per block (ties dropped)", faults=True)
     del state, trainer, snap, got
     torch.cuda.empty_cache()
     return launches

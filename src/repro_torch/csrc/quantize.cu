@@ -14,28 +14,38 @@
 // even (rintf, as jnp.round and torch.round), and a separate multiply.
 //
 // What bounds it on an H100: bytes (4 read + 4 written per element, a few
-// flops each). One 256-thread block per 256-element block, one element per
-// thread: the loads and stores of a warp are 128 contiguous bytes, and the
-// block max is one shared-memory tree reduction.
+// flops each). One warp per block, its 256 elements in registers
+// (channel_block.cuh): 16-byte loads and stores, and the block max is one
+// __reduce_max_sync over the magnitudes' bits, with no shared memory and no
+// barrier.
+#include "channel_block.cuh"
 #include "common.cuh"
-#include "reduce.cuh"
+
+#include <cstdint>
 
 namespace {
 
 constexpr int BLOCK = 256;
 
-__global__ void __launch_bounds__(BLOCK)
-int8_roundtrip_kernel(const float* __restrict__ x, float* __restrict__ out, long long n) {
-  __shared__ float buf[BLOCK];
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < n;
-  const float v = live ? x[i] : 0.0f;
-  const float amax = repro::block_reduce(buf, fabsf(v), repro::MaxOp());
-  const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
-  if (live) {
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.0f), 127.0f);
-    out[i] = __fmul_rn(q, scale);
-  }
+__global__ void __launch_bounds__(repro::channel::WARPS * 32)
+int8_roundtrip_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
+                      long long blocks, bool aligned) {
+  namespace ch = repro::channel;
+  const long long b = ch::warp_block();
+  if (b >= blocks) return;  // the whole warp leaves together
+  const long long base = b * ch::BLOCK;
+  const bool vec = ch::vector_block(base, n, aligned);
+  float v[ch::PER_LANE];
+  ch::load(x, base, n, vec, v);
+  unsigned mx = 0;
+#pragma unroll
+  for (int e = 0; e < ch::PER_LANE; ++e) mx = max(mx, ch::mag_bits(v[e]));
+  const float amax = __uint_as_float(__reduce_max_sync(ch::FULL, mx));
+  const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
+#pragma unroll
+  for (int e = 0; e < ch::PER_LANE; ++e)
+    v[e] = __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(v[e], s)), -127.0f), 127.0f), s);
+  ch::store(out, base, n, vec, v);
 }
 
 // Replaces the TPU kernel src/repro/kernels/quantize.py::int8_encode (body
@@ -100,10 +110,13 @@ int encode(const void* x, void* q, void* scale, long long rows, int R, long long
 // x, out: n contiguous float32 elements. Returns cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int int8_roundtrip(const void* x, void* out, long long n, void* stream) {
+  namespace ch = repro::channel;
   if (n > 0) {
-    const long long blocks = (n + BLOCK - 1) / BLOCK;
-    int8_roundtrip_kernel<<<(unsigned)blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (float*)out, n);
+    const long long blocks = (n + ch::BLOCK - 1) / ch::BLOCK;
+    const bool aligned = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
+    int8_roundtrip_kernel<<<(unsigned)((blocks + ch::WARPS - 1) / ch::WARPS), ch::WARPS * 32, 0,
+                            (cudaStream_t)stream>>>((const float*)x, (float*)out, n, blocks,
+                                                    aligned);
   }
   return (int)cudaGetLastError();
 }

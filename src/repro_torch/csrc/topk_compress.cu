@@ -11,38 +11,52 @@
 // over the magnitudes not yet counted, each round adding the number of
 // elements equal to that max, until k are counted. So t is exact and the
 // output is bitwise equal to the plain version (torch.topk's k-th value).
-// A round is two shared-memory tree reductions; the loop ends as soon as k
-// elements are counted, so at k = 3 on continuous data it runs 3 rounds,
-// and never more than k.
+// Every round counts at least one element, so there are at most k rounds,
+// and fewer where the magnitudes at the top tie (a block of the sync's
+// bf16-grid updates, or one that is all zeros).
 //
-// What bounds it on an H100: bytes (4 read + 4 written per element) for
-// small k; the reductions cost 2 * 8 barrier steps per round, so a large k
-// makes it latency bound inside the block. One 256-thread block per
-// 256-element block, one element per thread.
-#include "reduce.cuh"
+// What bounds it on an H100: bytes (4 read + 4 written per element) at the
+// path's k = 3. One warp per block, its 256 elements in registers
+// (channel_block.cuh): 16-byte loads and stores, and a round is one
+// __reduce_max_sync over the magnitudes' bits and one __reduce_add_sync of
+// the tie count, with no shared memory and no barrier.
+#include "channel_block.cuh"
+
+#include <cstdint>
 
 namespace {
 
-constexpr int BLOCK = 256;
+using namespace repro::channel;
 
-__global__ void __launch_bounds__(BLOCK)
-topk_sparsify_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, int k) {
-  __shared__ float fbuf[BLOCK];
-  __shared__ int ibuf[BLOCK];
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < n;
-  const float v = live ? x[i] : 0.0f;
-  const float mag = fabsf(v);
-  bool active = true;  // not yet counted
-  float thr = 0.0f;
-  int cnt = 0;         // elements counted so far: the same in every thread
-  for (int r = 0; r < k && cnt < k; ++r) {
-    const float cur = repro::block_reduce(fbuf, active ? mag : -1.0f, repro::MaxOp());
-    cnt += repro::block_reduce(ibuf, mag == cur ? 1 : 0, repro::SumOp<int>());
-    thr = cur;
-    active = active && mag < cur;
+__global__ void __launch_bounds__(WARPS * 32)
+topk_sparsify_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
+                     long long blocks, int k, bool aligned) {
+  const long long b = warp_block();
+  if (b >= blocks) return;  // the whole warp leaves together
+  const long long base = b * BLOCK;
+  const bool vec = vector_block(base, n, aligned);
+  float v[PER_LANE];
+  unsigned m[PER_LANE];
+  load(x, base, n, vec, v);
+#pragma unroll
+  for (int e = 0; e < PER_LANE; ++e) m[e] = mag_bits(v[e]);
+  unsigned lim = 0xffffffffu;  // the magnitudes below lim are not yet counted
+  unsigned t = 0;
+  int cnt = 0;                 // elements counted so far: the same in every lane
+  while (cnt < k) {
+    unsigned mx = 0;
+#pragma unroll
+    for (int e = 0; e < PER_LANE; ++e) mx = m[e] < lim && m[e] > mx ? m[e] : mx;
+    t = __reduce_max_sync(FULL, mx);
+    int c = 0;
+#pragma unroll
+    for (int e = 0; e < PER_LANE; ++e) c += m[e] == t;
+    cnt += (int)__reduce_add_sync(FULL, (unsigned)c);
+    lim = t;
   }
-  if (live) out[i] = mag >= thr ? v : 0.0f;
+#pragma unroll
+  for (int e = 0; e < PER_LANE; ++e) v[e] = m[e] >= t ? v[e] : 0.0f;
+  store(out, base, n, vec, v);
 }
 
 }  // namespace
@@ -53,8 +67,10 @@ extern "C" int topk_sparsify(const void* x, void* out, long long n, int k, void*
   if (k < 1 || k > BLOCK) return -1;
   if (n > 0) {
     const long long blocks = (n + BLOCK - 1) / BLOCK;
-    topk_sparsify_kernel<<<(unsigned)blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (float*)out, n, k);
+    const bool aligned = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
+    topk_sparsify_kernel<<<(unsigned)((blocks + WARPS - 1) / WARPS), WARPS * 32, 0,
+                           (cudaStream_t)stream>>>((const float*)x, (float*)out, n, blocks, k,
+                                                   aligned);
   }
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, channel_cases, ops, ref
 from repro_torch.kernels.paged_decode import split_len
 
 TOL = {np.float32: 1e-5, "bfloat16": 1e-2}
@@ -248,10 +248,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 # plain version alike) rounds the product first: within one ulp of x·scale
 # plus one of the result.
 CHANNEL_SIZES = (2048, 1000, 300)
+# Top-k and int8 inputs: continuous data with planted ties and zeros; the
+# sync's kind of update (a bf16-grid difference times a clip scale, whose
+# k-th magnitude ties in most blocks); and that update with edge blocks
+# (all zeros, 1 or 2 nonzeros, int8 half steps) planted.
+CHANNEL_KINDS = ("randn", "bf16_update", "edge_blocks")
+CHANNEL_INPUTS = [pytest.param(n, kind, id=str(n) if kind == "randn" else f"{n}-{kind}")
+                  for kind in CHANNEL_KINDS for n in CHANNEL_SIZES]
 
 
-def _channel_input(n, seed, scale=1.0):
+def _channel_input(n, seed, scale=1.0, kind="randn"):
     rng = np.random.default_rng(seed)
+    if kind != "randn":
+        p = torch.from_numpy(rng.standard_normal(n).astype(np.float32)) * 0.02
+        g = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        x = channel_cases.bf16_grid_update(p, g, clip=0.37 * scale)
+        if kind == "edge_blocks":
+            x = channel_cases.plant_edge_blocks(x)
+        return x.numpy()
     x = (rng.standard_normal(n) * scale).astype(np.float32)
     x[5:9] = x[4]                    # ties
     x[256:300] = 0.0                 # a run of zeros (a whole block at n >= 512)
@@ -260,13 +274,13 @@ def _channel_input(n, seed, scale=1.0):
     return x
 
 
-@pytest.mark.parametrize("n", CHANNEL_SIZES)
+@pytest.mark.parametrize("n,kind", CHANNEL_INPUTS)
 @pytest.mark.parametrize("k", [1, 3, 26, 256])
-def test_topk_plain_matches_reference_and_pallas(n, k):
+def test_topk_plain_matches_reference_and_pallas(n, k, kind):
     from repro.core.compression import topk_block_sparsify
     from repro.kernels import ops as jops
 
-    x = _channel_input(n, k)
+    x = _channel_input(n, k, kind=kind)
     got = ops.topk_sparsify_leaf(torch.from_numpy(x), k / 256).numpy()
     for use_kernel in (False, True):
         want = jops.topk_sparsify_leaf(_to_jax(x, np.float32), k / 256,
@@ -276,13 +290,13 @@ def test_topk_plain_matches_reference_and_pallas(n, k):
                                                                       k / 256)))
 
 
-@pytest.mark.parametrize("n", CHANNEL_SIZES)
+@pytest.mark.parametrize("n,kind", CHANNEL_INPUTS)
 @pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
-def test_int8_roundtrip_plain_matches_reference_and_pallas(n, scale):
+def test_int8_roundtrip_plain_matches_reference_and_pallas(n, scale, kind):
     from repro.core.compression import int8_roundtrip
     from repro.kernels import ops as jops
 
-    x = _channel_input(n, 3, scale)
+    x = _channel_input(n, 3, scale, kind)
     got = ops.int8_roundtrip_leaf(torch.from_numpy(x)).numpy()
     for use_kernel in (False, True):
         want = jops.int8_roundtrip_leaf(_to_jax(x, np.float32), use_kernel=use_kernel,
@@ -411,6 +425,27 @@ def test_channel_kernels_match_plain_versions_cuda(sm90, n):
         assert ops.sq_norm(xd).item() == pytest.approx(want, rel=1e-6, abs=0)
         assert torch.equal(ops.clip_noise(xd, s, noise, 0.3), ref.clip_noise_ref(xd, s, noise, 0.3))
         assert torch.equal(ops.clip_noise(xd, s), ref.clip_noise_ref(xd, s))
+
+
+@pytest.mark.parametrize("n", [2048 * 5 + 3, 1_000_077])
+def test_block_kernels_on_the_sync_kind_of_update_cuda(sm90, n):
+    """Top-k and int8 bitwise against their plain versions on the sync's
+    kind of update (its k-th magnitude ties in most blocks) and on it with
+    edge blocks (all zeros, 1 or 2 nonzeros, int8 half steps), at a ragged
+    length and as a view 4 bytes off a 16-byte boundary. The planted faults
+    (top-k keeping exactly k per block; int8 rounding half away from zero)
+    must differ."""
+    gen = torch.Generator().manual_seed(n)
+    u = channel_cases.bf16_grid_update(torch.randn(n + 1, generator=gen) * 0.02,
+                                       torch.randn(n + 1, generator=gen)).cuda()
+    edge = channel_cases.plant_edge_blocks(u)
+    for x in (u[:n], edge[:n], edge[1:]):
+        for k in (1, 3, 26, 256):
+            assert torch.equal(ops.topk_sparsify_leaf(x, k / 256), ref.topk_sparsify_ref(x, k))
+        assert torch.equal(ops.int8_roundtrip_leaf(x), ref.int8_roundtrip_ref(x))
+        assert not torch.equal(ref.topk_sparsify_ref(x, 3), channel_cases.topk_exact_k(x, 3))
+    for x in (edge[:n], edge[1:]):
+        assert not torch.equal(ref.int8_roundtrip_ref(x), channel_cases.int8_half_away(x))
 
 
 def test_channel_launch_counters_cuda(sm90):
