@@ -1,6 +1,7 @@
 """Inputs and planted faults that the uplink channel's block kernels
 (``topk_sparsify``, ``int8_roundtrip``) are checked on, beside their plain
-versions in ``ref.py``; ``chip_smoke.py`` and the kernel tests share them.
+versions in ``repro_torch/kernels/ref.py``. ``chip_smoke.py`` (beside this
+module) and the tests share them; the port itself never imports them.
 
 The sync's real update is not continuous data: each leaf is the difference
 of two bf16 parameter leaves, times one clip scale, so its magnitudes sit

@@ -122,8 +122,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    must fail its check; clip/noise also in bf16 and on a view 4 bytes off
    a 16-byte boundary, the norm also in bf16 and twice (equal bits). Top-k
    and int8 also bitwise on the sync's kind of update (a bf16-grid
-   difference times a clip scale, ``kernels/channel_cases.py``) and on it
-   with edge blocks planted (all zeros, 1 or 2 nonzeros at k = 3, int8 half
+   difference times a clip scale, ``channel_cases.py`` beside this
+   script) and on it with edge blocks planted (all zeros, 1 or 2 nonzeros at k = 3, int8 half
    steps of the scale), whole, at a ragged length (n = 1,000,077) and as a
    view 4 bytes on; the planted faults there (top-k keeping exactly k per
    block, int8 rounding half away from zero, where the data holds half
@@ -135,15 +135,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. training: ``run_training`` over stablelm-1.6b at its published widths
    (2 clouds, H = 2, 4 steps, batch 8 x 256 per cloud, topk+int8 with error
    feedback, DP clip 1.0 and noise 0.1, FedAvg): finite losses, every
-   channel kernel launched, the first sync's share of blocks whose k-th
-   magnitude is tied at the embedding leaves (embed.tok, embed.unembed),
-   local-step and sync-round times, the sync's
+   channel kernel launched, local-step and sync-round times, the sync's
    device time by stage, the idle share of a local step, the device time of
    the DP kernels in a local step and in the sync, peak memory; then
    one sync round from a copy of the trained state through the kernels and
    through the plain versions (and two planted faults: top-k keeping k - 1,
    and exactly k, per block) with the same noise seed, whose new global
-   parameters must agree;
+   parameters must agree; last, a second, untimed run of the same
+   configuration and seed logs its first sync's share of blocks whose k-th
+   magnitude is tied at the embedding leaves (embed.tok, embed.unembed);
 8. a ``{"kernels": [...]}`` line (twelve kernels: launches from the fp
    main path, the int8 main path, the ring main path (``swa_decode``'s from
    its paged-decode-off run, at the shape 3c times) and the training run),
@@ -221,6 +221,9 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 peak outside the tensor cores
 SQ_NORM_RTOL = 1e-6
 # The training path's settings.
 TOPK_RATIO, DP_CLIP, DP_NOISE, NOISE_SEED = 0.01, 1.0, 0.1, 1234
+TRAIN = dict(arch="stablelm-1.6b", smoke=False, steps=4, seq_len=256, per_cloud_batch=8,
+             n_clouds=2, local_steps=2, aggregation="fedavg", compression="topk+int8",
+             topk_ratio=TOPK_RATIO, dp_clip=DP_CLIP, dp_noise=DP_NOISE)
 # Sync round, kernels vs plain versions: they differ only in the norm's
 # summation order, so the clip scale may differ in its last ulp; that moves
 # a transmitted delta by ~1e-7 of itself, and a new bf16 parameter only
@@ -2054,7 +2057,7 @@ def phase_channel_kernels(smi):
     leaf."""
     import torch
 
-    from repro_torch.kernels import channel_cases as cc
+    import channel_cases as cc
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.dp_clip import CHUNK
 
@@ -2248,34 +2251,15 @@ def phase_training(smi):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import channel_cases, ops, topk_compress
+    import channel_cases
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import run_training
     from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    clouds, batch, seq = 2, 8, 256
+    clouds, batch, seq = TRAIN["n_clouds"], TRAIN["per_cloud_batch"], TRAIN["seq_len"]
     walls = {"local": [], "sync": []}
-
-    # The first sync's top-k inputs at the embedding leaves (embed.tok, then
-    # embed.unembed, each for cloud 0 and 1: its first four top-k calls):
-    # how often the k-th magnitude of a block is tied. The time this takes
-    # is left out of the sync round's wall.
-    kernel_topk = topk_compress.topk_sparsify
-    embed_n = 100352 * 2048
-    ties = []
-    probe = {"s": 0.0}
-
-    def topk_probe(x, k):
-        out = kernel_topk(x, k)
-        if len(ties) < 2 * clouds and x.numel() == embed_n:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ties.append(channel_cases.tie_stats(x, k))
-            probe["s"] += time.perf_counter() - t
-        return out
-
-    topk_compress.topk_sparsify = topk_probe
 
     def step_fn(trainer, state, b, arrived, alphas):
         if "untimed_sync" not in trainer.__dict__:   # time the sync round on its own
@@ -2286,8 +2270,7 @@ def phase_training(smi):
                 t = time.perf_counter()
                 out = sync(*a)
                 torch.cuda.synchronize()
-                walls["sync"].append(time.perf_counter() - t - probe["s"])
-                probe["s"] = 0.0
+                walls["sync"].append(time.perf_counter() - t)
                 return out
             trainer.__dict__["untimed_sync"] = sync
             trainer._sync = timed_sync
@@ -2302,23 +2285,10 @@ def phase_training(smi):
 
     ops.reset_launches()
     t0 = time.perf_counter()
-    try:
-        res = run_training("stablelm-1.6b", smoke=False, steps=4, seq_len=seq,
-                           per_cloud_batch=batch, n_clouds=clouds, local_steps=2,
-                           aggregation="fedavg", compression="topk+int8", topk_ratio=TOPK_RATIO,
-                           dp_clip=DP_CLIP, dp_noise=DP_NOISE, log_every=1, device=DEVICE,
-                           log_fn=lambda m: log(f"[train] {m}"), step_fn=step_fn)
-    finally:
-        topk_compress.topk_sparsify = kernel_topk
+    res = run_training(**TRAIN, device=DEVICE, log_every=1,
+                       log_fn=lambda m: log(f"[train] {m}"), step_fn=step_fn)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    check(len(ties) == 2 * clouds, f"the first sync's embedding leaves not seen: {len(ties)}")
-    for (leaf, c), st in zip([(lf, c) for lf in ("embed.tok", "embed.unembed")
-                              for c in range(clouds)], ties):
-        log(f"[train] first sync, {leaf} cloud {c}, top-k input: of {st['blocks']} blocks, "
-            f"k-th magnitude tied in {st['kth_tied']:.4f}, all zeros {st['all_zero']:.4f}, "
-            f"fewer than {ops.topk_k(TOPK_RATIO)} nonzeros {st['under_k_nonzero']:.4f}; "
-            f"rounds per block {st['rounds']:.4f}")
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [x for h in res["history"] for x in h["per_cloud_loss"]]
@@ -2444,6 +2414,43 @@ def phase_training(smi):
     return launches
 
 
+def phase_first_sync_ties():
+    """The first sync's top-k inputs at the embedding leaves (embed.tok, then
+    embed.unembed, each for cloud 0 and 1: the first four top-k calls on a
+    leaf of that size), read in a second, untimed run of the training
+    phase's configuration and seed: how often the k-th magnitude of a
+    256-element block is tied."""
+    import torch
+
+    import channel_cases
+    from repro_torch.kernels import ops, topk_compress
+    from repro_torch.launch.train import run_training
+
+    clouds, embed_n = TRAIN["n_clouds"], 100352 * 2048
+    kernel_topk = topk_compress.topk_sparsify
+    ties = []
+
+    def topk_probe(x, k):
+        if x.numel() == embed_n and len(ties) < 2 * clouds:
+            ties.append(channel_cases.tie_stats(x, k))
+        return kernel_topk(x, k)
+
+    topk_compress.topk_sparsify = topk_probe
+    try:
+        res = run_training(**TRAIN, device=DEVICE, log_fn=lambda m: None)
+    finally:
+        topk_compress.topk_sparsify = kernel_topk
+    del res
+    torch.cuda.empty_cache()
+    check(len(ties) == 2 * clouds, f"the first sync's embedding leaves not seen: {len(ties)}")
+    leaves = [(lf, c) for lf in ("embed.tok", "embed.unembed") for c in range(clouds)]
+    for (leaf, c), st in zip(leaves, ties):
+        log(f"[train] first sync (a second run), {leaf} cloud {c}, top-k input: of "
+            f"{st['blocks']} blocks, k-th magnitude tied in {st['kth_tied']:.4f}, all zeros "
+            f"{st['all_zero']:.4f}, fewer than {ops.topk_k(TOPK_RATIO)} nonzeros "
+            f"{st['under_k_nonzero']:.4f}; rounds per block {st['rounds']:.4f}")
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -2466,6 +2473,9 @@ def main() -> int:
     rows.update(phase_channel_kernels(smi))
     train_launches = phase_training(smi)
     launches.update({k: train_launches[k] for k in CHANNEL})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_first_sync_ties()
     check(not FAILED, f"{len(FAILED)} numeric checks failed: {FAILED}")
     kernels = []
     for name, r in rows.items():

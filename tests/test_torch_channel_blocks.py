@@ -1,86 +1,46 @@
 """The uplink channel's block kernels (``csrc/topk_compress.cu`` and
-``csrc/quantize.cu``'s ``int8_roundtrip``): their threshold search, emulated,
-and the constants their layout rests on.
+``csrc/quantize.cu``'s ``int8_roundtrip``): the constants their layout
+rests on, and the inputs and planted faults they are checked on
+(``channel_cases.py`` beside ``chip_smoke.py``).
 
-Both kernels hold one 256-element block per warp and find what they need by
-warp reductions over the uint32 bits of |x|, which order as the magnitudes
-for finite floats (fabsf makes -0 into +0). ``topk_by_rounds`` repeats the
-top-k kernel's rounds on those bits (a max over the magnitudes not yet
-counted, then the number of elements equal to it, until k are counted),
-with the ragged block's missing elements read as zeros. On the CPU it must
-equal the plain version bitwise, on the sync's kind of update (whose k-th
-magnitude ties in most blocks), on edge blocks and on continuous data with
-negative zeros, and take at most k rounds. The kernels themselves are held
-against the plain versions on the card (``tests/test_torch_kernels.py``,
-``*_cuda``)."""
+Both kernels hold one 256-element block per warp, 8 elements per lane
+(``csrc/channel_block.cuh``). The kernels themselves are held against the
+plain versions on the card (``tests/test_torch_kernels.py``, ``*_cuda``,
+and ``chip_smoke.py``'s phase 6); the port's plain versions against the
+reference on these inputs in ``tests/test_torch_kernels.py``."""
 import pathlib
 import re
+import sys
 
-import numpy as np
-import pytest
 import torch
 
 import repro_torch
-from repro_torch.kernels import channel_cases, ops, ref, topk_compress
+from repro_torch.kernels import ops, ref, topk_compress
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import channel_cases  # noqa: E402  (beside chip_smoke.py, outside the package)
 
 CSRC = pathlib.Path(repro_torch.__file__).parent / "csrc"
 
 
-def topk_by_rounds(x: torch.Tensor, k: int) -> tuple[torch.Tensor, int]:
-    """The top-k kernel's rounds on magnitude bits, all blocks at once →
-    (output, the most rounds a block took)."""
-    rows = ref._blocks(x)
-    bits = (rows.view(torch.int32) & 0x7FFFFFFF).long()
-    nb = rows.shape[0]
-    lim = torch.full((nb,), 1 << 32, dtype=torch.long)
-    t = torch.zeros(nb, dtype=torch.long)
-    cnt = torch.zeros(nb, dtype=torch.long)
-    rounds = 0
-    while bool((cnt < k).any()):
-        live = cnt < k
-        mx = torch.where(bits < lim[:, None], bits, 0).amax(dim=1)
-        t = torch.where(live, mx, t)
-        cnt = cnt + torch.where(live, (bits == t[:, None]).sum(dim=1), 0)
-        lim = torch.where(live, t, lim)
-        rounds += 1
-    out = torch.where(bits >= t[:, None], rows, torch.zeros_like(rows))
-    return ref._unblocks(out, x), rounds
-
-
-def _inputs(n, seed):
+def _update(n, seed):
     gen = torch.Generator().manual_seed(seed)
-    update = channel_cases.bf16_grid_update(torch.randn(n, generator=gen) * 0.02,
-                                            torch.randn(n, generator=gen))
-    cont = torch.randn(n, generator=gen)
-    cont[::7] = -0.0
-    return {"bf16_update": update, "edge_blocks": channel_cases.plant_edge_blocks(update),
-            "randn_negative_zeros": cont}
+    return channel_cases.bf16_grid_update(torch.randn(n, generator=gen) * 0.02,
+                                          torch.randn(n, generator=gen))
 
 
-@pytest.mark.parametrize("n", [256 * 8, 256 * 8 + 77])
-@pytest.mark.parametrize("k", [1, 3, 26, 256])
-def test_threshold_rounds_on_magnitude_bits_equal_the_plain_version(n, k):
-    for name, x in _inputs(n, k).items():
-        got, rounds = topk_by_rounds(x, k)
-        np.testing.assert_array_equal(got.numpy(), ref.topk_sparsify_ref(x, k).numpy(),
-                                      err_msg=name)
-        assert rounds <= k, (name, rounds)
-
-
-def test_ties_shorten_the_rounds_and_change_the_output():
+def test_ties_decide_the_top_k_of_the_sync_kind_of_update():
     """On the sync's kind of update the k-th magnitude ties in most blocks:
-    fewer rounds than k, and more than k kept, which a top-k keeping
-    exactly k per block misses."""
-    x = _inputs(256 * 64, 0)["bf16_update"]
+    fewer threshold rounds than k, and more than k kept, which a top-k
+    keeping exactly k per block misses."""
+    x = _update(256 * 64, 0)
     st = channel_cases.tie_stats(x, 3)
     assert st["kth_tied"] > 0.5 and st["rounds"] < 3
-    _, rounds = topk_by_rounds(x, 3)
-    assert rounds <= 3
     assert not torch.equal(ref.topk_sparsify_ref(x, 3), channel_cases.topk_exact_k(x, 3))
 
 
 def test_edge_blocks_hold_their_kinds():
-    x = channel_cases.plant_edge_blocks(_inputs(256 * 8, 1)["bf16_update"])
+    x = channel_cases.plant_edge_blocks(_update(256 * 8, 1))
     rows = x.view(8, 256)
     assert (rows[0] == 0).all()
     assert int((rows[1] != 0).sum()) == 1 and int((rows[2] != 0).sum()) == 2
@@ -103,10 +63,3 @@ def test_block_constants_match_the_kernel_source():
     block = _constant("channel_block.cuh", "BLOCK")
     assert block == ops.BLOCK == ref.BLOCK == topk_compress.BLOCK == channel_cases.BLOCK
     assert _constant("channel_block.cuh", "PER_LANE") * 32 == block
-
-
-@pytest.mark.parametrize("source", ["topk_compress.cu", "quantize.cu"])
-def test_block_kernels_use_the_warp_layout_and_no_block_barrier(source):
-    src = (CSRC / source).read_text()
-    assert '#include "channel_block.cuh"' in src
-    assert "__syncthreads" not in src and "__shared__" not in src

@@ -18,11 +18,17 @@ The CUDA kernels themselves are held against the plain versions in the
 neither JAX nor the reference (run them on the card with
 ``python -m pytest -q --noconftest tests/test_torch_kernels.py -k cuda``;
 the repository's conftest imports JAX, which the card's machine lacks)."""
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, channel_cases, ops, ref
+from repro_torch.kernels import build, ops, ref
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import channel_cases  # noqa: E402  (beside chip_smoke.py, outside the package)
 from repro_torch.kernels.paged_decode import split_len
 
 TOL = {np.float32: 1e-5, "bfloat16": 1e-2}
@@ -248,10 +254,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 # plain version alike) rounds the product first: within one ulp of x·scale
 # plus one of the result.
 CHANNEL_SIZES = (2048, 1000, 300)
-# Top-k and int8 inputs: continuous data with planted ties and zeros; the
-# sync's kind of update (a bf16-grid difference times a clip scale, whose
-# k-th magnitude ties in most blocks); and that update with edge blocks
-# (all zeros, 1 or 2 nonzeros, int8 half steps) planted.
+# Top-k and int8 inputs: continuous data with planted ties, negative zeros
+# and zeros; the sync's kind of update (a bf16-grid difference times a clip
+# scale, whose k-th magnitude ties in most blocks); and that update with
+# edge blocks (all zeros, 1 or 2 nonzeros, int8 half steps) planted.
 CHANNEL_KINDS = ("randn", "bf16_update", "edge_blocks")
 CHANNEL_INPUTS = [pytest.param(n, kind, id=str(n) if kind == "randn" else f"{n}-{kind}")
                   for kind in CHANNEL_KINDS for n in CHANNEL_SIZES]
@@ -268,6 +274,7 @@ def _channel_input(n, seed, scale=1.0, kind="randn"):
         return x.numpy()
     x = (rng.standard_normal(n) * scale).astype(np.float32)
     x[5:9] = x[4]                    # ties
+    x[9:13] = -0.0                   # negative zeros: |x| is +0, as the kernels' bits say
     x[256:300] = 0.0                 # a run of zeros (a whole block at n >= 512)
     if n > 768:
         x[512:768] = 0.0

@@ -227,7 +227,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        f"sys.path.insert(0, {str(ROOT)!r}); import chip_smoke\n"
+        f"sys.path.insert(0, {str(ROOT)!r}); import chip_smoke, channel_cases\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))"
         " or m == 'repro']\n"
         "assert not bad, bad\n"
@@ -236,7 +236,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     env = {"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
            "HOME": str(pathlib.Path.home()), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], env=env, check=True, cwd=ROOT)
-    for path in [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+                 ROOT / "channel_cases.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import repro.", "from repro.", "import repro ",
