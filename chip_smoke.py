@@ -40,14 +40,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    faults (a scale read from the wrong token slot; the pool dequantized
    without rounding to q's dtype where that moves the output beyond the
    tolerance, else every scale read from the wrong kv head; the last live
-   page dropped) must land outside it. ``int8_encode`` bitwise equal to its
-   plain version (q and scale) at the pool writes (rows of 64: a decode
-   step's, and the int8 main path's suffix round's) and at the
-   embedding leaf (205,520,896 elements, rows of 256), with a planted fault
-   (divisor 128). Times as in 3; the library call is
-   ``scaled_dot_product_attention`` over the K/V dequantized beforehand.
-   ``paged_decode_int8``'s launch is printed and its rows are held alone
-   against the batch (bitwise) at the path shape, as in 3;
+   page dropped) must land outside it. ``kv_write_int8`` (one layer's int8
+   pool write: K and V quantized per token per kv head, q and scale stored
+   in their page slots) bitwise equal to its plain version on every plane
+   outside scratch page 0 (dead decode rows may collide there, in no defined
+   order) at a decode step's write (8 slots x 32 kv heads, hd 64, bf16), at
+   the int8 main path's suffix round, on wrapped rings with dead rows on
+   page 0 (float32, hd 32), with a row of length 0, and on rows longer than
+   their rings; planted faults (the slot off by one, the scale divided by
+   128) must differ. The first two are timed. ``int8_encode`` (the
+   flat encoder, ``ops.int8_encode_leaf``) bitwise equal to its plain
+   version (q and scale) at the embedding leaf (205,520,896 elements, rows
+   of 256), with a planted fault (divisor 128). Times as in 3; the library
+   call is ``scaled_dot_product_attention`` over the K/V dequantized
+   beforehand (none for the two quantizers). ``paged_decode_int8``'s launch
+   is printed and its rows are held alone against the batch (bitwise) at
+   the path shape, as in 3;
 3c. ring kernels: ``paged_decode_ring`` (dead pages skipped) and
    ``swa_decode`` (every slot) against their plain versions and BITWISE
    against each other (the former at every page of 64-512 keys; the table
@@ -94,15 +102,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens. Checks every request's budget, swapped-in == swapped-out pages
    > 0, no re-prefill of a swapped slot (prefill tokens == lookup tokens -
    hit tokens), more prefill without the tier, no swap entry left on the
-   tier, cold and suffix dispatches, every int8 kernel launched, and
-   kernel-vs-plain logits on an int8 cache (with planted faults). Prints,
+   tier, cold and suffix dispatches, every int8 kernel launched, no
+   ``int8_encode`` launch, each decode step's pool written by exactly
+   n_layers (24) ``kv_write_int8`` launches, and kernel-vs-plain logits on
+   an int8 cache (with planted faults). Prints,
    without a gate, a second tier / no-tier pair (alternating with the
    first), the same trace over an ample int8 pool and an fp pool (token
    agreement, pool bytes per token, resident sequences at equal bytes),
    each run's throughput/TTFT/latency, and the int8 decode step's host
    wall, device time, launches and idle share. The kernels line's
-   ``int8_encode`` row is the decode step's pool write (256 rows of 64),
-   the shape of almost all its launches;
+   ``kv_write_int8`` row is the decode step's pool write (8 x 32 head rows
+   of 64), the shape of almost all its launches; ``int8_encode``'s is the
+   embedding leaf's, and its launches are 0: no main path runs the flat
+   encoder any more;
 5c. ring main path: stablelm-1.6b at its published widths over 4 slots of
    4096-slot rings (window 4096, 3.2 GB), chunked prefill, prompts of
    6144/5000/2048/700/300/96 tokens x 32: budgets, finite logits,
@@ -144,7 +156,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    parameters must agree; last, a second, untimed run of the same
    configuration and seed logs its first sync's share of blocks whose k-th
    magnitude is tied at the embedding leaves (embed.tok, embed.unembed);
-8. a ``{"kernels": [...]}`` line (twelve kernels: launches from the fp
+8. a ``{"kernels": [...]}`` line (thirteen kernels: launches from the fp
    main path, the int8 main path, the ring main path (``swa_decode``'s from
    its paged-decode-off run, at the shape 3c times) and the training run),
    then ``{"ok": true, "device": {...}}`` last.
@@ -187,6 +199,7 @@ REPLACES = {
     "paged_decode_int8": "src/repro/kernels/paged_decode.py:208",
     "suffix_prefill_int8": "src/repro/kernels/flash_suffix_prefill.py:152",
     "int8_encode": "src/repro/kernels/quantize.py:74",
+    "kv_write_int8": "src/repro/kernels/quantize.py:74",
     "int8_roundtrip": "src/repro/kernels/quantize.py:96",
     "topk_sparsify": "src/repro/kernels/topk_compress.py:50",
     "sq_norm": "src/repro/kernels/dp_clip.py:36",
@@ -201,6 +214,7 @@ SOURCES = {
     "paged_decode_int8": "src/repro_torch/csrc/paged_decode.cu",
     "suffix_prefill_int8": "src/repro_torch/csrc/flash_suffix_prefill.cu",
     "int8_encode": "src/repro_torch/csrc/quantize.cu",
+    "kv_write_int8": "src/repro_torch/csrc/quantize.cu",
     "int8_roundtrip": "src/repro_torch/csrc/quantize.cu",
     "topk_sparsify": "src/repro_torch/csrc/topk_compress.cu",
     "sq_norm": "src/repro_torch/csrc/dp_clip.cu",
@@ -210,8 +224,9 @@ SOURCES = {
 }
 SERVING = ("paged_decode", "flash_prefill", "suffix_prefill")
 # the int8 serving path: cold prefill attends fp k/v (flash_prefill), every
-# pool write is quantized (int8_encode), decode and suffix read int8 pages
-SERVING_INT8 = ("flash_prefill", "paged_decode_int8", "suffix_prefill_int8", "int8_encode")
+# pool write is one kv_write_int8 launch per layer, decode and suffix read
+# int8 pages
+SERVING_INT8 = ("flash_prefill", "paged_decode_int8", "suffix_prefill_int8", "kv_write_int8")
 CHANNEL = ("int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise")
 FP32_FLOPS = 67e12             # H100 SXM fp32 peak outside the tensor cores
 # The DP norm, kernel vs plain: both sum in fp32 in other orders (the
@@ -443,21 +458,60 @@ def _suffix_no_round(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_s
     return out.to(q.dtype)
 
 
+# The int8 pool write's planted faults (phase 3b).
+def _write_slot_shift(pool, k, v, table, starts, lengths=None):
+    """Every token written one ring slot on."""
+    from repro_torch.kernels import ref
+
+    ref.kv_write_int8_ref(pool, k, v, table, starts + 1, lengths)
+
+
+def _write_scale_128(pool, k, v, table, starts, lengths=None):
+    """Every scale max|x| / 128 instead of / 127."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    def quant(x):
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1)
+        scale = (amax / amax.new_tensor(128.0)).clamp(min=1e-12)
+        return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
+
+    saved, ref.kv_quant_ref = ref.kv_quant_ref, quant
+    try:
+        ref.kv_write_int8_ref(pool, k, v, table, starts, lengths)
+    finally:
+        ref.kv_quant_ref = saved
+
+
+def _live_writes(starts, lengths, cap, page):
+    """(live tokens, distinct (row, table entry) pairs they land on) of a
+    pool write; ``lengths`` None: one token per row."""
+    live, pages = 0, set()
+    for r, start in enumerate(starts):
+        n = 1 if lengths is None else lengths[r]
+        for j in range(max(0, n - cap), n):
+            live += 1
+            pages.add((r, (start + j) % cap // page))
+    return live, len(pages)
+
+
 @contextlib.contextmanager
 def plain_kernels(**swap):
     """Route the model's attention (fp or int8 pools) and the int8 pool
     writes through the plain versions, on whatever device the tensors are:
     the reference run of the logit comparison. ``swap`` replaces some of
     them (``paged_decode=``, ``flash_prefill=``, ``suffix_prefill=``,
-    ``kv_quant=``, ``ring_decode=``), e.g. with a planted fault."""
+    ``kv_write=``, ``ring_decode=``), e.g. with a planted fault."""
     from repro_torch.kernels import ops, ref
 
     names = {"paged_decode": "paged_decode_attention",
              "flash_prefill": "flash_prefill_attention",
              "suffix_prefill": "suffix_prefill_attention",
-             "kv_quant": "kv_quant", "ring_decode": "swa_decode_attention"}
+             "kv_write": "kv_write_int8", "ring_decode": "swa_decode_attention"}
     plain = {"paged_decode": _plain_decode, "flash_prefill": ref.flash_prefill_ref,
-             "suffix_prefill": _plain_suffix, "kv_quant": ref.kv_quant_ref,
+             "suffix_prefill": _plain_suffix, "kv_write": ref.kv_write_int8_ref,
              "ring_decode": _plain_ring, **swap}
     saved = {k: getattr(ops, attr) for k, attr in names.items()}
     for k, attr in names.items():
@@ -885,14 +939,118 @@ def _ring_prefill_row(smi, gen, path_row):
 
 
 # ----------------------------------------------------------------- phase 3b
+def _pool_write_rows(smi, gen):
+    """Phase 3b's pool-write cases: ``kv_write_int8`` (one layer of
+    stablelm-1.6b's int8 pool: Hkv 32, page 16, 225 pages as in the int8
+    trace's ample pool) against its plain version, bitwise on every plane outside
+    scratch page 0 (where dead decode rows may collide, in no defined
+    order), and two planted faults that must differ (the slot off by one,
+    the scale divided by 128); the decode write and the suffix round also
+    timed. Returns (rows of the two timed cases by label, each case's max
+    difference from the plain version)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantize import kv_write_int8
+    from repro_torch.launch.engine import bucket_length
+
+    scfg = get_config("stablelm-1.6b")
+    hkv, hd, page, num_pages = scfg.n_kv_heads, scfg.resolved_head_dim, 16, 225
+    _, hit_reqs = _int8_path_requests(scfg.vocab_size)
+    suf_lens = [len(r.prompt) - 256 for r in hit_reqs]
+    i32 = dict(dtype=torch.int32, device=DEVICE)
+    # (label, dtype, hd, table width, pages per row (shared), starts, lengths,
+    # S): lengths None is a decode step's one token per row at pos = starts
+    pos = [100 + 40 * r for r in range(8)]
+    cases = [
+        ("decode write 8x32 bf16", torch.bfloat16, hd, 28, ([p // page + 1 for p in pos], 0),
+         pos, None, 1),
+        (f"suffix write {sum(suf_lens)}x32 bf16", torch.bfloat16, hd, 28,
+         ([-(-(256 + n) // page) for n in suf_lens], 16), [256] * 8, suf_lens,
+         bucket_length(max(suf_lens))),
+        ("decode write, wrapped rings and 2 dead rows on page 0, f32 hd 32", torch.float32, 32,
+         4, ([4] * 6 + [0, 0], 0), [64, 70, 127, 200, 5, 63, 9, 9], None, 1),
+        ("wrapped rings (cap 64) and a row of length 0", torch.bfloat16, hd, 4, ([4] * 4, 0),
+         [40, 50, 63, 7], [64, 30, 2, 0], 64),
+        ("rows longer than their rings (cap 32)", torch.bfloat16, hd, 2, ([2] * 2, 0), [3, 0],
+         [64, 45], 64),
+    ]
+
+    def planes(pool):
+        return {key: t.clone() for key, t in pool.items()}
+
+    def differ(a, b):
+        """max |a - b| over the q and scale planes outside page 0 (0: bitwise
+        equal there)."""
+        return max((a[key][1:].float() - b[key][1:].float()).abs().max().item()
+                   for key in ("k", "v", "ks", "vs"))
+
+    write_rows, write_errs = {}, []
+    for what, dt, hd_c, t_w, (live_pages, shared), starts_l, lens_l, s_len in cases:
+        n = len(starts_l)
+        table = _table(gen, live_pages, t_w, num_pages, shared=shared).to(DEVICE)
+        starts = torch.tensor(starts_l, **i32)
+        lengths = None if lens_l is None else torch.tensor(lens_l, **i32)
+        k = torch.randn(n, s_len, hkv, hd_c, generator=gen).to(DEVICE, dt)
+        v = torch.randn(n, s_len, hkv, hd_c, generator=gen).to(DEVICE, dt)
+        shape = (num_pages, page, hkv, hd_c)
+        pool = {"k": torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8),
+                "v": torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8),
+                "ks": torch.rand(shape[:-1], generator=gen),
+                "vs": torch.rand(shape[:-1], generator=gen)}
+        pool = {key: t.to(DEVICE) for key, t in pool.items()}
+        args = (k, v, table, starts, lengths)
+        got, want = planes(pool), planes(pool)
+        kv_write_int8(got, *args)
+        ref.kv_write_int8_ref(want, *args)
+        e = differ(got, want)
+        write_errs.append(e)
+        expect(e == 0, f"kv_write_int8 {what}: kernel differs from the plain version ({e})")
+        msg = (f"[int8] kv_write_int8 {what}: q and scale planes bitwise equal outside page 0 "
+               f"{e == 0}")
+        for fname, fault in (("slot off by one", _write_slot_shift),
+                             ("scale divided by 128", _write_scale_128)):
+            bad = planes(pool)
+            fault(bad, *args)
+            fe = differ(got, bad)
+            expect(fe > 0, f"kv_write_int8 {what}: planted fault '{fname}' not caught")
+            msg += f"; planted fault '{fname}' differs {fe > 0} ({fe:.3e})"
+            del bad
+        log(msg)
+        if what.startswith(("decode write 8", "suffix write")):
+            ms, wall = timed_ms(lambda: kv_write_int8(got, *args))
+            n_new = sum(c for c, _ in LAST_KERNELS.values())
+            plain = planes(pool)
+            live, pages_read = _live_writes(starts_l, lens_l, t_w * page, page)
+            write_rows[what] = dict(
+                max_abs_err=e, ms=ms, wrapper_ms=wall,
+                plain_ms=timed_ms(lambda: ref.kv_write_int8_ref(plain, *args), iters=5)[0],
+                library_ms=None,
+                # the live tokens' k and v read once, their q and f32 scales
+                # written once; starts (and lengths), and one table entry per
+                # page the live tokens land on
+                bytes=live * hkv * 2 * (hd_c * k.element_size() + hd_c + 4)
+                + 4 * n * (1 if lens_l is None else 2) + 4 * pages_read,
+                flops=3 * 2 * live * hkv * hd_c,
+            )
+            log(f"[int8] pool write {what} ({smi}): kv_write_int8 {n_new:.0f} launch, device "
+                f"ms {ms:.4f}, wall {wall:.4f} ms")
+            del plain
+        del got, want, pool, k, v
+
+    return write_rows, write_errs
+
+
 def phase_kernels_int8(smi):
-    """The int8-pool decode and suffix kernels and the int8 encoder against
-    their plain versions, at the serving path's shapes, a GQA shape and in
-    float32. The attention kernels must also be BITWISE equal to the fp
-    kernels over the dequantized pool. Planted faults: a scale read from the
-    wrong token slot; the pool dequantized without rounding to q's dtype
-    (where that moves the output beyond the tolerance), else every scale
-    read from the wrong kv head; the last live page dropped."""
+    """The int8-pool decode and suffix kernels, the int8 pool write and the
+    flat int8 encoder against their plain versions, at the serving path's
+    shapes, a GQA shape and in float32. The attention kernels must also be
+    BITWISE equal to the fp kernels over the dequantized pool. Planted
+    faults: a scale read from the wrong token slot; the pool dequantized
+    without rounding to q's dtype (where that moves the output beyond the
+    tolerance), else every scale read from the wrong kv head; the last live
+    page dropped."""
     import torch
     import torch.nn.functional as F
 
@@ -1039,71 +1197,61 @@ def phase_kernels_int8(smi):
         )
         del kg, vg, kc, vc
 
-    # --- int8_encode: the pool writes (a decode step: 8 slots x 32 kv heads;
-    # the int8 main path's suffix round: its hit prompts' suffix tokens x 32
-    # kv heads; rows of hd 64, bf16) and the embedding leaf in rows of 256
-    # (fp32), against the plain version, with a planted fault (the scale
-    # divided by 128)
+    write_rows, write_errs = _pool_write_rows(smi, gen)
+
+    # --- int8_encode, the flat encoder (``ops.int8_encode_leaf``), at the
+    # embedding leaf in rows of 256 (fp32), with a planted fault (divisor 128)
     def enc_fault(x, r):
         xf = x.reshape(-1, r).float()
         amax = xf.abs().amax(dim=1)
         sc = (amax / amax.new_tensor(128.0)).clamp(min=1e-12)
         return torch.round(xf / sc[:, None]).clamp(-127, 127).to(torch.int8), sc
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.quantize import int8_encode
 
-    scfg = get_config("stablelm-1.6b")
-    _, hit_reqs = _int8_path_requests(scfg.vocab_size)
-    suf_rows = sum(len(r.prompt) - 256 for r in hit_reqs) * scfg.n_kv_heads
-    cases = [("decode write 256x64 bf16", torch.randn(8 * 32, 64, generator=gen), 64,
-              torch.bfloat16),
-             (f"suffix write {suf_rows}x64 bf16", torch.randn(suf_rows, 64, generator=gen), 64,
-              torch.bfloat16),
-             ("embedding leaf 802816x256 fp32", None, 256, torch.float32)]
-    enc_rows = {}
-    for what, x, r, dt in cases:
-        if x is None:
-            x = torch.randn(100352 * 2048, generator=torch.Generator(device=DEVICE).manual_seed(4),
-                            device=DEVICE) * 1e-3
-        x = x.to(DEVICE, dt)
-        got = int8_encode(x, r)
-        want = ref.int8_encode_ref(x.reshape(-1, r))
-        fq, fs = enc_fault(x, r)
-        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        caught = not (torch.equal(got[0], fq) and torch.equal(got[1], fs))
-        expect(same, f"int8_encode {what}: kernel differs from the plain version")
-        expect(caught, f"int8_encode {what}: planted fault 'divisor 128' not caught")
-        e = max((got[0].int() - want[0].int()).abs().max().item(),
-                (got[1] - want[1]).abs().max().item())
-        log(f"[int8] int8_encode {what}: q and scale bitwise equal {same}, max_abs_err {e:.3e}; "
-            f"planted fault 'divisor 128' differs: {caught}")
-        n_el = x.numel()
-        ms, wall = timed_ms(lambda: int8_encode(x, r))
-        enc_rows[what] = dict(
-            max_abs_err=e, ms=ms, wrapper_ms=wall,
-            plain_ms=timed_ms(lambda: ref.int8_encode_ref(x.reshape(-1, r)), iters=5)[0],
-            library_ms=None,
-            # x read once, q and one f32 scale per row written once
-            bytes=n_el * x.element_size() + n_el + 4 * (n_el // r),
-            flops=3 * n_el,
-        )
-        del x, got, want, fq, fs
+    what, r = "embedding leaf 802816x256 fp32", 256
+    x = torch.randn(100352 * 2048, generator=torch.Generator(device=DEVICE).manual_seed(4),
+                    device=DEVICE) * 1e-3
+    got = int8_encode(x)
+    want = ref.int8_encode_ref(x.reshape(-1, r))
+    fq, fs = enc_fault(x, r)
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    caught = not (torch.equal(got[0], fq) and torch.equal(got[1], fs))
+    expect(same, f"int8_encode {what}: kernel differs from the plain version")
+    expect(caught, f"int8_encode {what}: planted fault 'divisor 128' not caught")
+    e = max((got[0].int() - want[0].int()).abs().max().item(),
+            (got[1] - want[1]).abs().max().item())
+    log(f"[int8] int8_encode {what}: q and scale bitwise equal {same}, max_abs_err {e:.3e}; "
+        f"planted fault 'divisor 128' differs: {caught}")
+    del got, want, fq, fs
+    n_el = x.numel()
+    ms, wall = timed_ms(lambda: int8_encode(x))
+    rows["int8_encode"] = dict(
+        max_abs_err=e, ms=ms, wrapper_ms=wall,
+        plain_ms=timed_ms(lambda: ref.int8_encode_ref(x.reshape(-1, r)), iters=5)[0],
+        library_ms=None,
+        # x read once, q and one f32 scale per row written once
+        bytes=n_el * x.element_size() + n_el + 4 * (n_el // r),
+        flops=3 * n_el,
+    )
+    del x
     torch.cuda.empty_cache()
-    for what, r in [*((k, rows[k]) for k in ("paged_decode_int8", "suffix_prefill_int8")),
-                    *(("int8_encode " + k, v) for k, v in enc_rows.items())]:
+    named = [*((k, rows[k]) for k in ("paged_decode_int8", "suffix_prefill_int8")),
+             ("int8_encode " + what, rows["int8_encode"]),
+             *(("kv_write_int8 " + k, v) for k, v in write_rows.items())]
+    for what, r in named:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / (FP32_FLOPS if what.startswith("int8_encode") else BF16_FLOPS) * 1e3
+        fp32 = what.startswith(("int8_encode", "kv_write_int8"))
+        t_ops = r["flops"] / (FP32_FLOPS if fp32 else BF16_FLOPS) * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[int8] {what} ({smi}): kernel device ms {r['ms']:.4f} (wrapper wall "
             f"{r['wrapper_ms']:.4f}) plain_ms {r['plain_ms']:.4f} library_ms {lib} bound_ms "
-            f"{r['bound_ms']:.5f} ({r['bound_by']}: {r['bytes'] / 1e6:.3f} MB)")
+            f"{r['bound_ms']:.6f} ({r['bound_by']}: {r['bytes']} B)")
     # the kernels line carries the decode step's pool write, the shape of
-    # almost every main-path launch; the other two shapes are logged above
-    rows["int8_encode"] = dict(enc_rows["decode write 256x64 bf16"], max_abs_err=max(
-        r["max_abs_err"] for r in enc_rows.values()))
+    # almost every main-path launch; the suffix write is logged above
+    rows["kv_write_int8"] = dict(write_rows["decode write 8x32 bf16"], max_abs_err=max(write_errs))
     return rows
 
 
@@ -1538,9 +1686,12 @@ def _kernel_rows(prof):
 def _profile_decode(eng, smi, n=5, label="profile"):
     """Host wall time and device time of one batched decode step (all the
     engine's slots, its cache as the trace left it), and the kernels it
-    launches."""
+    launches. Returns the port's kernel launches in one step, by entry
+    point (the wrappers' counts; nonzero ones only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
 
     feed = torch.zeros((eng.num_slots, 1), dtype=torch.int32, device=DEVICE)
 
@@ -1548,8 +1699,10 @@ def _profile_decode(eng, smi, n=5, label="profile"):
         eng.model.decode(eng.params, eng.cache, feed, window=eng.window,
                          paged=eng.paged_decode)
 
+    ops.reset_launches()
     step()
     torch.cuda.synchronize()
+    per_step = {k: c for k, c in ops.LAUNCHES.items() if c}
     t0 = time.perf_counter()
     for _ in range(n):
         step()
@@ -1562,15 +1715,17 @@ def _profile_decode(eng, smi, n=5, label="profile"):
     events = _kernel_rows(prof)
     if not events:
         log(f"[{label}] {smi}: decode step host wall {host_ms:.2f} ms; device time not "
-            "measured (the profiler saw no kernels)")
-        return
+            f"measured (the profiler saw no kernels); the port's kernels per step {per_step}")
+        return per_step
     dev_ms = sum(e.self_device_time_total for e in events) / n / 1e3
     launches = sum(e.count for e in events) / n
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
     log(f"[{label}] {smi}: decode step host wall {host_ms:.2f} ms, device time {dev_ms:.3f} ms "
         f"in {launches:.0f} kernel launches, device idle share {1 - dev_ms / host_ms:.3f}; "
         "top: " + "; ".join(f"{e.key[:40]} x{e.count // n} {e.self_device_time_total / n / 1e3:.3f}"
-                            " ms" for e in top))
+                            " ms" for e in top)
+        + f"; the port's kernels per step {per_step}")
+    return per_step
 
 
 def _finite_checked(model, finite: list):
@@ -1637,6 +1792,8 @@ def phase_main_path(smi):
           f"dispatch split not exercised: {ps}")
     check(ps["prefix_hit_rate"] > 0, "no prefix hit")
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    check(ops.LAUNCHES["kv_write_int8"] == ops.LAUNCHES["int8_encode"] == 0,
+          f"the fp trace ran an int8 pool write: {dict(ops.LAUNCHES)}")
     tokens = sum(len(o.tokens) for o in outs)
     ttft = float(np.percentile([o.ttft for o in outs], 50))
     lat = float(np.percentile([o.latency for o in outs], 50))
@@ -1767,8 +1924,13 @@ def phase_main_path_int8(smi):
           f"dispatch split not exercised: {ps}")
     check(all(launches[k] > 0 for k in SERVING_INT8), f"an int8 kernel never launched: "
                                                       f"{launches}")
-    _profile_decode(eng, smi, label="profile int8")
-    int8_launches = {k: launches[k] for k in SERVING_INT8 if k != "flash_prefill"}
+    check(launches["int8_encode"] == 0, f"the flat encoder ran on the int8 trace: {launches}")
+    per_step = _profile_decode(eng, smi, label="profile int8")
+    check(per_step.get("kv_write_int8") == cfg.n_layers and "int8_encode" not in per_step,
+          f"an int8 decode step must write the pool once per layer ({cfg.n_layers}) through "
+          f"kv_write_int8 and never launch int8_encode: {per_step}")
+    int8_launches = {k: launches[k] for k in (*SERVING_INT8, "int8_encode")
+                     if k != "flash_prefill"}
     # the tier's hooks make a reference cycle (engine -> prefix index ->
     # engine): collect it, or its pool and parameters outlive the phase
     del eng

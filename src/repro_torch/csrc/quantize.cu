@@ -1,5 +1,7 @@
 // Per-row symmetric int8: quantize -> dequantize of a flat fp32 tensor
-// (int8_roundtrip), and the encoder that keeps (q, scale) (int8_encode).
+// (int8_roundtrip), the encoder that keeps (q, scale) (int8_encode), and the
+// int8 KV pool's write, which quantizes K and V and stores q and scale in
+// their page slots (kv_write_int8).
 //
 // Replaces the TPU kernel src/repro/kernels/quantize.py::int8_roundtrip
 // (body _roundtrip_kernel): each 256-element block gets the scale
@@ -49,26 +51,25 @@ int8_roundtrip_kernel(const float* __restrict__ x, float* __restrict__ out, long
 }
 
 // Replaces the TPU kernel src/repro/kernels/quantize.py::int8_encode (body
-// _encode_kernel), over rows of any R in {32, 64, 128, 256}: R = 256 is the
-// uplink leaf's block, R = hd the int8 KV pool's row (one scale per token
-// slot per kv head, the reference's kv_quant). Same numerics as above, so q
-// and scale are bitwise the plain version's. The input is fp32 or bf16
-// (widened exactly); elements at flat index >= n count as zeros (a ragged
-// last row) and their q is written as 0.
+// _encode_kernel) at the uplink leaf: rows of BLOCK = 256 elements, the
+// int8 wire form's blocks (the int8 KV pool's rows go through
+// kv_write_int8 below). Same numerics as above, so q and scale are bitwise
+// the plain version's. The input is fp32 or bf16 (widened exactly);
+// elements at flat index >= n count as zeros (a ragged last row) and their
+// q is written as 0.
 //
 // What bounds it: bytes (4 or 2 read, 1 written per element, 4 per row).
-// One warp per row, each lane holding R/32 elements in registers, the row
-// max by five butterfly shuffles (max is exact in any order): rows of 64
-// (the pool write) would leave most of a 256-thread block idle otherwise.
-template <typename T, int PER>
+// One warp per row, each lane holding 8 elements in registers, the row max
+// by five butterfly shuffles (max is exact in any order).
+template <typename T>
 __global__ void __launch_bounds__(BLOCK)
 int8_encode_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
                    long long rows, long long n) {
-  constexpr int R = 32 * PER;
+  constexpr int PER = BLOCK / 32;
   const long long row = (long long)blockIdx.x * (BLOCK / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // the whole warp leaves together
-  const long long base = row * R;
+  const long long base = row * BLOCK;
   float v[PER];
   float amax = 0.0f;
 #pragma unroll
@@ -88,21 +89,135 @@ int8_encode_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __res
 }
 
 template <typename T>
-int encode(const void* x, void* q, void* scale, long long rows, int R, long long n,
+int encode(const void* x, void* q, void* scale, long long rows, long long n,
            cudaStream_t stream) {
-  if (rows <= 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((rows + BLOCK / 32 - 1) / (BLOCK / 32));
-  const T* xs = (const T*)x;
-  int8_t* qs = (int8_t*)q;
-  float* ss = (float*)scale;
-  switch (R) {
-    case 32: int8_encode_kernel<T, 1><<<blocks, BLOCK, 0, stream>>>(xs, qs, ss, rows, n); break;
-    case 64: int8_encode_kernel<T, 2><<<blocks, BLOCK, 0, stream>>>(xs, qs, ss, rows, n); break;
-    case 128: int8_encode_kernel<T, 4><<<blocks, BLOCK, 0, stream>>>(xs, qs, ss, rows, n); break;
-    case 256: int8_encode_kernel<T, 8><<<blocks, BLOCK, 0, stream>>>(xs, qs, ss, rows, n); break;
-    default: return -1;
+  if (rows > 0) {
+    const unsigned blocks = (unsigned)((rows + BLOCK / 32 - 1) / (BLOCK / 32));
+    int8_encode_kernel<T><<<blocks, BLOCK, 0, stream>>>((const T*)x, (int8_t*)q, (float*)scale,
+                                                        rows, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The int8 KV pool's write: one launch per layer quantizes K and V and stores
+// q and scale in their page slots. Replaces the TPU kernel
+// src/repro/kernels/quantize.py::int8_encode (body _encode_kernel) at the
+// writes of the reference's int8 pool: the decode write
+// (src/repro/models/attention.py:497-516, one token per row at its pos) and
+// the masked requantization of the prefill write
+// (src/repro/models/transformer.py:588-603, which leaves fresh (q, scale)
+// exactly in the slots the round's tokens occupy; only those are written
+// here, which leaves the same pool). Per (row r, token j, kv head h, plane K
+// or V): s = max(max|x| / 127, 1e-12), q = clip(rint(x / s), +-127), with
+// the numerics of the kernels above (__fdiv_rn, the floor before the
+// division, rintf, then clip): q and s are bitwise the plain version's.
+//
+// Token j of row r is live iff j < lengths[r] and j >= lengths[r] - cap
+// (cap = T * page: a row longer than its ring keeps its last cap tokens, so
+// no two live tokens share a slot); lengths == nullptr means one token per
+// row (the decode step, where starts is pos). A live token goes to ring slot
+// (starts[r] + j) mod cap, i.e. page table[r][slot / page], offset
+// slot % page. All of it is worked out here: the host reads nothing back.
+//
+// What bounds it on an H100: the launch. A decode step writes 8 x 32 head
+// rows of K and of V (65,536 B read, 34,816 B written: ~0.00003 ms at the
+// HBM rate), so the design is one launch per layer for both planes with no
+// index tensors made on the host. One group of LANES = HD * sizeof(T) / 16
+// lanes per head row (8 for a bf16 row of 64): each lane makes one 16-byte
+// load and one store of its int8 values; the row max is a xor butterfly over
+// the magnitudes' uint32 bits inside the group (exact in any order, as in
+// channel_block.cuh), and lane 0 of the group writes the scale. No shared
+// memory and no barrier; a group leaves as a whole (its row is out of range
+// or its token dead), so each shuffle names only its own group's lanes.
+struct KvWrite {
+  const void* k;        // (n, S, Hkv, HD) elements, token rows contiguous
+  const void* v;
+  const int* table;     // (n, T)
+  const int* starts;    // (n,)
+  const int* lengths;   // (n,) or nullptr: one token per row
+  int8_t* kq;           // (P, page, Hkv, HD)
+  int8_t* vq;
+  float* ks;            // (P, page, Hkv)
+  float* vs;
+  long long k_row, k_tok, v_row, v_tok;  // strides in elements
+  long long items;      // n * S * 2 * Hkv head rows
+  int s, hkv, t, page;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BLOCK) kv_write_int8_kernel(const KvWrite a) {
+  constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte load
+  constexpr int LANES = HD / VEC;           // lanes per head row
+  static_assert(LANES >= 4 && LANES <= 32 && (LANES & (LANES - 1)) == 0,
+                "a head row is a power-of-two group of lanes within a warp");
+  const long long item = ((long long)blockIdx.x * BLOCK + threadIdx.x) / LANES;
+  if (item >= a.items) return;  // the whole group leaves together
+  // item = ((r * S + j) * 2 + plane) * Hkv + h: a token's heads, K then V,
+  // are neighbouring groups and read neighbouring bytes
+  const int h = (int)(item % a.hkv);
+  const long long tok2 = item / a.hkv;
+  const int plane = (int)(tok2 & 1);
+  const long long tok = tok2 >> 1;
+  const int j = (int)(tok % a.s);
+  const long long r = tok / a.s;
+  const int len = a.lengths ? a.lengths[r] : 1;
+  const int cap = a.t * a.page;
+  if (j >= len || j < len - cap) return;  // dead token: nothing stored
+  const long long slot = ((long long)a.starts[r] + j) % cap;
+  const long long phys = a.table[r * a.t + slot / a.page];
+  const long long row = (phys * a.page + slot % a.page) * a.hkv + h;  // in the planes
+  const int sub = threadIdx.x & (LANES - 1);
+  const T* src = static_cast<const T*>(plane ? a.v : a.k) +
+                 r * (plane ? a.v_row : a.k_row) + j * (plane ? a.v_tok : a.k_tok) +
+                 h * HD + sub * VEC;
+  alignas(16) T raw[VEC];
+  *reinterpret_cast<uint4*>(raw) = *reinterpret_cast<const uint4*>(src);
+  float x[VEC];
+  unsigned mx = 0;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    x[e] = repro::to_f(raw[e]);
+    mx = max(mx, __float_as_uint(fabsf(x[e])));
+  }
+  const int lane = threadIdx.x & 31;
+  const unsigned group =
+      LANES == 32 ? 0xffffffffu : ((1u << (LANES & 31)) - 1) << (lane & ~(LANES - 1));
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    mx = max(mx, __shfl_xor_sync(group, mx, off));
+  const float s = fmaxf(__fdiv_rn(__uint_as_float(mx), 127.0f), 1e-12f);
+  unsigned w[VEC / 4] = {};
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const int q = (int)fminf(fmaxf(rintf(__fdiv_rn(x[e], s)), -127.0f), 127.0f);
+    w[e / 4] |= (unsigned)(q & 0xff) << (8 * (e & 3));
+  }
+  int8_t* dst = (plane ? a.vq : a.kq) + row * HD + sub * VEC;
+  if constexpr (VEC == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<unsigned*>(dst) = w[0];
+  }
+  if (sub == 0) (plane ? a.vs : a.ks)[row] = s;
+}
+
+template <typename T, int HD>
+int launch_write(const KvWrite& a, cudaStream_t stream) {
+  constexpr int LANES = HD * (int)sizeof(T) / 16;
+  const long long threads = a.items * LANES;
+  kv_write_int8_kernel<T, HD>
+      <<<(unsigned)((threads + BLOCK - 1) / BLOCK), BLOCK, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int write(const KvWrite& a, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch_write<T, 32>(a, stream);
+    case 64: return launch_write<T, 64>(a, stream);
+    case 128: return launch_write<T, 128>(a, stream);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -121,14 +236,37 @@ extern "C" int int8_roundtrip(const void* x, void* out, long long n, void* strea
   return (int)cudaGetLastError();
 }
 
-// x: rows x R contiguous elements of dtype 0 = float32 / 1 = bfloat16 (the
-// first n of them real); q: rows x R int8; scale: rows float32. Returns
-// cudaGetLastError() after the launch (0 on success), or -1 for an
-// unsupported R or dtype.
-extern "C" int int8_encode(const void* x, void* q, void* scale, long long rows, int R,
-                           long long n, int dtype, void* stream) {
+// x: rows x 256 contiguous elements of dtype 0 = float32 / 1 = bfloat16
+// (the first n of them real); q: rows x 256 int8; scale: rows float32.
+// Returns cudaGetLastError() after the launch (0 on success), or -1 for an
+// unsupported dtype.
+extern "C" int int8_encode(const void* x, void* q, void* scale, long long rows, long long n,
+                           int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return encode<float>(x, q, scale, rows, R, n, s);
-  if (dtype == 1) return encode<__nv_bfloat16>(x, q, scale, rows, R, n, s);
+  if (dtype == 0) return encode<float>(x, q, scale, rows, n, s);
+  if (dtype == 1) return encode<__nv_bfloat16>(x, q, scale, rows, n, s);
   return -1;
+}
+
+// k, v: (n, S, Hkv, hd) of dtype 0 = float32 / 1 = bfloat16, each token's
+// Hkv * hd elements contiguous, rows and tokens k_row/k_tok (v_row/v_tok)
+// elements apart, every token row at a 16-byte boundary; table (n, T),
+// starts (n,), lengths (n,) or null: int32; kq, vq (P, page, Hkv, hd) int8,
+// 8-byte aligned, and ks, vs (P, page, Hkv) float32. Writes the live
+// tokens' q and scales in place. Returns cudaGetLastError() after the launch
+// (0 on success; no launch when there is nothing to write), or -1 for an
+// unsupported hd or dtype.
+extern "C" int kv_write_int8(const void* k, const void* v, const void* table,
+                             const void* starts, const void* lengths, void* kq, void* vq,
+                             void* ks, void* vs, long long k_row, long long k_tok,
+                             long long v_row, long long v_tok, int n, int s, int hkv, int hd,
+                             int t, int page, int dtype, void* stream) {
+  KvWrite a{k, v, (const int*)table, (const int*)starts, (const int*)lengths,
+            (int8_t*)kq, (int8_t*)vq, (float*)ks, (float*)vs,
+            k_row, k_tok, v_row, v_tok, (long long)n * s * 2 * hkv, s, hkv, t, page};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype != 0 && dtype != 1) return -1;
+  if (hd != 32 && hd != 64 && hd != 128) return -1;
+  if (a.items <= 0) return (int)cudaGetLastError();
+  return dtype == 0 ? write<float>(a, hd, st) : write<__nv_bfloat16>(a, hd, st);
 }

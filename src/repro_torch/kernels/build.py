@@ -38,7 +38,7 @@ LAUNCHES: dict[str, int] = {
     "paged_decode": 0, "flash_prefill": 0, "suffix_prefill": 0,
     "paged_decode_int8": 0, "suffix_prefill_int8": 0, "int8_encode": 0,
     "int8_roundtrip": 0, "topk_sparsify": 0, "sq_norm": 0, "clip_noise": 0,
-    "paged_decode_ring": 0, "swa_decode": 0,
+    "paged_decode_ring": 0, "swa_decode": 0, "kv_write_int8": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -51,13 +51,14 @@ SIGNATURES = {
     "suffix_prefill": (P,) * 8 + (I,) * 9 + (F, P),
     "paged_decode_int8": (P,) * 9 + (I,) * 9 + (F, P),
     "suffix_prefill_int8": (P,) * 10 + (I,) * 9 + (F, P),
-    "int8_encode": (P, P, P, L, I, L, I, P),
+    "int8_encode": (P, P, P, L, L, I, P),
     "int8_roundtrip": (P, P, L, P),
     "topk_sparsify": (P, P, L, I, P),
     "sq_norm": (P, P, P, P, L, I, P),
     "clip_noise": (P, P, P, P, L, F, I, P),
     "paged_decode_ring": (P,) * 6 + (I,) * 9 + (F, P),
     "swa_decode": (P,) * 6 + (I,) * 8 + (F, P),
+    "kv_write_int8": (P,) * 9 + (L,) * 4 + (I,) * 7 + (P,),
 }
 ENTRY = {
     "paged_decode": "paged_decode",
@@ -72,6 +73,7 @@ ENTRY = {
     "clip_noise": "dp_clip",
     "paged_decode_ring": "paged_decode",
     "swa_decode": "swa_decode",
+    "kv_write_int8": "quantize",
 }
 
 

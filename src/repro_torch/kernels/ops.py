@@ -89,14 +89,16 @@ def suffix_prefill_attention(
     )
 
 
-def kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 over the last axis of x (..., hd) → (q int8 (..., hd),
-    scale f32 (...)): every int8 pool write (one scale per token slot per kv
-    head) goes through the ``int8_encode`` kernel on the card."""
-    if not x.is_cuda:
-        return ref.kv_quant_ref(x)
-    q, scale = quantize.int8_encode(x.contiguous(), x.shape[-1])
-    return q.reshape(x.shape), scale.reshape(x.shape[:-1])
+def kv_write_int8(pool: dict, k: torch.Tensor, v: torch.Tensor, table_rows: torch.Tensor,
+                  starts: torch.Tensor, lengths: torch.Tensor | None = None) -> None:
+    """One layer's int8 pool write, in place: the live tokens of k/v (n, S,
+    Hkv, hd) quantized per kv head into their ring slots (starts[r] + j) mod
+    T·page through ``table_rows`` (``lengths`` None: one token per row, a
+    decode step). One ``kv_write_int8`` launch on the card."""
+    if k.is_cuda:
+        quantize.kv_write_int8(pool, k, v, table_rows, starts, lengths)
+    else:
+        ref.kv_write_int8_ref(pool, k, v, table_rows, starts, lengths)
 
 
 # ------------------------------------------------- federated uplink channel
@@ -139,7 +141,7 @@ def int8_encode_leaf(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     rows are these."""
     xf = x.contiguous()
     if xf.is_cuda:
-        q, scale = quantize.int8_encode(xf, BLOCK)
+        q, scale = quantize.int8_encode(xf)
     else:
         q, scale = ref.int8_encode_ref(ref._blocks(xf))
     return q, scale, x.numel()

@@ -177,6 +177,42 @@ def int8_encode_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return kv_quant_ref(x)
 
 
+def live_slots(table_rows: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor | None,
+               s: int, page: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where a paged ring write of S tokens per row lands: (live (n, S)
+    bool, phys, off), the live tokens' pages and offsets in row-major order.
+    Row r's token j is live iff j < lengths[r] and j >= lengths[r] − T·page
+    (a row longer than its ring keeps its last T·page tokens, so no two live
+    tokens share a slot; ``lengths`` None: one token per row) and goes to
+    logical ring slot (starts[r] + j) mod T·page of ``table_rows`` (n, T)."""
+    cap = table_rows.shape[1] * page
+    j = torch.arange(s, device=starts.device)[None, :]
+    if lengths is None:
+        live = (j < 1).expand(starts.shape[0], s)
+    else:
+        n_tok = lengths.long()[:, None]
+        live = (j < n_tok) & (j >= n_tok - cap)
+    slot = (starts.long()[:, None] + j) % cap
+    return live, table_rows.long().gather(1, slot // page)[live], (slot % page)[live]
+
+
+def kv_write_int8_ref(pool: dict, k: torch.Tensor, v: torch.Tensor, table_rows: torch.Tensor,
+                      starts: torch.Tensor, lengths: torch.Tensor | None = None) -> None:
+    """The int8 pool's write, in place: row r's live tokens of k/v (n, S,
+    Hkv, hd) (``live_slots``) quantized per kv head (``kv_quant_ref``) into
+    ``pool["k"]``/``["v"]`` (P, page, Hkv, hd) and ``["ks"]``/``["vs"]``
+    (P, page, Hkv) at their slots; ``lengths`` None: one token per row (a
+    decode step, ``starts`` = pos). Only live slots are touched, so shared
+    prefix lanes keep their bits: the pool the reference's decode write and
+    its masked requantized prefill write leave (scratch page 0 aside, where
+    dead rows may collide)."""
+    live, phys, off = live_slots(table_rows, starts, lengths, k.shape[1], pool["k"].shape[1])
+    for plane, scales, x in (("k", "ks", k), ("v", "vs", v)):
+        q, scale = kv_quant_ref(x[live])
+        pool[plane][phys, off] = q
+        pool[scales][phys, off] = scale
+
+
 def dequant_pool_ref(pool_q: torch.Tensor, scales: torch.Tensor,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """An int8 page pool (P, page, Hkv, hd) with its (P, page, Hkv) scales

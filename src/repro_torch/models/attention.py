@@ -11,16 +11,16 @@ tensor per layer shared by every slot, with page 0 reserved as scratch; a
 slot's (T,) table row maps its logical ring pages into it (capacity
 T·page). Where the reference donated the pool through ``jit``, the port
 writes it in place. An int8 pool adds one f32 scale plane per k and v
-(``ks``/``vs``, (P, page, Hkv)): every write quantizes its rows
-(``ops.kv_quant``), every read dequantizes to the model dtype in the
-kernel."""
+(``ks``/``vs``, (P, page, Hkv)): every write quantizes its rows and stores
+them in their slots in one launch per layer (``ops.kv_write_int8``), every
+read dequantizes to the model dtype in the kernel."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gather_pages_ref
+from repro_torch.kernels.ref import gather_pages_ref, live_slots
 from repro_torch.models.common import NEG_INF, default_q_chunk
 from repro_torch.models.layers import apply_rope
 
@@ -113,19 +113,6 @@ def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return gather_pages_ref(pool, table)
 
 
-def _write_slots(pool: dict, phys: torch.Tensor, off: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> None:
-    """k/v rows (m, Hkv, hd) into pool slots (phys, off), in place; an int8
-    pool takes each row quantized per kv head, q and scale."""
-    if "ks" in pool:
-        k, k_scale = ops.kv_quant(k)
-        v, v_scale = ops.kv_quant(v)
-        pool["ks"][phys, off] = k_scale
-        pool["vs"][phys, off] = v_scale
-    pool["k"][phys, off] = k
-    pool["v"][phys, off] = v
-
-
 def fill_pages_rows(
     pool: dict, k: torch.Tensor, v: torch.Tensor,
     table_rows: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
@@ -137,18 +124,15 @@ def fill_pages_rows(
     touched: no other lane of a page (shared prefix lanes included) is
     rewritten, and no two writes hit one slot (a row longer than its ring
     keeps only its last T·page tokens). So on an int8 pool only the written
-    slots are quantized, and shared prefix pages keep their bits: what the
+    slots are quantized (``ops.kv_write_int8``, which works the slots out on
+    the card), and shared prefix pages keep their bits: what the
     reference's masked requantization of whole gathered rows gives."""
-    s = k.shape[1]
-    page = pool["k"].shape[1]
-    cap = table_rows.shape[1] * page
-    j = torch.arange(s, device=k.device)[None, :]
-    lengths = lengths.long()[:, None]
-    live = (j < lengths) & (j >= lengths - cap)
-    slot = (starts.long()[:, None] + j) % cap
-    phys = table_rows.long().gather(1, slot // page)[live]
-    off = (slot % page)[live]
-    _write_slots(pool, phys, off, k[live], v[live])
+    if "ks" in pool:
+        ops.kv_write_int8(pool, k, v, table_rows, starts, lengths)
+        return
+    live, phys, off = live_slots(table_rows, starts, lengths, k.shape[1], pool["k"].shape[1])
+    pool["k"][phys, off] = k[live]
+    pool["v"][phys, off] = v[live]
 
 
 def decode_attend_paged(
@@ -165,14 +149,17 @@ def decode_attend_paged(
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     pos, table = cache["pos"], cache["table"]
-    page = cache["k"].shape[1]
-    cap = table.shape[1] * page
     q = _queries(params, x, pos[:, None], cfg)                     # (B, 1, Hkv, G, hd)
     k, v = compute_kv_for_prefill(params, x, pos[:, None], cfg)    # (B, 1, Hkv, hd)
-    slot = pos.long() % cap
-    phys = table.long().gather(1, (slot // page)[:, None])[:, 0]
-    off = slot % page
-    _write_slots(cache, phys, off, k[:, 0], v[:, 0])
+    if "ks" in cache:
+        ops.kv_write_int8(cache, k, v, table, pos)
+    else:
+        page = cache["k"].shape[1]
+        slot = pos.long() % (table.shape[1] * page)
+        phys = table.long().gather(1, (slot // page)[:, None])[:, 0]
+        off = slot % page
+        cache["k"][phys, off] = k[:, 0]
+        cache["v"][phys, off] = v[:, 0]
     out = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"], pos, table, window,
                                      k_scale=cache.get("ks"), v_scale=cache.get("vs"))
     return out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]

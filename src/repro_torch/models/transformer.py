@@ -133,7 +133,7 @@ def init_paged_cache(
     positions and one (num_slots, T) page table shared by every layer. Page
     0 is the reserved scratch page.
 
-    ``kv_dtype="int8"`` stores the pages quantized (``ops.kv_quant``'s row
+    ``kv_dtype="int8"`` stores the pages quantized (``ref.kv_quant_ref``'s row
     scheme): k/v become int8 and ``ks``/``vs`` hold one f32 scale per token
     slot per kv head, shape ``k.shape[:-1]`` (1/hd of the page bytes)."""
     if kv_dtype not in ("fp", "int8"):

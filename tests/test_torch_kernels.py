@@ -191,12 +191,17 @@ def test_cpu_tensors_take_the_plain_versions_without_a_launch():
     torch.testing.assert_close(ops.tree_sq_norm({"a": x}), ref.sq_norm_ref(x))
     torch.testing.assert_close(ops.clip_noise(x, 0.5), ref.clip_noise_ref(x, torch.tensor(0.5)))
     q8, s8 = ref.kv_quant_ref(kp)
-    torch.testing.assert_close(ops.kv_quant(kp), (q8, s8), rtol=0, atol=0)
     torch.testing.assert_close(
         ops.paged_decode_attention(q, q8, q8, pos, table, k_scale=s8, v_scale=s8),
         ref.paged_decode_int8_ref(q, q8, q8, s8, s8, pos, table), rtol=0, atol=0)
     torch.testing.assert_close(ops.int8_encode_leaf(x)[:2], ref.int8_encode_ref(ref._blocks(x)),
                                rtol=0, atol=0)
+    kv = torch.randn(table.shape[0], 1, *kp.shape[2:])    # a decode step's k/v
+    pool = {"k": q8.clone(), "v": q8.clone(), "ks": s8.clone(), "vs": s8.clone()}
+    want = {key: t.clone() for key, t in pool.items()}
+    ops.kv_write_int8(pool, kv, kv, table, pos)
+    ref.kv_write_int8_ref(want, kv, kv, table, pos)
+    torch.testing.assert_close(pool, want, rtol=0, atol=0)
     ring = (q, ref.gather_pages_ref(kp, table), ref.gather_pages_ref(vp, table))
     for paged, plain in ((True, ref.ring_paged_decode_ref), (False, ref.swa_decode_ref)):
         torch.testing.assert_close(ops.swa_decode_attention(*ring, pos, 5, paged=paged),
@@ -204,7 +209,7 @@ def test_cpu_tensors_take_the_plain_versions_without_a_launch():
     assert set(ops.LAUNCHES) == {"paged_decode", "flash_prefill", "suffix_prefill",
                                  "paged_decode_int8", "suffix_prefill_int8", "int8_encode",
                                  "int8_roundtrip", "topk_sparsify", "sq_norm", "clip_noise",
-                                 "paged_decode_ring", "swa_decode"}
+                                 "paged_decode_ring", "swa_decode", "kv_write_int8"}
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
@@ -520,18 +525,16 @@ def test_int8_kernels_match_plain_and_fp_kernels_cuda(sm90, dtype, g, hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_encode_matches_plain_version_cuda(sm90, dtype):
     """int8_encode bitwise equal to the plain version, q and scale, over
-    rows of every length it takes, at three magnitudes, and a ragged leaf."""
+    rows of 256 at three magnitudes, and a ragged leaf."""
     from repro_torch.kernels.quantize import int8_encode
 
     gen = torch.Generator().manual_seed(11)
-    for r in (32, 64, 128, 256):
-        for scale in (1e-3, 1.0, 1e3):
-            x = (torch.randn(777, r, generator=gen) * scale).to("cuda", dtype)
-            x[1] = 0
-            got = int8_encode(x, r)
-            want = ref.int8_encode_ref(x)
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-            assert torch.equal(ops.kv_quant(x.reshape(7, 111, r))[0].reshape(777, r), want[0])
+    for scale in (1e-3, 1.0, 1e3):
+        x = (torch.randn(777, 256, generator=gen) * scale).to("cuda", dtype)
+        x[1] = 0
+        got = int8_encode(x)
+        want = ref.int8_encode_ref(x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     leaf = torch.randn(256 * 40 + 77, generator=gen).cuda()
     q, s, n = ops.int8_encode_leaf(leaf)
     wq, ws = ref.int8_encode_ref(ref._blocks(leaf))
@@ -541,16 +544,20 @@ def test_int8_encode_matches_plain_version_cuda(sm90, dtype):
 def test_int8_launch_counters_cuda(sm90):
     build.reset_launches()
     q = torch.randn(2, 2, 1, 64, device="cuda")
-    kq, ks = ops.kv_quant(torch.randn(4, 16, 2, 64, device="cuda"))
+    kq, ks = ref.kv_quant_ref(torch.randn(4, 16, 2, 64, device="cuda"))
     table = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32, device="cuda")
     pos = torch.tensor([20, 3], dtype=torch.int32, device="cuda")
+    kv1 = torch.randn(2, 1, 2, 64, device="cuda")
+    ops.kv_write_int8({"k": kq, "v": kq.clone(), "ks": ks, "vs": ks.clone()}, kv1, kv1, table,
+                      pos)
     ops.paged_decode_attention(q, kq, kq, pos, table, k_scale=ks, v_scale=ks)
     qs, kv = torch.randn(2, 8, 2, 1, 64, device="cuda"), torch.randn(2, 8, 2, 64, device="cuda")
     ops.suffix_prefill_attention(qs, kv, kv, kq, kq, table, pos, prefix_width=2,
                                  pool_k_scale=ks, pool_v_scale=ks)
-    assert {k: ops.LAUNCHES[k] for k in ("int8_encode", "paged_decode_int8",
+    assert {k: ops.LAUNCHES[k] for k in ("int8_encode", "kv_write_int8", "paged_decode_int8",
                                          "suffix_prefill_int8", "paged_decode")} == {
-        "int8_encode": 1, "paged_decode_int8": 1, "suffix_prefill_int8": 1, "paged_decode": 0}
+        "int8_encode": 0, "kv_write_int8": 1, "paged_decode_int8": 1, "suffix_prefill_int8": 1,
+        "paged_decode": 0}
     with pytest.raises(TypeError, match="int8"):
         ops.paged_decode_attention(q, kq.float(), kq.float(), pos, table, k_scale=ks,
                                    v_scale=ks)

@@ -3,7 +3,7 @@
 Layers, from the quantizer up:
 
 * The row quantizer (``ref.kv_quant_ref`` / ``int8_encode_ref``,
-  ``ops.kv_quant`` / ``ops.int8_encode_leaf`` on the CPU) is held BITWISE
+  ``ops.int8_encode_leaf`` on the CPU) is held BITWISE
   against ``repro.kernels.quantize.kv_quant`` and the reference's oracle
   ``int8_encode_ref``: the same IEEE quotient max|x| / 127, half-to-even
   rounding and clip, over rows of 256 and of each head dim, including exact
@@ -102,7 +102,6 @@ def test_kv_quant_bitwise_matches_reference(r, scale):
     q2, s2 = ref.int8_encode_ref(torch.from_numpy(x))
     np.testing.assert_array_equal(q2.numpy(), np.asarray(eq))
     np.testing.assert_array_equal(s2.numpy(), np.asarray(es)[:, 0])
-    torch.testing.assert_close(ops.kv_quant(torch.from_numpy(x)), (q, s), rtol=0, atol=0)
 
 
 def test_kv_quant_bf16_and_dequant_match_reference():
@@ -246,7 +245,7 @@ def test_int8_kernel_wrappers_refuse_cpu_tensors_and_bad_pools():
     with pytest.raises(ValueError, match="CUDA"):
         suffix_prefill_int8(qs, kv, kv, pool, pool, sc, sc, table, pos, prefix_width=1)
     with pytest.raises(ValueError, match="CUDA"):
-        int8_encode(torch.zeros(4, 64), 64)
+        int8_encode(torch.zeros(4, 256))
     # the pool/scale type rules, checked before any launch
     with pytest.raises(TypeError, match="int8"):
         build.check_pool("t", q, pool.float(), pool.float(), sc, sc)
