@@ -77,6 +77,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    library call runs over the rings unrolled to position order; the
    kernels' bounds count the K and V of each row's live span (what the
    function needs), ``swa_decode``'s log line also the bytes it streams;
+3d. verify kernels: ``suffix_prefill`` and ``suffix_prefill_int8`` at the
+   speculative k-token verify's shape (8 rows of S 8, 1..5 live queries,
+   starts at every offset within a page of 16, prefixes of 64-415 tokens
+   sharing 4 pages, the engine's prefix-width bucket) against their plain
+   versions, the int8 kernel also bitwise against the fp kernel over the
+   dequantized pool; planted faults (the last prefix key or page dropped, a
+   scale from the next slot) must differ. Timed as in 3, SDPA over the same
+   keys as the library call; the bounds count the live queries only;
 4. golden: the port's engine replays the reference engine's float32 greedy
    trace (``src/repro_torch/testdata/golden_stablelm_smoke.json``) and must
    reproduce its tokens exactly;
@@ -89,6 +97,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``golden_stablelm_smoke_ring.json``: the ring engine chunked with a
    window its prompts wrap, interleaved, with paged decode off; the
    windowed paged engine; the windowed single-batch path): every token;
+4d. golden speculative: the reference's float32 speculative traces
+   (``golden_stablelm_smoke_spec.json``: the shared-prefix trace with k = 3
+   under a same-params and a foreign draft, on fp and on int8 pages): tokens,
+   finish reasons and the round counters exactly, the tokens also the
+   reference's plain engine's; the verify and the draft's kernels launched;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -96,6 +109,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    rate > 0 and that every kernel launched; re-runs a cold round, a decode
    step and a suffix round through the plain versions (and through the
    planted faults) from the kernel run's cache and compares logits;
+   EOS: the cold group again on that engine with ``eos_id`` a token the
+   greedy trace emits: every request ends at its first EOS ("eos") or its
+   budget ("length"), with the greedy trace's tokens;
+5e. speculative main path: phase 5's trace with k = 4 under a same-params
+   draft and a foreign-seed draft on fp pages, and the same-params draft on
+   int8 pages: budgets, finite logits, one verify dispatch's logits at every
+   live position against the plain path (and planted faults), no page left
+   but the prefix index's, ``spec_emitted`` = tokens - first tokens, 24
+   suffix-prefill launches per verify and suffix admission, the draft's
+   ring decode and re-sync prefill launched. Printed beside phase 5's plain
+   trace: tok/s, TTFT p50, target dispatches per token, acceptance, token
+   agreement;
+5f. sampled serving: phase 5's trace at temperature 0.8, top-k 40, top-p
+   0.95 (request r on seed 1000 + r), plain and with the same-params draft:
+   a second run and a run submitted in reverse order (other slots, other
+   neighbours) give the same tokens; greedy odd uids beside sampled even
+   ones keep the greedy trace's tokens. Printed without a gate: the plain
+   trace over 4 slots (other batch widths, whose bf16 GEMMs may round
+   otherwise). The batched sampler's law over 16384 draws of one verify
+   logit row within 0.05 total variation of softmax(filter_logits(row));
 5b. int8 main path: the same model over an int8 pool with a host tier; 8
    cold prompts of 256-384 tokens x 64 tokens in a pool tight enough that
    slots are preempted and swapped out, then 8 shared-prefix prompts x 32
@@ -158,7 +191,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    magnitude is tied at the embedding leaves (embed.tok, embed.unembed);
 8. a ``{"kernels": [...]}`` line (thirteen kernels: launches from the fp
    main path, the int8 main path, the ring main path (``swa_decode``'s from
-   its paged-decode-off run, at the shape 3c times) and the training run),
+   its paged-decode-off run, at the shape 3c times), the speculative traces
+   of 5e (the verify's suffix prefills, the draft's ring decode and re-sync
+   prefills, the int8 verify's pool writes) and the training run),
    then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -272,6 +307,9 @@ def expect(cond: bool, what: str) -> None:
 # The last sound window of ``timed_ms``: per kernel name, (launches per
 # call, device ms per call).
 LAST_KERNELS: dict[str, tuple[float, float]] = {}
+# Profiler windows per timed call at most: on an H100 two windows in a row
+# now and then held no kernel record at all (phases 3b and 6).
+TIMING_ATTEMPTS = 5
 
 
 def timed_ms(fn, iters: int = 20, bound_ms: float = 0.0) -> tuple[float, float]:
@@ -298,7 +336,8 @@ def timed_ms(fn, iters: int = 20, bound_ms: float = 0.0) -> tuple[float, float]:
     wall = start.elapsed_time(end) / iters
     cuda = torch.autograd.DeviceType.CUDA
     lost = True
-    for attempt in range(3):
+    kept = None  # the last window that held kernel records
+    for attempt in range(TIMING_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):
@@ -318,11 +357,17 @@ def timed_ms(fn, iters: int = 20, bound_ms: float = 0.0) -> tuple[float, float]:
         # now and then a few, and now and then all of them (windows of
         # cuDNN's SDPA kernels): such a window is taken again, and a call
         # whose every window is empty fails below. Some calls lost records
-        # in every window (the plain sigma = 0 clip kept 3 or 4 of 5).
+        # in every window (the plain sigma = 0 clip kept 3 or 4 of 5, or 1
+        # in a window between two empty ones): an empty last window falls
+        # back to the last window with records.
         if dev == 0:
-            log(f"[timing] the profiler saw no kernel (attempt {attempt + 1} of 3)")
+            log(f"[timing] the profiler saw no kernel (attempt {attempt + 1} of "
+                f"{TIMING_ATTEMPTS})")
+            if kept is not None:
+                rows, dev, counts = kept
             continue
         counts = {e.key: e.count for e in rows}
+        kept = (rows, dev, counts)
         per_call = dev / iters / 1e3
         lost = any(n % iters for n in counts.values()) or per_call < bound_ms
         if not lost and per_call <= 1.02 * wall:
@@ -332,9 +377,9 @@ def timed_ms(fn, iters: int = 20, bound_ms: float = 0.0) -> tuple[float, float]:
                 if e.device_type == cuda and not e.name.startswith("ProfilerStep")]
         host = [e.time_range for e in evs if e.device_type != cuda]
         t0 = min(t.start for t in host)
-        log(f"[timing] suspect profiler window (attempt {attempt + 1} of 3): device "
-            f"{per_call:.4f} ms vs wall {wall:.4f} ms and bound {bound_ms:.4f} ms per call over "
-            f"{iters} calls; "
+        log(f"[timing] suspect profiler window (attempt {attempt + 1} of {TIMING_ATTEMPTS}): "
+            f"device {per_call:.4f} ms vs wall {wall:.4f} ms and bound {bound_ms:.4f} ms per call "
+            f"over {iters} calls; "
             f"kernel records {counts}; kernel span {min(t.start for t in kern) - t0:.1f}.."
             f"{max(t.end for t in kern) - t0:.1f} us, host span 0.."
             f"{max(t.end for t in host) - t0:.1f} us")
@@ -1737,7 +1782,7 @@ def _finite_checked(model, finite: list):
     def checked(fn):
         def run(*a, **kw):
             cache, logits = fn(*a, **kw)
-            finite.append(torch.isfinite(logits[:, : model.cfg.vocab_size]).all())
+            finite.append(torch.isfinite(logits[..., : model.cfg.vocab_size]).all())
             return cache, logits
         return run
 
@@ -1803,7 +1848,511 @@ def phase_main_path(smi):
         f"prefix hit rate {ps['prefix_hit_rate']:.3f}, {ps['cow_copies']} CoW, "
         f"{ps['preemptions']} preemptions; launches {launches}")
     _profile_decode(eng, smi)
-    return launches
+    trace = dict(model=model, params=params, engine=eng, cold=cold, hits=hits,
+                 tokens={o.uid: o.tokens for o in outs}, tok_s=tokens / wall, ttft=ttft,
+                 dispatches=(eng.steps + ps["cold_dispatches"] + ps["suffix_dispatches"])
+                 / tokens)
+    return launches, trace
+
+
+# ----------------------------------------------------------------- phase 3d
+# The speculative k-token verify's shape on the suffix-prefill kernels: 8
+# rows of S = bucket_length(k + 1) = 8 queries, 1..5 of them live, with
+# starts at every offset within a page of 16 (two calls: offsets 0-7 and
+# 8-15) behind prefixes of 64-408 tokens whose first 4 pages all rows share
+# (stablelm-1.6b: Hkv 32, G 1, hd 64, bf16; the main path's table width).
+VERIFY = dict(n=8, s=8, hkv=32, hd=64, page=16, t_w=208, num_pages=209)
+VERIFY_LENS = tuple(1 + r % 5 for r in range(8))
+
+
+def phase_kernels_verify(smi):
+    """``suffix_prefill`` and ``suffix_prefill_int8`` at the verify's shape
+    against their plain versions at all S query positions (the kernels take
+    no lengths), the int8 kernel also bitwise against the fp kernel over the
+    dequantized pool; planted faults (the last prefix key dropped, the last
+    prefix page dropped, int8: a scale read from the next token slot) must
+    land outside the tolerance. Times the offsets 0-7 call as ``timed_ms``
+    does, beside the plain versions and SDPA over the same prefix and suffix
+    keys (the pool dequantized beforehand for int8); the bounds count the
+    live queries only, each distinct prefix slot once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.engine import bucket_pages
+
+    n, s, hkv, hd, page, t_w, num_pages = (VERIFY[k] for k in (
+        "n", "s", "hkv", "hd", "page", "t_w", "num_pages"))
+    gen = torch.Generator().manual_seed(5)
+    dt = torch.bfloat16
+    kp = torch.randn(num_pages, page, hkv, hd, generator=gen).to(DEVICE, dt)
+    vp = torch.randn(num_pages, page, hkv, hd, generator=gen).to(DEVICE, dt)
+    kq, ksc = ref.kv_quant_ref(kp)
+    vq, vsc = ref.kv_quant_ref(vp)
+    kd, vd = ref.dequant_pool_ref(kq, ksc, dt), ref.dequant_pool_ref(vq, vsc, dt)
+    sc = dict(pool_k_scale=ksc, pool_v_scale=vsc)
+    lens = list(VERIFY_LENS)
+    rows = {}
+
+    def compare(name, shape, out, plain, faults):
+        tol = RTOL["bfloat16"]
+        rms = plain.float().pow(2).mean().sqrt().item()
+        e = (out.float() - plain.float()).abs().max().item()
+        msg = (f"[verify] {name} bfloat16 {shape}: max_abs_err {e:.3e}, err/RMS {e / rms:.3e} "
+               f"(tol {tol:g})")
+        expect(e <= tol * rms, f"{name} verify {shape}: err/RMS {e / rms} > {tol}")
+        for fname, fout in faults:
+            fe = (out.float() - fout.float()).abs().max().item()
+            msg += f"; planted fault '{fname}' err/RMS {fe / rms:.3e}"
+            expect(fe > tol * rms, f"{name} verify: planted fault '{fname}' within tolerance")
+        return e, msg
+
+    for half in (0, 1):
+        starts_l = [64 + 48 * r + 8 * half + r for r in range(n)]
+        live_pages = [-(-(st + s) // page) for st in starts_l]
+        table = _table(gen, live_pages, t_w, num_pages, shared=4).to(DEVICE)
+        starts = torch.tensor(starts_l, dtype=torch.int32, device=DEVICE)
+        pw = bucket_pages(-(-max(starts_l) // page), t_w)   # the engine's prefix width
+        q = torch.randn(n, s, hkv, 1, hd, generator=gen).to(DEVICE, dt)
+        ksuf = torch.randn(n, s, hkv, hd, generator=gen).to(DEVICE, dt)
+        vsuf = torch.randn(n, s, hkv, hd, generator=gen).to(DEVICE, dt)
+        args, args8 = (q, ksuf, vsuf, kp, vp, table, starts), (q, ksuf, vsuf, kq, vq, table,
+                                                               starts)
+        shape = (f"n{n} S{s} lengths {min(lens)}..{max(lens)} starts {starts_l[0]}..{starts_l[-1]} "
+                 f"(offsets {8 * half}-{8 * half + 7} mod {page}) W{pw} Hkv{hkv} G1 hd{hd}")
+        e, msg = compare("suffix_prefill", shape,
+                         ops.suffix_prefill_attention(*args, prefix_width=pw),
+                         ref.suffix_prefill_ref(*args, prefix_width=pw),
+                         [("last prefix key dropped", _suffix_shift(*args, prefix_width=pw)),
+                          ("last prefix page dropped",
+                           _suffix_drop_page(*args, prefix_width=pw))])
+        log(msg)
+        out8 = ops.suffix_prefill_attention(*args8, prefix_width=pw, **sc)
+        same = torch.equal(out8, ops.suffix_prefill_attention(q, ksuf, vsuf, kd, vd, table,
+                                                              starts, prefix_width=pw))
+        expect(same, f"suffix_prefill_int8 verify {shape}: not bitwise equal to the fp kernel "
+                     "over the dequantized pool")
+        e8, msg = compare("suffix_prefill_int8", shape, out8,
+                          _plain_suffix(*args8, prefix_width=pw, **sc),
+                          [("scale from the next slot",
+                            _suffix_scale_slot(*args8, prefix_width=pw, **sc)),
+                           ("last prefix page dropped",
+                            _suffix_drop_page(*args8, prefix_width=pw, **sc))])
+        log(msg + f"; bitwise equal to the fp kernel over the dequantized pool: {same}")
+        if half:
+            continue
+        # SDPA over the same keys: the prefix pages gathered, the suffix
+        # after them, lanes at or past each row's start masked
+        kc = torch.cat([ref.gather_pages_ref(kd, table[:, :pw]), ksuf], 1).transpose(1, 2)
+        vc = torch.cat([ref.gather_pages_ref(vd, table[:, :pw]), vsuf], 1).transpose(1, 2)
+        lane = torch.arange(pw * page, device=DEVICE)[None, :]
+        qpos = starts[:, None].long() + torch.arange(s, device=DEVICE)[None, :]
+        kvpos = torch.cat([torch.where(lane < starts[:, None], lane, 1 << 30), qpos], 1)
+        mask = (qpos[:, :, None] >= kvpos[:, None, :])[:, None]
+        qt = q.reshape(n, s, hkv, hd).transpose(1, 2)
+        lib = timed_ms(lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask))[0]
+        uniq = _unique_tokens(table, starts_l, page)
+        n_live = sum(lens)
+        pfx_entries = sum(-(-st // page) for st in starts_l)
+        flops = 4 * hkv * hd * sum(ln * st + ln * (ln + 1) // 2 for ln, st in zip(lens, starts_l))
+        for name, a, kw, plain_fn, elem_pool in (
+                ("suffix_prefill", args, {}, ref.suffix_prefill_ref, 2 * hd),
+                ("suffix_prefill_int8", args8, sc, _plain_suffix, hd + 4)):
+            ms, wall = timed_ms(lambda: ops.suffix_prefill_attention(*a, prefix_width=pw, **kw))
+            rows[name] = dict(
+                max_abs_err=e if name == "suffix_prefill" else e8, ms=ms, wrapper_ms=wall,
+                plain_ms=timed_ms(lambda: plain_fn(*a, prefix_width=pw, **kw))[0],
+                library_ms=lib,
+                # the live queries' q, suffix k/v and out, each distinct
+                # prefix slot's k and v once (int8: q bytes and an f32
+                # scale per kv head), starts and the prefix table entries
+                bytes=4 * n_live * hkv * hd * 2 + 2 * uniq * hkv * elem_pool
+                + 4 * (n + pfx_entries),
+                flops=flops)
+    for name, r in rows.items():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / BF16_FLOPS * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[verify] {name} verify shape ({smi}): kernel device ms {r['ms']:.4f} (wrapper "
+            f"wall {r['wrapper_ms']:.4f}) plain_ms {r['plain_ms']:.4f} library_ms "
+            f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.6f} ({r['bound_by']}: "
+            f"{r['bytes'] / 1e6:.3f} MB, {r['flops'] / 1e9:.4f} GFLOP; {sum(lens)} live of "
+            f"{n * s} queries, {_unique_tokens(table, starts_l, page)} distinct prefix tokens)")
+    return rows
+
+
+# ----------------------------------------------------------------- phase 4d
+def phase_golden_spec():
+    """The reference engine's float32 speculative traces
+    (``golden_stablelm_smoke_spec.json``: a same-params and a foreign draft,
+    k = 3, fp and int8 pages, the prefix cache with cold, suffix and
+    copy-on-write admissions): tokens, finish reasons and the round counters
+    exactly, and the tokens equal to the reference's plain engine's."""
+    import torch
+
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models.model import build_model
+
+    g = json.loads((ROOT / "src/repro_torch/testdata/golden_stablelm_smoke_spec.json")
+                   .read_text())
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), dtype="float32")
+    model = build_model(cfg)
+    params = params_from_numpy(numpy_params(cfg, g["seed"]), cfg, DEVICE)
+    kernels = ("suffix_prefill", "suffix_prefill_int8", "paged_decode_ring", "flash_prefill",
+               "kv_write_int8", "paged_decode", "paged_decode_int8")
+    for case in g["cases"]:
+        eng = ServeEngine(
+            model, params, device=DEVICE, **case["engine"], draft_model=model,
+            draft_params=params_from_numpy(numpy_params(cfg, case["draft_seed"]), cfg, DEVICE),
+            spec_tokens=g["spec_tokens"])
+        before = dict(ops.LAUNCHES)
+        outs = eng.run([Request(uid=u, prompt=p, max_new_tokens=g["max_new_tokens"])
+                        for u, p in enumerate(g["prompts"])])
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in kernels}
+        got = [o.tokens for o in outs]
+        counters = {k: eng.pool_stats[k] for k in case["counters"]}
+        name = case["name"]
+        check(got == case["tokens"], f"golden spec {name}: tokens differ from the reference:\n"
+                                     f"{got}\n{case['tokens']}")
+        check(case["tokens"] == case["plain_tokens"],
+              f"golden spec {name}: the reference's speculative tokens differ from its plain ones")
+        check([o.finish_reason for o in outs] == case["finish_reasons"],
+              f"golden spec {name}: finish reasons differ")
+        check(counters == case["counters"], f"golden spec {name}: counters {counters} differ "
+                                            f"from the reference's {case['counters']}")
+        verify = "suffix_prefill_int8" if case["engine"]["kv_dtype"] == "int8" else "suffix_prefill"
+        check(launched[verify] >= cfg.n_layers * counters["spec_rounds"]
+              and launched["paged_decode_ring"] > 0 and launched["flash_prefill"] > 0,
+              f"golden spec {name}: the verify or the draft missed a kernel: {launched}")
+        log(f"[golden-spec] {name}: {len(got)} requests, fp32 speculative tokens, finish reasons "
+            f"and counters {counters} identical to the reference engine's (and its tokens to "
+            f"its plain engine's); kernel launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        del eng
+
+
+# ------------------------------------------------------------ phases 5e, 5f
+SPEC_K = 4
+
+
+def _spec_engine(main, draft_params=None, num_slots=8, **kw):
+    """An engine with phase 5's settings (8 slots, page 16, prefix cache) and,
+    with ``draft_params``, a draft of the target's architecture proposing
+    SPEC_K tokens per round."""
+    from repro_torch.launch.engine import ServeEngine
+
+    spec = {} if draft_params is None else dict(
+        draft_model=main["model"], draft_params=draft_params, spec_tokens=SPEC_K)
+    return ServeEngine(main["model"], main["params"], num_slots=num_slots, max_seq=384 + 32,
+                       page_size=16, prefix_cache=True, paged_cache=True, device=DEVICE,
+                       **spec, **kw)
+
+
+def _run_trace(eng, main, sampling=None, order=1):
+    """Phase 5's trace on ``eng`` from an empty prefix index and zeroed
+    counters: the cold group, then the shared-prefix group once the first
+    retired, each submitted in ``order`` (-1: reversed), request r sampled
+    with ``sampling(r)`` (None: greedy). Returns ({uid: output}, wall s)."""
+    import torch
+
+    from repro_torch.launch.engine import Request
+
+    if eng.prefix is not None:
+        eng.prefix.clear()
+    eng.reset_metrics()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for group in (main["cold"], main["hits"]):
+        eng.reset_clock()
+        outs += eng.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                                 sampling=None if sampling is None else sampling(r.uid))
+                         for r in group[::order]])
+    torch.cuda.synchronize()
+    return {o.uid: o for o in outs}, time.perf_counter() - t0
+
+
+def _agreement(a: dict, b: dict) -> str:
+    """Token agreement of two traces, by uid: requests identical, and tokens
+    equal up to each request's first difference."""
+    same = sum(a[u] == b[u] for u in a)
+    lead = 0
+    for u in a:
+        for x, y in zip(a[u], b[u]):
+            if x != y:
+                break
+            lead += 1
+    return (f"{same}/{len(a)} requests identical, {lead}/{sum(len(t) for t in a.values())} "
+            "tokens before the first difference")
+
+
+def _trace_line(label, smi, outs, wall, eng):
+    tokens = sum(len(o.tokens) for o in outs.values())
+    ps = eng.pool_stats
+    ttft = float(np.percentile([o.ttft for o in outs.values()], 50))
+    target = eng.steps + ps["cold_dispatches"] + ps["suffix_dispatches"]
+    line = (f"{label} ({smi}): {len(outs)} requests, {tokens} tokens in {wall:.3f} s: "
+            f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, "
+            f"{target / tokens:.4f} target dispatches per token")
+    if ps["spec_enabled"]:
+        line += (f", {ps['spec_rounds']} spec rounds (k={ps['spec_tokens']}), acceptance "
+                 f"{ps['spec_accept_rate']:.3f}, {ps['spec_dispatches_per_token']:.4f} verify "
+                 "dispatches per round-emitted token")
+    return line
+
+
+def _capture_verify(model, store, nth=2):
+    """``model`` whose ``nth`` verify dispatch (``return_all_logits``) leaves
+    in ``store`` a copy of the cache it started from, its arguments and its
+    logits."""
+    calls = [0]
+
+    def run(params, cache, *a, **kw):
+        if kw.get("return_all_logits"):
+            calls[0] += 1
+            if calls[0] == nth:
+                store["cache"] = {k: v.clone() for k, v in cache.items()}
+                store["args"] = (a, dict(kw))
+                cache, logits = model.prefill_slots(params, cache, *a, **kw)
+                store["logits"] = logits.clone()
+                return cache, logits
+        return model.prefill_slots(params, cache, *a, **kw)
+
+    return dataclasses.replace(model, prefill_slots=run)
+
+
+def _verify_parity(main, store, label, faults):
+    """The captured verify dispatch again from its cache, through the plain
+    versions and through each planted fault: logits at every live position
+    (the real vocabulary) within LOGIT_RTOL x scale of the kernels', the
+    faults outside."""
+    import torch
+
+    model, params, cfg = main["model"], main["params"], main["model"].cfg
+    a, kw = store["args"]
+    lk = store["logits"]
+    live = (torch.arange(lk.shape[1], device=DEVICE)[None, :] < a[1][:, None].long())
+    vocab = cfg.vocab_size
+    got = {}
+    for fname, swap in [("plain", {}), *faults]:
+        twin = {k: v.clone() for k, v in store["cache"].items()}
+        with plain_kernels(**swap):
+            _, lp = model.prefill_slots(params, twin, *a, **kw)
+        got[fname] = lp[live][:, :vocab]
+        del twin
+    kl = lk[live][:, :vocab]
+    tol = LOGIT_RTOL[cfg.dtype]
+    scale = max(got["plain"].abs().max().item(), 1.0)
+    d = (kl - got["plain"]).abs().max().item()
+    agree = (kl.argmax(-1) == got["plain"].argmax(-1)).float().mean().item()
+    starts = kw["starts"].tolist()
+    msg = (f"[spec-main] {label}: one verify dispatch ({int(live.sum())} live positions of "
+           f"{lk.shape[0]}x{lk.shape[1]}, starts {starts}, mid-page "
+           f"{sum(st % 16 != 0 for st in starts)}): kernel vs plain max |dlogit| {d:.3e} = "
+           f"{d / scale:.3e} x logit scale {scale:.2f} (tol {tol:g} x scale), argmax agreement "
+           f"{agree:.3f}")
+    expect(d <= tol * scale, f"spec {label}: verify logit diff {d} too large")
+    for fname, _ in faults:
+        fd = (kl - got[fname]).abs().max().item()
+        msg += f"; planted fault '{fname}' {fd:.3e} = {fd / scale:.3e} x scale"
+        expect(fd > tol * scale, f"spec {label}: planted fault '{fname}' within tolerance")
+    log(msg)
+
+
+def phase_spec_main(smi, main):
+    """5e: phase 5's trace (stablelm-1.6b at full width, 16 requests x 32
+    tokens, 8 slots, prefix cache) with k = 4 speculation: a same-params
+    draft and a foreign-seed draft on fp pages, the same-params draft on
+    int8 pages. Gates per run: every request's budget, finite logits, one
+    verify dispatch's logits at every live position against the plain path
+    (and a planted fault), no page left but the prefix index's, spec_emitted
+    == generated - first tokens, and n_layers suffix_prefill launches per
+    verify and suffix admission. Logged beside phase 5's plain trace: tok/s,
+    TTFT p50, target dispatches per token, acceptance, token agreement.
+    Returns the kernels' launches over the three runs, the same-params fp
+    run's tokens and one full-vocabulary logit row."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    model, cfg = main["model"], main["model"].cfg
+    foreign = model.init(torch.Generator(device=DEVICE).manual_seed(1), DEVICE)
+    log(f"[spec-main] phase 5's plain trace ({smi}): {main['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{main['ttft'] * 1e3:.1f} ms, {main['dispatches']:.4f} target dispatches per token")
+    total: dict[str, int] = {}
+    result = {}
+    for label, draft, kv in (("same-params draft, fp", main["params"], "fp"),
+                             ("foreign draft (seed 1), fp", foreign, "fp"),
+                             ("same-params draft, int8", main["params"], "int8")):
+        t_phase = time.perf_counter()
+        eng = _spec_engine(main, draft, kv_dtype=kv)
+        eng.warm(sorted({len(r.prompt) for r in main["cold"]}), gen_tokens=2)
+        finite, store = [], {}
+        eng.model = _capture_verify(_finite_checked(model, finite), store)
+        ops.reset_launches()
+        outs, wall = _run_trace(eng, main)
+        launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+        ps = eng.pool_stats
+        toks = {u: o.tokens for u, o in outs.items()}
+        n_tok = sum(len(t) for t in toks.values())
+        verify = "suffix_prefill_int8" if kv == "int8" else "suffix_prefill"
+        check(len(outs) == 16 and all(len(t) == 32 for t in toks.values()),
+              f"spec {label}: not every request finished with 32 tokens")
+        check(bool(torch.stack(finite).all()), f"spec {label}: non-finite logits")
+        pinned = eng.prefix.size if eng.prefix is not None else 0
+        check(eng.pool.in_use == pinned, f"spec {label}: {eng.pool.in_use} pages in use at the "
+                                         f"end, the prefix index pins {pinned}")
+        check(ps["spec_emitted"] == n_tok - len(outs),
+              f"spec {label}: spec_emitted {ps['spec_emitted']} != {n_tok} - {len(outs)}")
+        check(launches.get(verify, 0) == cfg.n_layers * (ps["spec_rounds"]
+                                                         + ps["suffix_dispatches"])
+              and ps["spec_rounds"] > 0,
+              f"spec {label}: {launches.get(verify, 0)} {verify} launches for "
+              f"{ps['spec_rounds']} rounds and {ps['suffix_dispatches']} suffix admissions")
+        check(launches.get("paged_decode_ring", 0) > 0 and launches.get("flash_prefill", 0) > 0,
+              f"spec {label}: the draft missed a kernel: {launches}")
+        faults = [("last prefix key dropped", dict(suffix_prefill=_suffix_shift))]
+        if kv == "int8":
+            faults.append(("scale from the next slot", dict(suffix_prefill=_suffix_scale_slot)))
+        _verify_parity(main, store, label, faults)
+        log(f"[spec-main] {_trace_line(label, smi, outs, wall, eng)}; against the plain fp "
+            f"trace: {_agreement(toks, main['tokens'])}; launches {launches}; phase wall "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        if label.startswith("same-params draft, fp"):
+            result = dict(tokens=toks, row=store["logits"][0, 0].clone())
+        del eng, store
+        gc.collect()
+        torch.cuda.empty_cache()
+    del foreign
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["launches"] = total
+    return result
+
+
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+TV_DRAWS = 16384
+
+
+def phase_sampling(smi, main, spec):
+    """5f: phase 5's trace sampled (temperature 0.8, top-k 40, top-p 0.95;
+    request r on seed 1000 + r) on the plain engine and with the same-params
+    draft. Gates: a second run gives the same tokens; the requests submitted
+    in reverse order (other slots, other neighbours) give the same tokens;
+    in a trace where only even uids sample, the greedy odd uids keep their
+    greedy trace's tokens. Logged: the plain trace over 4 slots (other batch
+    widths: bf16 GEMMs of another shape may round otherwise). Then the
+    batched sampler's law over TV_DRAWS draws of one full-vocabulary row
+    from a verify dispatch: within 0.05 total variation of
+    softmax(filter_logits(row))."""
+    import torch
+
+    from repro_torch.launch.sampling import SamplingParams, filter_logits, sample_rows
+
+    base = SamplingParams(**SAMPLED)
+    sp = lambda u: dataclasses.replace(base, seed=1000 + u)  # noqa: E731
+    mixed = lambda u: sp(u) if u % 2 == 0 else None  # noqa: E731
+    first = {}
+    for label, eng, greedy in (("plain", main["engine"], main["tokens"]),
+                               ("same-params draft", None, spec["tokens"])):
+        t_phase = time.perf_counter()
+        if eng is None:
+            eng = _spec_engine(main, main["params"])
+            eng.warm(sorted({len(r.prompt) for r in main["cold"]}), gen_tokens=2, sampling=base)
+        runs = {}
+        for name, fn, order in (("first", sp, 1), ("second", sp, 1), ("reversed", sp, -1),
+                                ("mixed", mixed, 1)):
+            outs, wall = _run_trace(eng, main, fn, order)
+            runs[name] = {u: o.tokens for u, o in outs.items()}
+            if name == "first":
+                slots = {u: o.slot for u, o in outs.items()}
+                line = _trace_line(f"sampled, {label}", smi, outs, wall, eng)
+            if name == "reversed":
+                moved = sum(o.slot != slots[u] for u, o in outs.items())
+            check(eng.pool.in_use == (eng.prefix.size if eng.prefix is not None else 0),
+                  f"sampled {label} {name}: pages leaked")
+        first[label] = runs["first"]
+        check(runs["first"] == runs["second"], f"sampled {label}: a second run gave other tokens")
+        check(runs["first"] == runs["reversed"],
+              f"sampled {label}: the tokens depend on the slot or the neighbours")
+        check(all(runs["mixed"][u] == greedy[u] for u in greedy if u % 2),
+              f"sampled {label}: a greedy request's tokens moved beside sampled neighbours")
+        check(runs["first"] != greedy, f"sampled {label}: the sampled trace is the greedy one")
+        log(f"[sampled] {line}; a second run identical, reversed submission identical "
+            f"({moved}/16 requests in another slot), greedy odd uids beside sampled even ones "
+            f"identical to the greedy trace; against the greedy trace: "
+            f"{_agreement(runs['first'], greedy)}; phase wall "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        if eng is not main["engine"]:
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    eng4 = _spec_engine(main, num_slots=4)
+    eng4.warm(sorted({len(r.prompt) for r in main["cold"]}), gen_tokens=2, sampling=base)
+    outs, wall = _run_trace(eng4, main, sp)
+    toks4 = {u: o.tokens for u, o in outs.items()}
+    log(f"[sampled] {_trace_line('sampled, plain, 4 slots', smi, outs, wall, eng4)}; against "
+        f"8 slots (not gated): {_agreement(toks4, first['plain'])}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del eng4
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the sampler's law on one full-vocabulary row
+    row = spec["row"]
+    vocab = main["model"].cfg.vocab_size
+    stream = np.random.Generator(np.random.Philox(np.random.SeedSequence(77)))
+    counts = torch.zeros(vocab, dtype=torch.float64, device=DEVICE)
+    chunk = 1024
+    for _ in range(TV_DRAWS // chunk):
+        u = torch.from_numpy(stream.random(chunk)).to(DEVICE)
+        toks = sample_rows(row.expand(chunk, -1), u, base.temperature, base.top_k, base.top_p,
+                           vocab)
+        counts += torch.bincount(toks, minlength=vocab).double()
+    p = torch.softmax(filter_logits(row[None], base.temperature, base.top_k, base.top_p,
+                                    vocab), -1)[0].double()
+    tv = 0.5 * (counts / TV_DRAWS - p).abs().sum().item()
+    support = int((p > 0).sum())
+    expect(tv <= 0.05, f"sampler law: total variation {tv} > 0.05")
+    check(bool((p[counts > 0] > 0).all()), "the sampler drew a token the filter removed")
+    log(f"[sampled] batched sampler, {TV_DRAWS} draws of one verify logit row (vocab {vocab}, "
+        f"{support} tokens kept by the filter): total variation {tv:.4f} from "
+        f"softmax(filter_logits(row)) (tol 0.05)")
+
+
+def phase_eos(smi, main):
+    """EOS at full width: phase 5's cold group on its engine with ``eos_id``
+    set to a token the greedy trace emits (uid 3's sixth). Every request
+    must end at its first EOS with ``finish_reason`` "eos", or at its budget
+    with "length", with the greedy trace's tokens up to there."""
+    eng = main["engine"]
+    greedy = main["tokens"]
+    eos = greedy[3][5]
+    eng.eos_id = eos
+    try:
+        if eng.prefix is not None:
+            eng.prefix.clear()
+        eng.reset_metrics()
+        outs = {o.uid: o for o in eng.run(main["cold"])}
+    finally:
+        eng.eos_id = None
+    for u, o in outs.items():
+        full = greedy[u]
+        cut = full.index(eos) + 1 if eos in full else len(full)
+        check(o.tokens == full[:cut], f"eos: uid {u} tokens {o.tokens} != {full[:cut]}")
+        check(o.finish_reason == ("eos" if eos in full else "length"),
+              f"eos: uid {u} finish_reason {o.finish_reason}")
+    ended = {u: len(o.tokens) for u, o in outs.items() if o.finish_reason == "eos"}
+    check(3 in ended, "eos: uid 3 did not end at its EOS")
+    log(f"[eos] ({smi}): eos_id {eos}: requests ended at EOS (uid: tokens) {ended}, the other "
+        f"{len(outs) - len(ended)} at their 32-token budget, every token the greedy trace's")
 
 
 # ----------------------------------------------------------------- phase 5b
@@ -2621,10 +3170,25 @@ def main() -> int:
     rows = phase_kernels(smi)
     rows.update(phase_kernels_int8(smi))
     rows.update(phase_kernels_ring(smi))
+    t0 = time.perf_counter()
+    phase_kernels_verify(smi)
+    log(f"[verify] phase 3d wall {time.perf_counter() - t0:.1f} s")
     phase_golden()
     phase_golden_int8()
     phase_golden_ring()
-    launches = phase_main_path(smi)
+    t0 = time.perf_counter()
+    phase_golden_spec()
+    log(f"[golden-spec] phase 4d wall {time.perf_counter() - t0:.1f} s")
+    launches, main_trace = phase_main_path(smi)
+    t0 = time.perf_counter()
+    phase_eos(smi, main_trace)
+    spec = phase_spec_main(smi, main_trace)
+    phase_sampling(smi, main_trace, spec)
+    log(f"[spec-main] phases EOS, 5e and 5f wall {time.perf_counter() - t0:.1f} s")
+    spec_launches = spec.pop("launches")
+    del main_trace, spec
+    gc.collect()
+    torch.cuda.empty_cache()
     launches.update(phase_main_path_int8(smi))
     ring_launches, model, params = phase_main_path_ring(smi)
     launches.update(ring_launches)
@@ -2639,6 +3203,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_first_sync_ties()
     check(not FAILED, f"{len(FAILED)} numeric checks failed: {FAILED}")
+    # the speculative traces' launches: the verify's suffix prefills, the
+    # draft's ring decode and re-sync prefills, the int8 verify's pool writes
+    for k, c in spec_launches.items():
+        if k in launches:
+            launches[k] += c
     kernels = []
     for name, r in rows.items():
         kernels.append({

@@ -1,7 +1,8 @@
 """Continuous-batching serve engine.
 
 The port of the reference engine's batched and bucketed scheduler (greedy
-decoding) over either KV layout:
+or sampled decoding, an optional EOS id, optional speculative decoding)
+over either KV layout:
 
 * ``paged_cache=False`` (the default, as in the reference): every slot owns
   a contiguous ring of C = window (0 < window < max_seq) or max_seq slots
@@ -27,7 +28,17 @@ decoding) over either KV layout:
   indexed in a radix trie; a later prompt maps its cached prefix onto the
   same physical pages and prefills only the suffix. A fully cached prompt
   re-prefills its last token into a copy-on-write split of its last page.
-* One batched decode step per iteration advances every live slot.
+* One batched decode step per iteration advances every live slot: greedy
+  slots take the batched argmax, sampled slots (``Request.sampling``) draw
+  in one batched pass, each from its request's own stream
+  (``sampling.request_stream``: its seed, or the engine ``seed`` and its
+  uid). A request ends at ``max_new_tokens`` or at ``eos_id``.
+* Speculative decoding (``draft_model``/``draft_params``/``spec_tokens``;
+  paged, chunked, windowless): each iteration the draft proposes k tokens
+  per slot (``spec_decode``), ONE suffix-prefill dispatch of the target
+  verifies them all (``prefill_slots(return_all_logits=True)``), each row
+  keeps its accepted run (greedy: exactly the plain decode step's tokens;
+  sampled: rejection sampling) and rolls the rest back.
 * ``kv_dtype="int8"`` stores the pool as int8 with one f32 scale per token
   slot per kv head (``ks``/``vs``): quantized at every write, dequantized
   inside the attention kernels.
@@ -38,9 +49,8 @@ decoding) over either KV layout:
   demoted there and promoted back when a later prompt matches them.
 
 The caches and tables live on the engine's device and are updated in place
-(the reference donated them through ``jit``). Settings of the reference
-engine that belong to later slices (a draft model, a mesh) raise at
-construction."""
+(the reference donated them through ``jit``). A mesh (tensor-parallel
+serving) belongs to a later slice and raises at construction."""
 from __future__ import annotations
 
 import collections
@@ -54,6 +64,10 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import SyntheticCorpus
 from repro_torch.launch.prefix_cache import PrefixCache
+from repro_torch.launch.sampling import (
+    SamplingParams, request_stream, sample_rows, speculative_acceptance,
+)
+from repro_torch.launch.spec_decode import make_draft_backend
 from repro_torch.models.attention import ring_capacity
 from repro_torch.models.model import ModelAPI, build_model
 from repro_torch.models.transformer import KV_PLANES, reset_slot
@@ -262,18 +276,18 @@ class _ResumeState:
     admit_time: float
     host_key: tuple | None = None
     pos: int = 0
+    rng: np.random.Generator | None = None
 
 
 @dataclasses.dataclass
 class Request:
-    """One greedy generation request. Every request counts as arrived at
-    zero on the engine clock (its last ``reset_clock``/``reset_metrics``).
-    ``sampling`` exists for the reference's signature: any value other than
-    None raises (sampled decoding is a later slice)."""
+    """One generation request. Every request counts as arrived at zero on
+    the engine clock (its last ``reset_clock``/``reset_metrics``).
+    ``sampling=None`` (or temperature 0) decodes greedily."""
     uid: int
     prompt: np.ndarray            # (prompt_len,) int32 token ids
     max_new_tokens: int
-    sampling: object = None
+    sampling: SamplingParams | None = None
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -281,16 +295,15 @@ class Request:
             raise ValueError("empty prompt")
         if self.max_new_tokens <= 0:
             raise ValueError("max_new_tokens must be positive")
-        if self.sampling is not None:
-            raise NotImplementedError("sampled decoding is a later slice; the port is greedy")
 
 
 @dataclasses.dataclass
 class RequestOutput:
     uid: int
     prompt: list[int]
-    tokens: list[int]
+    tokens: list[int]             # generated ids (greedy or sampled), <= max_new
     slot: int
+    finish_reason: str            # "eos" | "length"
     admit_time: float
     first_token_time: float
     finish_time: float
@@ -322,6 +335,7 @@ class _Slot:
     resumed: bool = False         # next emission is already known
     pos_host: int = 0             # host mirror of the slot's write position
     seq: int = 0                  # admission order (preemption takes the max)
+    rng: np.random.Generator | None = None  # the request's stream (None = greedy)
 
 
 class ServeEngine:
@@ -341,10 +355,14 @@ class ServeEngine:
     pages), ``host_pages`` (the host tier's capacity, 0 = none) and ``swap``
     (whether preemption swaps to that tier; prefix pages demote there either
     way). Without a window each slot's table holds ``num_slots *
-    ceil(max_seq/page_size)`` logical pages. A request finishes after
-    ``max_new_tokens`` (no EOS); the clock is ``time.monotonic``. ``device``
-    is where the caches live and the model runs (``"cuda"`` unless the
-    caller asks for the CPU)."""
+    ceil(max_seq/page_size)`` logical pages. ``draft_model``,
+    ``draft_params`` and ``spec_tokens`` turn on speculative decoding (a
+    ``ValueError`` names what blocks it). A request finishes after
+    ``max_new_tokens`` or at ``eos_id`` (``finish_reason`` "length" or
+    "eos"); ``seed`` keys the streams of sampled requests without a seed of
+    their own. The clock is ``time.monotonic``. ``device`` is where the
+    caches live and the model runs (``"cuda"`` unless the caller asks for
+    the CPU)."""
 
     def __init__(
         self,
@@ -365,19 +383,16 @@ class ServeEngine:
         kv_dtype: str = "fp",
         host_pages: int = 0,
         swap: bool = True,
-        draft_model=None,
+        draft_model: ModelAPI | None = None,
+        draft_params: dict | None = None,
         spec_tokens: int = 0,
+        eos_id: int | None = None,
+        seed: int = 0,
         mesh=None,
     ):
-        later = {
-            "a draft model (speculative decoding)": draft_model is not None or spec_tokens != 0,
-            "a mesh (tensor-parallel serving)": mesh is not None,
-        }
-        blocked = [name for name, hit in later.items() if hit]
-        if blocked:
+        if mesh is not None:
             raise NotImplementedError(
-                "not in the port yet (a later slice): " + "; ".join(blocked)
-            )
+                "not in the port yet (a later slice): a mesh (tensor-parallel serving)")
         if prefill not in PREFILL_MODES:
             raise ValueError(f"prefill {prefill!r} not in {PREFILL_MODES}")
         if num_slots < 1:
@@ -392,6 +407,25 @@ class ServeEngine:
             raise ValueError(f"host_pages must be >= 0, got {host_pages}")
         if host_pages > 0 and not paged_cache:
             raise ValueError("host_pages tiers the page pool; it needs paged_cache=True")
+        speculative = draft_model is not None or draft_params is not None or spec_tokens != 0
+        if speculative:
+            blockers = []
+            if draft_model is None or draft_params is None:
+                blockers.append("draft_model and draft_params are required")
+            if spec_tokens < 1:
+                blockers.append("spec_tokens must be >= 1")
+            if not paged_cache:
+                blockers.append("paged_cache=False (rollback is a page-table edit)")
+            if prefill != "chunked":
+                blockers.append(f"prefill={prefill!r} (verification is a batched "
+                                "suffix-prefill round)")
+            if window != 0:
+                blockers.append(f"window={window} (suffix prefill is windowless)")
+            if draft_model is not None and draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                blockers.append(f"draft vocab {draft_model.cfg.vocab_size} != target vocab "
+                                f"{model.cfg.vocab_size}")
+            if blockers:
+                raise ValueError("speculative decoding unavailable: " + "; ".join(blockers))
         self.cfg = model.cfg
         self.model = model
         self.device = torch.device(device)
@@ -409,6 +443,8 @@ class ServeEngine:
         self.paged_decode = paged_decode
         self.paged_cache = paged_cache
         self.kv_dtype = kv_dtype
+        self.eos_id = eos_id
+        self.seed = seed
         self._t0 = time.monotonic()
 
         self.prefix_disabled_reason = None
@@ -466,6 +502,22 @@ class ServeEngine:
         ) if prefix_cache and self.prefix_disabled_reason is None else None
         self.prefix_cache = self.prefix is not None
 
+        # speculative decoding: the counters exist in every mode (pool_stats
+        # keeps one schema), the draft only when one is wired up
+        self.draft = None
+        self.spec_tokens = 0
+        if speculative:
+            self.spec_tokens = spec_tokens
+            self.draft = make_draft_backend(
+                draft_model, draft_params, num_slots=num_slots,
+                cap=min(self.cap, self.pool.capacity * self.page_size),
+                spec_tokens=spec_tokens, device=self.device,
+            )
+            # host mirror of each draft row's consumed-token count; -1 =
+            # diverged or dead, forcing a re-sync prefill before the next
+            # proposal (a reused slot never aliases its old occupant's state)
+            self._draft_pos = np.full(num_slots, -1, np.int64)
+
         self._resume: dict[int, _ResumeState] = {}
         self._admit_seq = 0
         self.waiting: collections.deque[Request] = collections.deque()
@@ -500,15 +552,21 @@ class ServeEngine:
         self.swapped_in_pages = 0
         self.host_demoted_pages = 0
         self.host_promote_hits = 0
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
         if self.paged_cache:
             self.pool.peak_in_use = self.pool.in_use
         self.reset_clock()
 
-    def warm(self, prompt_lens, *, gen_tokens: int = 2) -> None:
+    def warm(self, prompt_lens, *, gen_tokens: int = 2,
+             sampling: SamplingParams | None = None) -> None:
         """Run every (width, length) bucket a trace of ``prompt_lens`` can
         dispatch once (first-use costs: kernel builds and loads, allocator
         growth; interleaved admission only sees width 1), then clear the
-        prefix index and the host tier and reset metrics."""
+        prefix index and the host tier and reset metrics. Pass ``sampling``
+        when the trace will sample, so the sampler's first use is here too."""
         chunked = self.prefill_mode == "chunked"
         for p in sorted(set(prompt_lens)):
             for w in range(1, self.num_slots + 1) if chunked else [1]:
@@ -518,7 +576,7 @@ class ServeEngine:
                 self._warmed.add(key)
                 self.run([
                     Request(uid=-1 - j, prompt=np.zeros(p, np.int32),
-                            max_new_tokens=max(gen_tokens, 1))
+                            max_new_tokens=max(gen_tokens, 1), sampling=sampling)
                     for j in range(w)
                 ])
         if self.prefix is not None:
@@ -567,6 +625,19 @@ class ServeEngine:
             "swapped_in_pages": self.swapped_in_pages,
             "host_demoted_pages": self.host_demoted_pages,
             "host_promote_hits": self.host_promote_hits,
+            # speculative decoding: accept_rate is accepted drafts over
+            # drafted; dispatches_per_token is verify dispatches per emitted
+            # token (1/(k+1) at full acceptance)
+            "spec_enabled": self.draft is not None,
+            "spec_tokens": self.spec_tokens,
+            "spec_rounds": self.spec_rounds,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_emitted": self.spec_emitted,
+            "spec_accept_rate": (self.spec_accepted / self.spec_drafted
+                                 if self.spec_drafted else 0.0),
+            "spec_dispatches_per_token": (self.spec_rounds / self.spec_emitted
+                                          if self.spec_emitted else 0.0),
         }
 
     @property
@@ -611,6 +682,44 @@ class ServeEngine:
     def _greedy(self, logits: torch.Tensor) -> list[int]:
         """Argmax over the real vocabulary, one host transfer per batch."""
         return logits[:, : self.cfg.vocab_size].argmax(dim=-1).tolist()
+
+    def _request_rng(self, req: Request) -> np.random.Generator | None:
+        """The request's own sampling stream (None = greedy): its explicit
+        seed, or the engine seed and its uid; never the slot."""
+        sp = req.sampling
+        if sp is None or sp.is_greedy:
+            return None
+        return request_stream(sp.seed, self.seed, req.uid)
+
+    def _next_tokens(self, logits: torch.Tensor, rows: dict[int, int]) -> dict[int, int]:
+        """The next token of each emitting slot (``rows``: slot → its row of
+        ``logits``): greedy slots take the batched argmax, sampled slots
+        one draw each from one batched filter-and-draw pass, each with one
+        uniform from its own stream. At most two host transfers."""
+        greedy = [i for i in rows if self.slots[i].rng is None]
+        samp = [i for i in rows if self.slots[i].rng is not None]
+        out: dict[int, int] = {}
+        if greedy:
+            g = self._greedy(logits)
+            out.update((i, g[rows[i]]) for i in greedy)
+        if samp:
+            sps = [self.slots[i].req.sampling for i in samp]
+            u = np.array([self.slots[i].rng.random() for i in samp])
+            idx = self._tensor(np.array([rows[i] for i in samp], np.int64))
+            toks = sample_rows(
+                logits.index_select(0, idx), self._tensor(u),
+                self._tensor(np.array([sp.temperature for sp in sps], np.float32)),
+                self._tensor(np.array([sp.top_k for sp in sps], np.int64)),
+                self._tensor(np.array([sp.top_p for sp in sps], np.float32)),
+                self.cfg.vocab_size,
+            ).tolist()
+            out.update(zip(samp, toks))
+        return out
+
+    def _done(self, slot: _Slot, last: int) -> bool:
+        if self.eos_id is not None and last == self.eos_id:
+            return True
+        return len(slot.generated) >= slot.req.max_new_tokens
 
     def _admit(self, now: float) -> None:
         """Fill free slots from the queue in submission order. Chunked
@@ -672,7 +781,7 @@ class ServeEngine:
                 i = free.pop(0)
                 reset_slot(self.cache, i)
                 slot = _Slot(req=req, generated=[], next_feed=-1, admit_time=now, feed=feed,
-                             prefix_len=suffix_start)
+                             prefix_len=suffix_start, rng=self._request_rng(req))
                 self._admit_seq += 1
                 slot.seq = self._admit_seq
                 if self.paged_cache:
@@ -702,6 +811,7 @@ class ServeEngine:
                     slot.first_token_time = resume.first_token_time
                     slot.admit_time = resume.admit_time
                     slot.resumed = bool(resume.generated)
+                    slot.rng = resume.rng
                 self.slots[i] = slot
                 if chunked:
                     slot.pos_host = len(feed)
@@ -751,7 +861,7 @@ class ServeEngine:
         slot = _Slot(req=req, generated=list(resume.generated),
                      next_feed=int(stream[resume.pos]), admit_time=resume.admit_time,
                      feed=stream[: resume.pos], first_token_time=resume.first_token_time,
-                     pos_host=resume.pos,
+                     pos_host=resume.pos, rng=resume.rng,
                      pending=collections.deque(int(t) for t in stream[resume.pos + 1:]))
         self._admit_seq += 1
         slot.seq = self._admit_seq
@@ -764,6 +874,7 @@ class ServeEngine:
         group (suffix prefill), each one dispatch padded to its bucket."""
         self._sync_table()
         first: dict[int, int] = {}
+        emit = [i for i in claimed if not self.slots[i].resumed]
         cold = [i for i in claimed if self.slots[i].prefix_len == 0]
         hits = [i for i in claimed if self.slots[i].prefix_len > 0]
         for group, suffix in ((cold, False), (hits, True)):
@@ -804,7 +915,10 @@ class ServeEngine:
                 self.cold_dispatches += 1
             self.prefill_dispatches += 1
             self.prefill_tokens += int(sum(p.size for p in sufs))
-            first.update(zip(group, self._greedy(logits)))
+            # a resumed slot's next token is already known: no argmax, and
+            # no draw from its stream
+            first.update(self._next_tokens(logits, {i: j for j, i in enumerate(group)
+                                                    if i in emit}))
 
         retired = False
         for i in claimed:  # emit in admission order
@@ -819,18 +933,21 @@ class ServeEngine:
             slot.first_token_time = self._now()
             slot.generated.append(g)
             slot.next_feed = g
-            if len(slot.generated) >= slot.req.max_new_tokens:
+            if self._done(slot, g):
                 self._retire(i, slot)
                 retired = True
         return retired
 
     def _retire(self, i: int, slot: _Slot) -> None:
+        eos = self.eos_id is not None and slot.generated[-1] == self.eos_id
         self.finished.append(RequestOutput(
             uid=slot.req.uid, prompt=slot.req.prompt.tolist(), tokens=list(slot.generated),
-            slot=i, admit_time=slot.admit_time,
+            slot=i, finish_reason="eos" if eos else "length", admit_time=slot.admit_time,
             first_token_time=slot.first_token_time, finish_time=self._now(),
         ))
         self.slots[i] = None
+        if self.draft is not None:
+            self._draft_pos[i] = -1  # the next occupant re-syncs the draft
         if not self.paged_cache:
             return
         if self.prefix is not None:
@@ -918,10 +1035,12 @@ class ServeEngine:
         self._table_dirty = True
         self._resume[slot.req.uid] = _ResumeState(
             generated=list(slot.generated), first_token_time=slot.first_token_time,
-            admit_time=slot.admit_time, host_key=host_key, pos=slot.pos_host,
+            admit_time=slot.admit_time, host_key=host_key, pos=slot.pos_host, rng=slot.rng,
         )
         self.waiting.appendleft(slot.req)
         self.slots[i] = None
+        if self.draft is not None:
+            self._draft_pos[i] = -1
         self.preemptions += 1
 
     def _ensure_decode_pages(self, live: list[int]) -> None:
@@ -952,18 +1071,235 @@ class ServeEngine:
                 if victim == i:
                     break
 
+    # ------------------------------------------------------- spec decoding
+    def _ensure_spec_pages(self, live: list[int],
+                           k_r: dict[int, int]) -> dict[int, list[tuple[int, int]]]:
+        """Best-effort lookahead pages for a speculative round: slot ``i``
+        verifying ``k_r[i]`` drafts writes positions pos .. pos + k_r[i],
+        which may cross into logical pages past the one
+        ``_ensure_decode_pages`` gave it. Lookahead pages never preempt and
+        never dip below the watermark: on a tight pool the round runs
+        shallower (``k_r`` shrinks to what the covered pages hold; 0 is a
+        one-token verify). Returns the fresh (page index, page) pairs per
+        slot, so rollback frees exactly the pages left holding no kept
+        token."""
+        fresh: dict[int, list[tuple[int, int]]] = {}
+        for i in live:
+            p = self.slots[i].pos_host
+            got = []
+            for pi in range(p // self.page_size + 1, (p + k_r[i]) // self.page_size + 1):
+                if self._table_np[i, pi] != 0:
+                    continue
+                pages = None
+                if self.pool.available > self.watermark_pages:
+                    pages = self.pool.alloc(1)
+                if (pages is None and self.prefix is not None and self.prefix.evict(1) > 0
+                        and self.pool.available > self.watermark_pages):
+                    pages = self.pool.alloc(1)
+                if pages is None:
+                    k_r[i] = pi * self.page_size - 1 - p
+                    break
+                self._slot_pages[i].append(pages[0])
+                self._table_np[i, pi] = pages[0]
+                self._table_dirty = True
+                got.append((pi, pages[0]))
+            if got:
+                fresh[i] = got
+        return fresh
+
+    def _rollback_spec_pages(self, i: int, fresh_i: list[tuple[int, int]],
+                             keep_pos: int) -> None:
+        """Free the round's fresh lookahead pages past the accepted span
+        (``keep_pos`` written tokens kept). Pages the slot held before the
+        round hold committed history and are never touched, so rejection
+        rounds can neither leak nor double-free a page."""
+        last = (keep_pos - 1) // self.page_size
+        for pi, page in fresh_i:
+            if pi > last:
+                self.pool.free([page])
+                self._slot_pages[i].remove(page)
+                self._table_np[i, pi] = 0
+                self._table_dirty = True
+
+    def _spec_round(self, live: list[int]) -> None:
+        """One speculative iteration over the live slots: the draft proposes
+        up to k tokens per row, ONE batched suffix-prefill dispatch of the
+        target verifies every row's proposals (logits at every position),
+        then each row keeps a prefix of its drafts (greedy: the longest run
+        matching the target's argmax, then the target's token; sampled:
+        Leviathan rejection sampling) and rolls the rest back by position
+        truncation and a lookahead-page free.
+
+        Greedy rows emit the tokens the plain decode step would: the verify
+        logits at position p + j are the forward the decode step computes
+        after the same j accepted tokens, and the walk stops at the first
+        mismatch. Sampled rows draw exactly from the target distribution,
+        with one block of uniforms from the request's stream per round:
+        the draft's proposals and the acceptance tests on disjoint parts."""
+        kk = self.spec_tokens
+        vocab = self.cfg.vocab_size
+        for i in live:
+            slot = self.slots[i]
+            # chunked admission prefills whole prompts: no decode-phase slot
+            # is mid-prefill or holds a resumed token here
+            assert not slot.pending and not slot.resumed, "spec round over a resumed slot"
+        # draft re-sync: rows whose draft state is not at pos_host (fresh
+        # admissions, preemption returns, slot reuse) re-prefill their
+        # written stream; rows in sync ride along as length-0 rows
+        stale = [i for i in live if self._draft_pos[i] != self.slots[i].pos_host]
+        if stale:
+            lb = bucket_length(max(self.slots[i].pos_host for i in stale))
+            toks = np.zeros((self.num_slots, lb), np.int32)
+            lens = np.zeros(self.num_slots, np.int32)
+            for i in stale:
+                slot = self.slots[i]
+                p = slot.pos_host
+                toks[i, :p] = np.concatenate(
+                    [slot.req.prompt, np.asarray(slot.generated, np.int32)])[:p]
+                lens[i] = p
+            self.draft.prefill_rows(self._tensor(toks), self._tensor(lens))
+            for i in stale:
+                self._draft_pos[i] = self.slots[i].pos_host
+        # per-row depth: never past max_new (the correction or bonus token
+        # must fit) or the slot's capacity; the page pass may shrink it
+        lim = min(self.cap, self.pool.capacity * self.page_size)
+        k_r = {}
+        for i in live:
+            slot = self.slots[i]
+            rem = slot.req.max_new_tokens - len(slot.generated)
+            k_r[i] = max(0, min(kk, rem - 1, lim - 1 - slot.pos_host))
+        fresh = self._ensure_spec_pages(live, k_r)
+        # round inputs at the full slot width, like every engine dispatch
+        feed = np.zeros(self.num_slots, np.int32)
+        greedy = np.ones(self.num_slots, bool)
+        temps = np.ones(self.num_slots, np.float32)
+        topks = np.zeros(self.num_slots, np.int64)
+        topps = np.ones(self.num_slots, np.float32)
+        u_draft = np.full((self.num_slots, kk), 0.5)
+        u_acc: dict[int, np.ndarray] = {}
+        samp = [i for i in live if self.slots[i].rng is not None]
+        for i in live:
+            feed[i] = self.slots[i].next_feed
+        for i in samp:
+            sp = self.slots[i].req.sampling
+            greedy[i] = False
+            temps[i], topks[i], topps[i] = sp.temperature, sp.top_k, sp.top_p
+            block = self.slots[i].rng.random(2 * kk + 2)   # one advance per round
+            u_draft[i], u_acc[i] = block[:kk], block[kk:]
+        drafts_dev, logq = self.draft.propose(
+            self._tensor(feed), self._tensor(u_draft) if samp else None,
+            self._tensor(greedy), self._tensor(temps), self._tensor(topks),
+            self._tensor(topps))
+        drafts = drafts_dev.cpu().numpy()                  # (num_slots, k)
+        # one verify dispatch: row j feeds [next_feed, d_1..d_kr] as a suffix
+        # at starts = pos over the shared page table
+        self._sync_table()
+        n = len(live)
+        width = bucket_width(n, self.num_slots)
+        s_len = bucket_length(max(k_r[i] for i in live) + 1)
+        tokens = np.zeros((width, s_len), np.int32)
+        lengths = np.zeros(width, np.int32)
+        starts = np.zeros(width, np.int32)
+        slot_ids = np.zeros(width, np.int32)
+        for j, i in enumerate(live):
+            kr = k_r[i]
+            tokens[j, 0] = self.slots[i].next_feed
+            tokens[j, 1:kr + 1] = drafts[i, :kr]
+            lengths[j] = kr + 1
+            starts[j] = self.slots[i].pos_host
+            slot_ids[j] = i
+        in_round = set(live)
+        slot_ids[n:] = [s for s in range(self.num_slots) if s not in in_round][: width - n]
+        pw = bucket_pages(-(-int(starts.max()) // self.page_size), self.table_width)
+        self.cache, vlog = self.model.prefill_slots(
+            self.params, self.cache, self._tensor(tokens), self._tensor(lengths),
+            self._tensor(slot_ids), starts=self._tensor(starts), prefix_pages=pw,
+            return_all_logits=True,
+        )
+        self.spec_rounds += 1
+        self.steps += 1
+        # acceptance: one batched argmax transfer for the greedy rows, one
+        # batched rejection-sampling pass for the sampled rows
+        g_host = None
+        if len(samp) < n:
+            g_host = vlog[..., :vocab].argmax(dim=-1).cpu().numpy()   # (width, s_len)
+        accepted: dict[int, list[int]] = {}
+        if samp:
+            rows = [live.index(i) for i in samp]
+            take = np.minimum(np.arange(kk + 1), s_len - 1)
+            sel = self._tensor(np.array(samp, np.int64))
+            n_emit, emitted = speculative_acceptance(
+                self._tensor(np.stack([u_acc[i] for i in samp])),
+                vlog[self._tensor(np.array(rows, np.int64))][:, self._tensor(take)],
+                drafts_dev.index_select(0, sel), logq.index_select(0, sel),
+                self._tensor(np.array([k_r[i] for i in samp], np.int64)),
+                self._tensor(temps[samp]), self._tensor(topks[samp]),
+                self._tensor(topps[samp]), vocab,
+            )
+            n_emit, emitted = n_emit.cpu().numpy(), emitted.cpu().numpy()
+            for r, i in enumerate(samp):
+                accepted[i] = [int(x) for x in emitted[r, : min(int(n_emit[r]), k_r[i] + 1)]]
+        # commit: append each row's accepted run, truncate the target's pos
+        # to the kept span, free lookahead pages past it, truncate the draft
+        now = self._now()
+        new_pos = np.zeros(self.num_slots, np.int32)
+        mask = np.zeros(self.num_slots, bool)
+        for j, i in enumerate(live):
+            slot = self.slots[i]
+            kr = k_r[i]
+            p = slot.pos_host
+            if i in accepted:
+                emitted_i = accepted[i]
+            else:
+                g = g_host[j]
+                t = 0
+                while t < kr and int(drafts[i, t]) == int(g[t]):
+                    t += 1
+                emitted_i = [int(x) for x in g[: t + 1]]
+            if slot.first_token_time < 0:
+                slot.first_token_time = now
+            appended = 0
+            done = False
+            for tok in emitted_i:
+                slot.generated.append(tok)
+                appended += 1
+                if self._done(slot, tok):
+                    done = True
+                    break
+            self.spec_drafted += kr
+            self.spec_emitted += appended
+            self.spec_accepted += appended - 1
+            new_pos[i] = p + appended
+            mask[i] = True
+            if done:
+                # _retire frees every slot page, lookahead included: a
+                # rollback first would free some twice
+                self._retire(i, slot)
+            else:
+                self._rollback_spec_pages(i, fresh.get(i, []), p + appended)
+                slot.pos_host = p + appended
+                slot.next_feed = emitted_i[-1]
+                self._draft_pos[i] = p + appended
+        mask_t, pos_t = self._tensor(mask), self._tensor(new_pos)
+        self.cache["pos"].copy_(torch.where(mask_t, pos_t, self.cache["pos"]))
+        self.draft.commit(mask_t, pos_t)
+        self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
+
     def step(self) -> list[RequestOutput]:
         """One iteration: admit → lazy pages (paged pool) → one batched
-        decode step → retire. A slot still teacher-forcing its prompt
-        (interleaved) discards its logits; a resumed slot re-feeds its last
-        known token. Returns the requests that finished in it."""
+        decode step (or, with a draft, one speculative round) → retire. A
+        slot still teacher-forcing its prompt (interleaved) discards its
+        logits; a resumed slot re-feeds its last known token. Returns the
+        requests that finished in it."""
         n_done = len(self.finished)
         self._admit(self._now())
         live = [i for i, s in enumerate(self.slots) if s is not None]
         if live and self.paged_cache:
             self._ensure_decode_pages(live)
             live = [i for i, s in enumerate(self.slots) if s is not None]
-        if live:
+        if live and self.draft is not None:
+            self._spec_round(live)
+        elif live:
             self._sync_table()
             feed = np.zeros((self.num_slots, 1), np.int32)
             for i in live:
@@ -973,7 +1309,9 @@ class ServeEngine:
             self.steps += 1
             if self.paged_cache:
                 self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
-            greedy = self._greedy(logits)
+            # resumed and mid-prefill slots emit nothing: no argmax, no draw
+            nxt = self._next_tokens(logits, {
+                i: i for i in live if not self.slots[i].pending and not self.slots[i].resumed})
             now = self._now()
             for i in live:
                 slot = self.slots[i]
@@ -985,12 +1323,12 @@ class ServeEngine:
                     slot.resumed = False
                     slot.next_feed = slot.generated[-1]
                     continue
-                g = greedy[i]
+                g = nxt[i]
                 if slot.first_token_time < 0:
                     slot.first_token_time = now
                 slot.generated.append(g)
                 slot.next_feed = g
-                if len(slot.generated) >= slot.req.max_new_tokens:
+                if self._done(slot, g):
                     self._retire(i, slot)
         return self.finished[n_done:]
 
@@ -1030,26 +1368,41 @@ def serve_continuous(
     prompt_len: int = 32, gen_tokens: int = 32, window: int = 0, prefill: str = "chunked",
     paged_decode: bool = True, paged_cache: bool = True, page_size: int = 16,
     num_pages: int = 0, watermark_pages: int = 0, prefix_cache: bool = True,
-    kv_dtype: str = "fp", host_pages: int = 0, swap: bool = True, seed: int = 0,
-    device="cuda", log_fn=print,
+    kv_dtype: str = "fp", host_pages: int = 0, swap: bool = True,
+    draft: str | None = None, spec_tokens: int = 0, sampling: SamplingParams | None = None,
+    seed: int = 0, device="cuda", log_fn=print,
 ) -> dict:
     """Build a model with seeded random weights and an engine (the shared
     paged pool unless ``paged_cache=False``), serve a synthetic trace after
-    a warm-up run, report throughput and latency."""
+    a warm-up run, report throughput and latency. ``draft`` names a second
+    config for speculative decoding, seeded like the target (so ``draft ==
+    arch`` gives a same-params draft): it proposes ``spec_tokens`` tokens per
+    slot per round, verified in one target dispatch. ``sampling`` samples
+    every request, request r on the seed ``sampling.seed + r`` when a seed
+    is given."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    params = model.init(generator, device)
+    params = model.init(torch.Generator(device=device).manual_seed(seed), device)
+    draft_model = draft_params = None
+    if draft is not None:
+        draft_model = build_model(get_smoke_config(draft) if smoke else get_config(draft))
+        draft_params = draft_model.init(torch.Generator(device=device).manual_seed(seed),
+                                        device)
     engine = ServeEngine(
         model, params, num_slots=num_slots, max_seq=prompt_len + gen_tokens, window=window,
         prefill=prefill, paged_decode=paged_decode, paged_cache=paged_cache,
         page_size=page_size, num_pages=num_pages, watermark_pages=watermark_pages,
         prefix_cache=prefix_cache, kv_dtype=kv_dtype, host_pages=host_pages, swap=swap,
-        device=device,
+        draft_model=draft_model, draft_params=draft_params, spec_tokens=spec_tokens,
+        seed=seed, device=device,
     )
     reqs = make_requests(cfg, n_requests=n_requests, prompt_len=prompt_len,
                          gen_tokens=gen_tokens, seed=seed)
-    engine.warm([prompt_len], gen_tokens=min(2, gen_tokens))
+    if sampling is not None and not sampling.is_greedy:
+        for r in reqs:  # a stream of its own per request, even under one seed
+            r.sampling = dataclasses.replace(
+                sampling, seed=None if sampling.seed is None else sampling.seed + r.uid)
+    engine.warm([prompt_len], gen_tokens=min(2, gen_tokens), sampling=sampling)
     t0 = time.time()
     outs = engine.run(reqs)
     wall = time.time() - t0
@@ -1071,6 +1424,9 @@ def serve_continuous(
         "prefix_cache": engine.prefix_cache,
         "kv_dtype": kv_dtype,
         "host_pages": host_pages,
+        "draft": None if draft_model is None else draft_model.cfg.name,
+        "spec_tokens": engine.spec_tokens,
+        "sampling": None if sampling is None else dataclasses.asdict(sampling),
         "prefill_tokens": engine.prefill_tokens,
         "engine_steps": engine.steps,
         "prefill_dispatches": engine.prefill_dispatches,
@@ -1078,6 +1434,7 @@ def serve_continuous(
         "wall_seconds": wall,
         "tokens_per_second": total / max(wall, 1e-9),
         "generated": [o.tokens for o in outs],
+        "finish_reasons": [o.finish_reason for o in outs],
         "slots": [o.slot for o in outs],
         "latency_p50": float(np.percentile(lat, 50)),
         "latency_p95": float(np.percentile(lat, 95)),
@@ -1101,6 +1458,11 @@ def serve_continuous(
             f", host tier {ps['swapped_out_pages']} pages swapped out / "
             f"{ps['swapped_in_pages']} in, {ps['host_demoted_pages']} demoted / "
             f"{ps['host_promote_hits']} promoted"
+        )
+    if engine.draft is not None:
+        pool_line += (
+            f", spec k={ps['spec_tokens']} accept {ps['spec_accept_rate']:.0%}, "
+            f"{ps['spec_dispatches_per_token']:.2f} dispatch/tok"
         )
     log_fn(
         f"{cfg.name}: {n_requests} reqs × {gen_tokens} tok over {num_slots} slots in "

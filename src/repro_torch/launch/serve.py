@@ -4,7 +4,8 @@ step in lockstep, then greedy decoding; the oracle the engine's tokens are
 held against) and, with ``--continuous``, the continuous-batching engine
 (the shared paged KV pool with prefix sharing by default, or per-slot
 contiguous rings with ``--no-paged-cache``; chunked or interleaved prefill;
-sliding windows).
+sliding windows; temperature/top-k/top-p sampling; speculative decoding
+with ``--draft``/``--spec-tokens``).
 
     # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 4 \\
@@ -26,6 +27,11 @@ sliding windows).
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
         --requests 3 --gen 6 --prompt-len 8 --slots 2 --page-size 4 --num-pages 6 \\
         --kv-dtype int8 --host-pages 16
+    # sampled, and speculative with a same-params draft, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
+        --temperature 0.8 --top-k 40 --top-p 0.95
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
+        --draft stablelm-1.6b --spec-tokens 3
 """
 from __future__ import annotations
 
@@ -152,6 +158,20 @@ def main(argv=None):
     ap.add_argument("--no-swap", dest="swap", action="store_false",
                     help="[continuous] with --host-pages, keep prefix demote/promote but "
                     "resume preemptions by re-prefill instead of swap-in")
+    ap.add_argument("--draft", default=None, metavar="ARCH",
+                    help="[continuous] speculative decoding: config of the draft model that "
+                    "proposes --spec-tokens tokens per slot per round, verified by the target "
+                    "in one batched dispatch (seeded like the target: the target's own arch "
+                    "is a same-params draft); greedy tokens stay those of the plain engine")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="[continuous] draft lookahead depth k per round (needs --draft)")
+    # sampling (temperature 0 = greedy; request r samples on --seed + r)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="[continuous] sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="[continuous] keep the k most likely tokens (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="[continuous] nucleus sampling mass (1.0 = off)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     # the reference's fail-fast contract: a flag the engine would have to
@@ -170,19 +190,53 @@ def main(argv=None):
     if not args.swap and args.host_pages == 0:
         ap.error("--no-swap cannot be honored: it selects what the host tier does, and "
                  "--host-pages is 0")
+    if args.temperature <= 0 and (args.top_k > 0 or args.top_p < 1.0):
+        ap.error("--top-k/--top-p require --temperature > 0 (temperature 0 is greedy "
+                 "decoding)")
+    if args.temperature > 0 and not args.continuous:
+        ap.error("sampling flags require --continuous (the single batch is greedy by "
+                 "construction)")
+    if args.draft is not None or args.spec_tokens > 0:
+        blockers = []
+        if args.draft is None:
+            blockers.append("--spec-tokens without --draft (the lookahead depth needs a "
+                            "draft model to propose it)")
+        if args.spec_tokens <= 0:
+            blockers.append("--draft without --spec-tokens >= 1 (a draft with no lookahead "
+                            "depth proposes nothing)")
+        if not args.continuous:
+            blockers.append("batch mode (use --continuous)")
+        if not args.paged_cache:
+            blockers.append("--no-paged-cache (the k-token verify rides the suffix-prefill "
+                            "path over the page table)")
+        if args.prefill == "interleaved":
+            blockers.append("--prefill interleaved (the verify dispatch needs chunked "
+                            "batched admission)")
+        if args.window > 0:
+            blockers.append(f"--window {args.window} (verify positions assume the "
+                            "full-context page layout)")
+        if blockers:
+            ap.error("speculative decoding cannot be honored by this config: "
+                     + "; ".join(blockers))
     if not args.continuous:
         return serve_batch(args.arch, smoke=args.smoke, batch=args.batch,
                            prompt_len=args.prompt_len, gen_tokens=args.gen,
                            window=args.window, seed=args.seed, device=args.device)
     from repro_torch.launch.engine import serve_continuous
+    from repro_torch.launch.sampling import SamplingParams
 
+    sampling = None
+    if args.temperature > 0:
+        sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                                  top_p=args.top_p, seed=args.seed)
     return serve_continuous(
         args.arch, smoke=args.smoke, num_slots=args.slots, n_requests=args.requests,
         prompt_len=args.prompt_len, gen_tokens=args.gen, window=args.window,
         prefill=args.prefill, paged_decode=args.paged_decode, paged_cache=args.paged_cache,
         page_size=args.page_size, num_pages=args.num_pages,
         watermark_pages=args.watermark_pages, prefix_cache=args.prefix_cache,
-        kv_dtype=args.kv_dtype, host_pages=args.host_pages, swap=args.swap, seed=args.seed,
+        kv_dtype=args.kv_dtype, host_pages=args.host_pages, swap=args.swap,
+        draft=args.draft, spec_tokens=args.spec_tokens, sampling=sampling, seed=args.seed,
         device=args.device,
     )
 

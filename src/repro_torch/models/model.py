@@ -23,7 +23,8 @@ class ModelAPI:
     # either cache layout; ``paged`` picks the ring kernel that skips dead pages
     decode: Callable[..., tuple[dict, Any]]
     # prefill_slots(params, cache, tokens (n, S), lengths (n,), slots (n,),
-    #               starts=None, prefix_pages=None, window=) -> (cache, logits (n, Vp))
+    #               starts=None, prefix_pages=None, window=, return_all_logits=False)
+    #     -> (cache, logits (n, Vp), or (n, S, Vp) with return_all_logits)
     prefill_slots: Callable[..., tuple[dict, Any]]
     # init_paged_cache(num_slots, num_pages, page_size, table_width, device=,
     #                  kv_dtype=) -> shared paged pool + per-slot page tables
@@ -56,10 +57,10 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return transformer.decode_step(cfg, params, cache, tokens, window=window, paged=paged)
 
     def prefill_slots(params, cache, tokens, lengths, slots, *, starts=None,
-                      prefix_pages=None, window=0):
+                      prefix_pages=None, window=0, return_all_logits=False):
         return transformer.prefill_slots(
             cfg, params, cache, tokens, lengths, slots, starts=starts,
-            prefix_pages=prefix_pages, window=window,
+            prefix_pages=prefix_pages, window=window, return_all_logits=return_all_logits,
         )
 
     def init_paged_cache(num_slots, num_pages, page_size, table_width, *, device,

@@ -13,6 +13,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import kv_dequant_ref, kv_quant_ref
 from repro_torch.models import attention as attn
 from repro_torch.models.common import embed_tokens, lm_logits, padded_vocab, positions_for
 from repro_torch.models.layers import (
@@ -194,11 +195,19 @@ def decode_step(
     return cache, lm_logits(params["embed"], h, cfg)[:, 0]
 
 
+def int8_roundtrip_kv(x: torch.Tensor) -> torch.Tensor:
+    """k or v as an int8 pool holds it and the decode kernels read it back:
+    quantized per kv head (``kv_write_int8``'s scheme, the quotient divided
+    IEEE-exact) and dequantized to x's dtype (f32 product, then rounded to
+    the dtype, as ``paged_decode_int8`` does)."""
+    return kv_dequant_ref(*kv_quant_ref(x), x.dtype)
+
+
 def prefill_slots(
     cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
     lengths: torch.Tensor, slots: torch.Tensor, *,
     starts: torch.Tensor | None = None, prefix_pages: int | None = None,
-    window: int = 0,
+    window: int = 0, return_all_logits: bool = False,
 ) -> tuple[dict, torch.Tensor]:
     """Batched prefill of n newly admitted rows in one forward.
 
@@ -219,7 +228,18 @@ def prefill_slots(
 
     An int8 pool is written quantized (only at this round's slots, so
     shared prefix pages keep their bits); cold rows attend their own fp
-    k/v, suffix rows the dequantized prefix plus their own fp k/v."""
+    k/v, suffix rows the dequantized prefix plus their own fp k/v.
+
+    ``return_all_logits=True`` returns logits at EVERY padded position, (n,
+    S, Vp), instead of only each row's last valid one: the k-token verify
+    of speculative decoding reads one target logit per draft position out
+    of one suffix dispatch (positions at or past lengths[r] are garbage).
+    On an fp pool the cache write is bitwise the False path's. On an int8
+    pool, suffix rows attend their own k/v through the int8 round trip, as
+    the decode step sees the tokens it reads back from the pool, so the
+    verify reproduces per-token decode; the pool write quantizes each
+    layer's k/v as computed (from layer 1 on, they follow the round trip's
+    residual stream, as the decode steps' writes do)."""
     n, s = tokens.shape
     device = tokens.device
     slots = slots.long()
@@ -250,8 +270,11 @@ def prefill_slots(
         if starts is None:
             a = attn.attend_full(lp["attn"], a, pos, cfg, window=window, kv=(k, v))
         else:
+            kv_att = (k, v)
+            if return_all_logits and "ks" in lc:
+                kv_att = (int8_roundtrip_kv(k), int8_roundtrip_kv(v))
             a = attn.attend_suffix(
-                lp["attn"], a, pos, cfg, kv=(k, v), pool=lc,
+                lp["attn"], a, pos, cfg, kv=kv_att, pool=lc,
                 table_rows=table_rows, starts=starts, prefix_width=w_pfx,
             )
         h = _mlp_residual(cfg, lp, h + a)
@@ -265,8 +288,11 @@ def prefill_slots(
             # round's own slots
             attn.fill_pages_rows(lc, k, v, table_rows, write_starts, lengths)
     h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
-    last = h[torch.arange(n, device=device), (lengths.long() - 1).clamp(min=0)]
-    logits = lm_logits(params["embed"], last[:, None], cfg)[:, 0]
+    if return_all_logits:
+        logits = lm_logits(params["embed"], h, cfg)
+    else:
+        last = h[torch.arange(n, device=device), (lengths.long() - 1).clamp(min=0)]
+        logits = lm_logits(params["embed"], last[:, None], cfg)[:, 0]
     end = lengths + write_starts
     cache["pos"][slots] = torch.where(lengths > 0, end, cache["pos"][slots])
     return cache, logits

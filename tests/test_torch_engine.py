@@ -192,10 +192,15 @@ def test_submit_rejects_what_the_pool_can_never_hold():
     assert not eng.waiting
 
 
-@pytest.mark.parametrize("kw", [dict(spec_tokens=2), dict(mesh=object())])
-def test_settings_outside_the_slice_raise(kw):
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(spec_tokens=2, paged_cache=True), ValueError, "draft_model and draft_params"),
+    (dict(mesh=object()), NotImplementedError, "later slice"),
+])
+def test_settings_outside_the_slice_raise(kw, err, match):
+    """A mesh is a later slice; speculative decoding without a draft is a
+    configuration error (the gating of tests/test_torch_spec_decode.py)."""
     cfg, _ = _f32_configs()
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(err, match=match):
         port_engine.ServeEngine(build_model(cfg), {}, device="cpu", **kw)
 
 
@@ -216,11 +221,6 @@ def test_ring_mode_settings_serve_a_trace(kw):
                                         max_new_tokens=5) for u, n in enumerate((6, 9, 3))])
     assert [len(o.tokens) for o in outs] == [5, 5, 5]
     assert (eng.pool_stats is None) == (not kw.get("paged_cache"))
-
-
-def test_sampled_requests_raise():
-    with pytest.raises(NotImplementedError, match="greedy"):
-        port_engine.Request(uid=0, prompt=[1, 2], max_new_tokens=2, sampling=object())
 
 
 # ------------------------------------------------------------- golden
