@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero. Every
+serving trace (4-5d) dispatches through CUDA graphs, the engine's default
+(``launch/graphs.py``: one graph per shape key, captured at first use and
+replayed; the kernels' launch counts include the replays); the instruments
+(finite logits, the captured verify dispatch) read each dispatch through the
+graph cache's tap, replays included, and every timed trace runs after
+``warm()`` and must keep one decode specialization (none on speculative
+engines, whose target only verifies) and add no ``prefill_slots`` one:
 
 1. device: needs CUDA; prints the card's name and power limit, turns off
    TF32 and reduced-precision bf16 reductions in matrix products;
@@ -158,8 +165,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    the windowed paged pool (token agreement), an interleaved trace (4
    prompts of <= 64 tokens x 16);
 5d. single batch: ``generate_batch`` at full width, batch 4, prompt 64, gen
-   64, window 96 (the ring wraps; its shape is checked in 3c);
-   ``swa_decode`` must launch;
+   64, window 96 (the ring wraps; its shape is checked in 3c), through its
+   one decode-and-argmax graph; ``swa_decode`` must launch;
+5g. graphs against eager dispatch (run inside 5, 5b, 5c, 5d, 5e and 5f):
+   the fp trace, the int8 + host-tier trace, the ring trace, the
+   same-params speculative trace and the sampled trace again on engines
+   with ``graphs=False``, and the single batch with every step eager:
+   tokens, the engine's counters, the kernels' launches (the graphed run's
+   accounted from its replays) and ``compiles`` must be bitwise equal.
+   Printed per trace, graphed and eager: tok/s, TTFT p50, the speculative
+   round's host wall, the decode step's host wall, device time and idle
+   share, ``compiles`` and the graph pool's bytes;
+5h. a planted fault: an engine over a model whose decode calls ``.item()``
+   must raise at the decode graph's capture (no eager fallback); with
+   ``graphs=False`` the same model serves;
 6. channel kernels: top-k, int8, the DP norm and clip/noise against their
    plain versions on the card at the training path's leaves (the embedding,
    100352 x 2048, and one stacked MLP leaf, 24 x 2048 x 5632, fp32, k = 3):
@@ -1730,20 +1749,22 @@ def _kernel_rows(prof):
 
 def _profile_decode(eng, smi, n=5, label="profile"):
     """Host wall time and device time of one batched decode step (all the
-    engine's slots, its cache as the trace left it), and the kernels it
-    launches. Returns the port's kernel launches in one step, by entry
-    point (the wrappers' counts; nonzero ones only)."""
+    engine's slots, its cache as the trace left it) through the engine's own
+    dispatch (``ServeEngine.decode_step``: a graph replay, or with
+    ``graphs=False`` eager launches), and the kernels it launches. Returns
+    the port's kernel launches in one step, by entry point (the wrappers'
+    counts, replays included; nonzero ones only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
 
-    feed = torch.zeros((eng.num_slots, 1), dtype=torch.int32, device=DEVICE)
+    feed = np.zeros((eng.num_slots, 1), np.int32)
 
     def step():
-        eng.model.decode(eng.params, eng.cache, feed, window=eng.window,
-                         paged=eng.paged_decode)
+        eng.decode_step(feed)
 
+    mode = "graphed" if eng.graphs.graphed else "eager"
     ops.reset_launches()
     step()
     torch.cuda.synchronize()
@@ -1758,36 +1779,108 @@ def _profile_decode(eng, smi, n=5, label="profile"):
             step()
         torch.cuda.synchronize()
     events = _kernel_rows(prof)
+    tail = (f"; the port's kernels per step {per_step}; compiles {eng.compiles}; graph pool "
+            f"{_pool_gb(eng)}")
     if not events:
-        log(f"[{label}] {smi}: decode step host wall {host_ms:.2f} ms; device time not "
-            f"measured (the profiler saw no kernels); the port's kernels per step {per_step}")
+        log(f"[{label}, {mode}] {smi}: decode step host wall {host_ms:.2f} ms; device time not "
+            f"measured (the profiler saw no kernels){tail}")
         return per_step
     dev_ms = sum(e.self_device_time_total for e in events) / n / 1e3
     launches = sum(e.count for e in events) / n
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"[{label}] {smi}: decode step host wall {host_ms:.2f} ms, device time {dev_ms:.3f} ms "
-        f"in {launches:.0f} kernel launches, device idle share {1 - dev_ms / host_ms:.3f}; "
-        "top: " + "; ".join(f"{e.key[:40]} x{e.count // n} {e.self_device_time_total / n / 1e3:.3f}"
-                            " ms" for e in top)
-        + f"; the port's kernels per step {per_step}")
+    log(f"[{label}, {mode}] {smi}: decode step host wall {host_ms:.2f} ms, device time "
+        f"{dev_ms:.3f} ms in {launches:.0f} kernel records, device idle share "
+        f"{1 - dev_ms / host_ms:.3f}; top: "
+        + "; ".join(f"{e.key[:40]} x{e.count // n} {e.self_device_time_total / n / 1e3:.3f}"
+                    " ms" for e in top) + tail)
     return per_step
 
 
-def _finite_checked(model, finite: list):
-    """``model`` whose decode and prefill_slots append to ``finite`` whether
-    every real-vocabulary logit they return is finite (a device bool, read
-    once at the end of the run)."""
+def _pool_gb(eng) -> str:
+    """The engine's graph memory pool, for the log."""
+    b = eng.graphs.pool_bytes()
+    return "not measured" if b is None else f"{b / 1e9:.3f} GB in {eng.graphs.graphs} graphs"
+
+
+# Entry points whose output is logits (the finite checks read each call's).
+LOGIT_ENTRIES = ("decode", "prefill_slots", "prefill_suffix", "spec_verify")
+
+
+def _tap(eng, finite: list | None = None, store: dict | None = None, nth: int = 2):
+    """Instrument every dispatch of ``eng`` (graph replays included) through
+    its graph cache's tap: append to ``finite`` whether every real-vocabulary
+    logit of each logit entry's output is finite (a device bool, read once
+    at the end of the run; taken before any other graph replays), and leave
+    in ``store`` the ``nth`` verify dispatch's starting cache, its
+    ``prefill_slots`` arguments and its logits."""
     import torch
 
-    def checked(fn):
-        def run(*a, **kw):
-            cache, logits = fn(*a, **kw)
-            finite.append(torch.isfinite(logits[..., : model.cfg.vocab_size]).all())
-            return cache, logits
-        return run
+    vocab = eng.cfg.vocab_size
+    verifies = [0]
 
-    return dataclasses.replace(model, decode=checked(model.decode),
-                               prefill_slots=checked(model.prefill_slots))
+    def tap(entry, static, inputs, call):
+        grab = False
+        if store is not None and entry == "spec_verify":
+            verifies[0] += 1
+            grab = verifies[0] == nth
+        if grab:
+            store["cache"] = {k: v.clone() for k, v in eng.cache.items()}
+            t, n, sl, st = (x.to(DEVICE) for x in inputs)
+            store["args"] = ((t, n, sl), dict(starts=st, prefix_pages=static[0],
+                                              return_all_logits=True))
+        out = call()
+        if finite is not None and entry in LOGIT_ENTRIES:
+            finite.append(torch.isfinite(out[..., :vocab]).all())
+        if grab:
+            store["logits"] = out.clone()
+        return out
+
+    eng.graphs.tap = tap
+
+
+def _round_timer(eng) -> list:
+    """Host wall of each speculative round of ``eng`` (draft, verify,
+    acceptance and rollback; seconds), appended to the returned list."""
+    walls = []
+    fn = eng._spec_round
+
+    def timed(live):
+        t = time.perf_counter()
+        fn(live)
+        walls.append(time.perf_counter() - t)
+
+    eng._spec_round = timed
+    return walls
+
+
+def _twin_gate(label, smi, a: dict, b: dict) -> None:
+    """The graphed run ``a`` against the eager run ``b`` of one trace: tokens,
+    counters and kernel launches (replay-accounted against eager) equal, and
+    the specializations the same; print both runs."""
+    same = {k: a[k] == b[k] for k in ("tokens", "counters", "launches", "compiles")}
+    for k, ok in same.items():
+        expect(ok, f"graphs vs eager, {label}: {k} differ:\n{a[k]}\n{b[k]}")
+    log(f"[graphs] {label} ({smi}): graphed vs eager: tokens, counters, launches (kernel by "
+        f"kernel) and compiles equal: {same}; tok/s {a['tok_s']:.1f} vs {b['tok_s']:.1f}, "
+        f"TTFT p50 {a['ttft'] * 1e3:.1f} vs {b['ttft'] * 1e3:.1f} ms"
+        + (f", spec round wall p50 {a['round_ms']:.2f} vs {b['round_ms']:.2f} ms"
+           if a.get("round_ms") is not None else "")
+        + f"; compiles {a['compiles']}; graph pool {a['pool']}")
+
+
+def _record(outs, wall, eng, launches, rounds=None) -> dict:
+    """One trace's results for ``_twin_gate``: tokens by uid, the engine's
+    counters, launches, tok/s, TTFT p50, compiles, the spec round's wall."""
+    ps = eng.pool_stats or {}
+    counters = dict(ps, steps=eng.steps, prefill_dispatches=eng.prefill_dispatches,
+                    prefill_tokens=eng.prefill_tokens)
+    outs = outs.values() if isinstance(outs, dict) else outs
+    toks = {o.uid: o.tokens for o in outs}
+    return dict(tokens=toks, counters=counters, launches=launches, compiles=eng.compiles,
+                tok_s=sum(len(t) for t in toks.values()) / wall,
+                ttft=float(np.percentile([o.ttft for o in outs], 50)),
+                round_ms=float(np.median(rounds)) * 1e3 if rounds else None,
+                pool=_pool_gb(eng))
 
 
 def phase_main_path(smi):
@@ -1814,31 +1907,41 @@ def phase_main_path(smi):
     del params32
     torch.cuda.empty_cache()
 
-    eng = ServeEngine(model, params, num_slots=8, max_seq=384 + 32, page_size=16,
-                      prefix_cache=True, paged_cache=True, device=DEVICE)
-    eng.warm(sorted({len(r.prompt) for r in cold}), gen_tokens=2)
-    finite = []
-    eng.model = _finite_checked(model, finite)
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    outs = []
-    for group in (cold, hits):  # the second group arrives once the first retired
-        eng.reset_clock()
-        outs += eng.run(group)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: ops.LAUNCHES[k] for k in SERVING}
+    def run_trace(graphs):
+        eng = ServeEngine(model, params, num_slots=8, max_seq=384 + 32, page_size=16,
+                          prefix_cache=True, paged_cache=True, device=DEVICE, graphs=graphs)
+        eng.warm(sorted({len(r.prompt) for r in cold}), gen_tokens=2)
+        warmed = eng.compiles
+        finite = []
+        _tap(eng, finite)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = []
+        for group in (cold, hits):  # the second group arrives once the first retired
+            eng.reset_clock()
+            outs += eng.run(group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng.graphs.tap = None
+        check(bool(torch.stack(finite).all()), "non-finite logits")
+        check(eng.compiles["decode"] == 1, f"decode specialized more than once: {eng.compiles}")
+        check(eng.compiles["prefill_slots"] == warmed["prefill_slots"],
+              f"the timed trace added a prefill_slots specialization after warm(): "
+              f"{warmed} -> {eng.compiles}")
+        return outs, wall, eng, dict(ops.LAUNCHES)
+
+    outs, wall, eng, all_launches = run_trace(True)
+    launches = {k: all_launches[k] for k in SERVING}
     ps = eng.pool_stats
     check(len(outs) == 16 and all(len(o.tokens) == 32 for o in outs),
           "not every request finished with 32 tokens")
-    check(bool(torch.stack(finite).all()), "non-finite logits")
     check(ps["suffix_dispatches"] > 0 and ps["cold_dispatches"] > 0,
           f"dispatch split not exercised: {ps}")
     check(ps["prefix_hit_rate"] > 0, "no prefix hit")
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-    check(ops.LAUNCHES["kv_write_int8"] == ops.LAUNCHES["int8_encode"] == 0,
-          f"the fp trace ran an int8 pool write: {dict(ops.LAUNCHES)}")
+    check(all_launches["kv_write_int8"] == all_launches["int8_encode"] == 0,
+          f"the fp trace ran an int8 pool write: {all_launches}")
     tokens = sum(len(o.tokens) for o in outs)
     ttft = float(np.percentile([o.ttft for o in outs], 50))
     lat = float(np.percentile([o.latency for o in outs], 50))
@@ -1846,9 +1949,19 @@ def phase_main_path(smi):
         f"TTFT p50 {ttft * 1e3:.1f} ms, latency p50 {lat * 1e3:.1f} ms; {eng.steps} decode "
         f"steps, {ps['cold_dispatches']} cold + {ps['suffix_dispatches']} suffix dispatches, "
         f"prefix hit rate {ps['prefix_hit_rate']:.3f}, {ps['cow_copies']} CoW, "
-        f"{ps['preemptions']} preemptions; launches {launches}")
+        f"{ps['preemptions']} preemptions; launches {launches}; compiles {eng.compiles}")
+    graphed = _record(outs, wall, eng, all_launches)
     _profile_decode(eng, smi)
-    trace = dict(model=model, params=params, engine=eng, cold=cold, hits=hits,
+    # 5g: the same trace with every dispatch eager
+    e_outs, e_wall, eager, e_launches = run_trace(False)
+    _twin_gate("fp pages", smi, graphed, _record(e_outs, e_wall, eager, e_launches))
+    _profile_decode(eager, smi)
+    # the timed trace above captured its suffix round's graph (a shape that
+    # warm() does not dispatch); once more, every key captured (not gated)
+    again, a_wall = _run_trace(eng, dict(cold=cold, hits=hits))
+    log(f"[graphs] {_trace_line('fp pages, the trace again on the graphed engine', smi, again, a_wall, eng)}"
+        f"; new specializations: {eng.compiles != graphed['compiles']}")
+    trace = dict(model=model, params=params, engine=eng, eager=eager, cold=cold, hits=hits,
                  tokens={o.uid: o.tokens for o in outs}, tok_s=tokens / wall, ttft=ttft,
                  dispatches=(eng.steps + ps["cold_dispatches"] + ps["suffix_dispatches"])
                  / tokens)
@@ -2106,26 +2219,6 @@ def _trace_line(label, smi, outs, wall, eng):
     return line
 
 
-def _capture_verify(model, store, nth=2):
-    """``model`` whose ``nth`` verify dispatch (``return_all_logits``) leaves
-    in ``store`` a copy of the cache it started from, its arguments and its
-    logits."""
-    calls = [0]
-
-    def run(params, cache, *a, **kw):
-        if kw.get("return_all_logits"):
-            calls[0] += 1
-            if calls[0] == nth:
-                store["cache"] = {k: v.clone() for k, v in cache.items()}
-                store["args"] = (a, dict(kw))
-                cache, logits = model.prefill_slots(params, cache, *a, **kw)
-                store["logits"] = logits.clone()
-                return cache, logits
-        return model.prefill_slots(params, cache, *a, **kw)
-
-    return dataclasses.replace(model, prefill_slots=run)
-
-
 def _verify_parity(main, store, label, faults):
     """The captured verify dispatch again from its cache, through the plain
     versions and through each planted fault: logits at every live position
@@ -2186,17 +2279,30 @@ def phase_spec_main(smi, main):
         f"{main['ttft'] * 1e3:.1f} ms, {main['dispatches']:.4f} target dispatches per token")
     total: dict[str, int] = {}
     result = {}
+    def run(draft, kv, graphs=True, store=None):
+        eng = _spec_engine(main, draft, kv_dtype=kv, graphs=graphs)
+        eng.warm(sorted({len(r.prompt) for r in main["cold"]}), gen_tokens=2)
+        warmed = eng.compiles
+        finite = []
+        _tap(eng, finite, store)
+        rounds = _round_timer(eng)
+        ops.reset_launches()
+        outs, wall = _run_trace(eng, main)
+        eng.graphs.tap = None
+        check(bool(torch.stack(finite).all()), f"spec {kv}: non-finite logits")
+        # a speculative engine never runs the decode step (nor does the
+        # reference's): its target only verifies
+        check(eng.compiles["decode"] == 0
+              and eng.compiles["prefill_slots"] == warmed["prefill_slots"],
+              f"spec {kv}: specializations {warmed} after warm() -> {eng.compiles}")
+        return eng, outs, wall, {k: c for k, c in ops.LAUNCHES.items() if c}, rounds
+
     for label, draft, kv in (("same-params draft, fp", main["params"], "fp"),
                              ("foreign draft (seed 1), fp", foreign, "fp"),
                              ("same-params draft, int8", main["params"], "int8")):
         t_phase = time.perf_counter()
-        eng = _spec_engine(main, draft, kv_dtype=kv)
-        eng.warm(sorted({len(r.prompt) for r in main["cold"]}), gen_tokens=2)
-        finite, store = [], {}
-        eng.model = _capture_verify(_finite_checked(model, finite), store)
-        ops.reset_launches()
-        outs, wall = _run_trace(eng, main)
-        launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+        store = {}
+        eng, outs, wall, launches, rounds = run(draft, kv, store=store)
         for k, c in launches.items():
             total[k] = total.get(k, 0) + c
         ps = eng.pool_stats
@@ -2205,7 +2311,6 @@ def phase_spec_main(smi, main):
         verify = "suffix_prefill_int8" if kv == "int8" else "suffix_prefill"
         check(len(outs) == 16 and all(len(t) == 32 for t in toks.values()),
               f"spec {label}: not every request finished with 32 tokens")
-        check(bool(torch.stack(finite).all()), f"spec {label}: non-finite logits")
         pinned = eng.prefix.size if eng.prefix is not None else 0
         check(eng.pool.in_use == pinned, f"spec {label}: {eng.pool.in_use} pages in use at the "
                                          f"end, the prefix index pins {pinned}")
@@ -2222,11 +2327,19 @@ def phase_spec_main(smi, main):
         if kv == "int8":
             faults.append(("scale from the next slot", dict(suffix_prefill=_suffix_scale_slot)))
         _verify_parity(main, store, label, faults)
-        log(f"[spec-main] {_trace_line(label, smi, outs, wall, eng)}; against the plain fp "
-            f"trace: {_agreement(toks, main['tokens'])}; launches {launches}; phase wall "
+        log(f"[spec-main] {_trace_line(label, smi, outs, wall, eng)}; spec round wall p50 "
+            f"{np.median(rounds) * 1e3:.2f} ms; against the plain fp trace: "
+            f"{_agreement(toks, main['tokens'])}; launches {launches}; compiles "
+            f"{eng.compiles}; graph pool {_pool_gb(eng)}; phase wall "
             f"{time.perf_counter() - t_phase:.1f} s")
         if label.startswith("same-params draft, fp"):
             result = dict(tokens=toks, row=store["logits"][0, 0].clone())
+            graphed = _record(outs, wall, eng, launches, rounds)
+            del eng
+            gc.collect()
+            # 5g: the same trace with every dispatch eager
+            eng, e_outs, e_wall, e_launches, e_rounds = run(draft, kv, graphs=False)
+            _twin_gate(label, smi, graphed, _record(e_outs, e_wall, eng, e_launches, e_rounds))
         del eng, store
         gc.collect()
         torch.cuda.empty_cache()
@@ -2254,6 +2367,7 @@ def phase_sampling(smi, main, spec):
     softmax(filter_logits(row))."""
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.launch.sampling import SamplingParams, filter_logits, sample_rows
 
     base = SamplingParams(**SAMPLED)
@@ -2269,11 +2383,14 @@ def phase_sampling(smi, main, spec):
         runs = {}
         for name, fn, order in (("first", sp, 1), ("second", sp, 1), ("reversed", sp, -1),
                                 ("mixed", mixed, 1)):
+            ops.reset_launches()
             outs, wall = _run_trace(eng, main, fn, order)
             runs[name] = {u: o.tokens for u, o in outs.items()}
             if name == "first":
                 slots = {u: o.slot for u, o in outs.items()}
                 line = _trace_line(f"sampled, {label}", smi, outs, wall, eng)
+                if label == "plain":
+                    graphed = _record(outs, wall, eng, dict(ops.LAUNCHES))
             if name == "reversed":
                 moved = sum(o.slot != slots[u] for u, o in outs.items())
             check(eng.pool.in_use == (eng.prefix.size if eng.prefix is not None else 0),
@@ -2285,6 +2402,12 @@ def phase_sampling(smi, main, spec):
         check(all(runs["mixed"][u] == greedy[u] for u in greedy if u % 2),
               f"sampled {label}: a greedy request's tokens moved beside sampled neighbours")
         check(runs["first"] != greedy, f"sampled {label}: the sampled trace is the greedy one")
+        if label == "plain":
+            # 5g: the first run again on phase 5's engine with every dispatch eager
+            ops.reset_launches()
+            outs, wall = _run_trace(main["eager"], main, sp)
+            _twin_gate("sampled, plain", smi, graphed,
+                       _record(outs, wall, main["eager"], dict(ops.LAUNCHES)))
         log(f"[sampled] {line}; a second run identical, reversed submission identical "
             f"({moved}/16 requests in another slot), greedy odd uids beside sampled even ones "
             f"identical to the greedy trace; against the greedy trace: "
@@ -2378,7 +2501,9 @@ def _int8_path_requests(vocab):
 
 def _serve_trace(model, params, cold, hits, smi, label, **engine_kw):
     """One engine over the trace (cold group, then the shared-prefix group
-    once the first retired): outputs, pool stats, wall, the engine."""
+    once the first retired): tokens, pool stats, launches, the engine and
+    the trace's record for ``_twin_gate``. Gates finite logits, one decode
+    specialization and no new prefill_slots one after ``warm()``."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2387,6 +2512,9 @@ def _serve_trace(model, params, cold, hits, smi, label, **engine_kw):
     eng = ServeEngine(model, params, num_slots=8, max_seq=384 + 64, page_size=16,
                       prefix_cache=True, paged_cache=True, device=DEVICE, **engine_kw)
     eng.warm(sorted({len(r.prompt) for r in cold}), gen_tokens=2)
+    warmed = eng.compiles
+    finite = []
+    _tap(eng, finite)
     # host wall of the tier's copies (each synchronous): device->host
     # gathers (swap-out, demotion) and host->device restores (swap-in,
     # promotion)
@@ -2410,6 +2538,10 @@ def _serve_trace(model, params, cold, hits, smi, label, **engine_kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    eng.graphs.tap = None
+    check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
+    check(eng.compiles["decode"] == 1 and eng.compiles["prefill_slots"] == warmed["prefill_slots"],
+          f"{label}: specializations {warmed} after warm() -> {eng.compiles}")
     ps = dict(eng.pool_stats, prefix_hit_tokens=eng.prefix_hit_tokens)
     tokens = sum(len(o.tokens) for o in outs)
     ttft = float(np.percentile([o.ttft for o in outs], 50))
@@ -2425,8 +2557,8 @@ def _serve_trace(model, params, cold, hits, smi, label, **engine_kw):
         + (f"; host tier copies: {io['_gather_host'][0]} device->host gathers "
            f"{io['_gather_host'][1] * 1e3:.1f} ms, {io['_restore_pages'][0]} host->device "
            f"restores {io['_restore_pages'][1] * 1e3:.1f} ms (host wall)"
-           if eng.host is not None else ""))
-    return {o.uid: o.tokens for o in outs}, ps, launches, eng
+           if eng.host is not None else "") + f"; compiles {eng.compiles}")
+    return {o.uid: o.tokens for o in outs}, ps, launches, eng, _record(outs, wall, eng, launches)
 
 
 def phase_main_path_int8(smi):
@@ -2456,10 +2588,9 @@ def phase_main_path_int8(smi):
     num_pages = prompt_pages + 4 + 1
     host_pages = 256
     want = {r.uid: r.max_new_tokens for r in cold + hits}
-    toks, ps, launches, eng = _serve_trace(model, params, cold, hits, smi,
-                                           f"int8, {num_pages - 1} pages, host tier {host_pages}",
-                                           kv_dtype="int8", num_pages=num_pages,
-                                           host_pages=host_pages)
+    toks, ps, launches, eng, graphed = _serve_trace(
+        model, params, cold, hits, smi, f"int8, {num_pages - 1} pages, host tier {host_pages}",
+        kv_dtype="int8", num_pages=num_pages, host_pages=host_pages)
     check(all(len(toks[u]) == n for u, n in want.items()),
           "not every request completed its budget")
     check(ps["preemptions"] >= 2, f"fewer than two preemptions: {ps['preemptions']}")
@@ -2485,8 +2616,18 @@ def phase_main_path_int8(smi):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    # 5g: the same trace with every dispatch eager
+    *_, eng, eager = _serve_trace(model, params, cold, hits, smi,
+                                  f"int8, {num_pages - 1} pages, host tier {host_pages}, eager",
+                                  kv_dtype="int8", num_pages=num_pages, host_pages=host_pages,
+                                  graphs=False)
+    _twin_gate("int8 pages + host tier", smi, graphed, eager)
+    _profile_decode(eng, smi, label="profile int8")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    _, ps_rc, _, eng = _serve_trace(model, params, cold, hits, smi,
+    _, ps_rc, _, eng, _ = _serve_trace(model, params, cold, hits, smi,
                                     f"int8, {num_pages - 1} pages, no host tier",
                                     kv_dtype="int8", num_pages=num_pages)
     check(ps_rc["prefill_tokens"] > ps["prefill_tokens"],
@@ -2496,15 +2637,15 @@ def phase_main_path_int8(smi):
     # a second tier / no-tier pair, alternating with the first, now that the
     # pinned host allocator is warm: the tier's cost read within one call
     for label, kw in (("host tier", dict(host_pages=host_pages)), ("no host tier", {})):
-        _, _, _, eng = _serve_trace(model, params, cold, hits, smi,
+        _, _, _, eng, _ = _serve_trace(model, params, cold, hits, smi,
                                     f"int8, {num_pages - 1} pages, {label}, second run",
                                     kv_dtype="int8", num_pages=num_pages, **kw)
         del eng
         gc.collect()
-    ample, ps_a, _, eng = _serve_trace(model, params, cold, hits, smi, "int8, ample pool",
+    ample, ps_a, _, eng, _ = _serve_trace(model, params, cold, hits, smi, "int8, ample pool",
                                        kv_dtype="int8")
     del eng
-    fp, ps_fp, _, eng = _serve_trace(model, params, cold, hits, smi, "fp, ample pool")
+    fp, ps_fp, _, eng, _ = _serve_trace(model, params, cold, hits, smi, "fp, ample pool")
     pages_fp = ps_fp["num_pages"]
     del eng
     torch.cuda.empty_cache()
@@ -2581,8 +2722,10 @@ RING_WINDOW, RING_SLOTS, RING_GEN = 4096, 4, 32
 
 def _ring_trace(model, params, smi, label, lens=None, gen=RING_GEN, seed=13, **engine_kw):
     """One engine over a trace of prompts of ``lens`` tokens (``gen`` greedy
-    tokens each): outputs, wall, launches, the engine. Every logit row the
-    model returns must be finite."""
+    tokens each), after ``warm()``: tokens, launches, the engine and the
+    trace's record for ``_twin_gate``. Every logit row the engine's
+    dispatches return must be finite; one decode specialization, and no
+    new prefill_slots one after ``warm()``."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2595,15 +2738,19 @@ def _ring_trace(model, params, smi, label, lens=None, gen=RING_GEN, seed=13, **e
                     max_new_tokens=gen) for u, n in enumerate(lens)]
     eng = ServeEngine(model, params, num_slots=RING_SLOTS, max_seq=max(lens) + gen,
                       window=RING_WINDOW, device=DEVICE, **engine_kw)
+    eng.warm(lens, gen_tokens=2)
+    warmed = eng.compiles
     finite = []
-    eng.model = _finite_checked(model, finite)
+    _tap(eng, finite)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     outs = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    eng.model = model
+    eng.graphs.tap = None
+    check(eng.compiles["decode"] == 1 and eng.compiles["prefill_slots"] == warmed["prefill_slots"],
+          f"{label}: specializations {warmed} after warm() -> {eng.compiles}")
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     check(len(outs) == len(lens) and all(len(o.tokens) == gen for o in outs),
           f"{label}: not every request met its budget")
@@ -2614,8 +2761,9 @@ def _ring_trace(model, params, smi, label, lens=None, gen=RING_GEN, seed=13, **e
     log(f"[ring-main] {label} ({smi}): {len(outs)} requests, {tokens} tokens in {wall:.3f} s: "
         f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, latency p50 "
         f"{lat * 1e3:.1f} ms; {eng.steps} decode steps, {eng.prefill_dispatches} prefill "
-        f"dispatches, {eng.prefill_tokens} prefill tokens; launches {launches}")
-    return {o.uid: o.tokens for o in outs}, launches, eng
+        f"dispatches, {eng.prefill_tokens} prefill tokens; launches {launches}; compiles "
+        f"{eng.compiles}; graph pool {_pool_gb(eng)}")
+    return {o.uid: o.tokens for o in outs}, launches, eng, _record(outs, wall, eng, launches)
 
 
 def _ring_logit_parity(model, params, cfg):
@@ -2690,7 +2838,7 @@ def phase_main_path_ring(smi):
     cfg = get_config("stablelm-1.6b")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
-    toks, launches, eng = _ring_trace(model, params, smi, "ring, chunked, paged decode")
+    toks, launches, eng, graphed = _ring_trace(model, params, smi, "ring, chunked, paged decode")
     check(launches.get("paged_decode_ring", 0) > 0 and launches.get("flash_prefill", 0) > 0
           and not launches.get("swa_decode"), f"ring main path launches: {launches}")
     ring_bytes = sum(eng.cache[n].numel() * eng.cache[n].element_size() for n in ("k", "v"))
@@ -2699,16 +2847,23 @@ def phase_main_path_ring(smi):
     _profile_decode(eng, smi, label="profile ring paged")
     del eng
     torch.cuda.empty_cache()
+    # 5g: the same trace with every dispatch eager
+    *_, eng, eager = _ring_trace(model, params, smi, "ring, chunked, paged decode, eager",
+                                 graphs=False)
+    _twin_gate("rings", smi, graphed, eager)
+    _profile_decode(eng, smi, label="profile ring paged")
+    del eng
+    torch.cuda.empty_cache()
     _ring_logit_parity(model, params, cfg)
     torch.cuda.empty_cache()
-    toks_swa, l_swa, eng = _ring_trace(model, params, smi, "ring, chunked, swa decode",
+    toks_swa, l_swa, eng, _ = _ring_trace(model, params, smi, "ring, chunked, swa decode",
                                        paged_decode=False)
     check(l_swa.get("swa_decode", 0) > 0 and not l_swa.get("paged_decode_ring"),
           f"swa run launches: {l_swa}")
     _profile_decode(eng, smi, label="profile ring swa")
     del eng
     torch.cuda.empty_cache()
-    toks_pg, l_pg, eng = _ring_trace(model, params, smi, "windowed paged pool, page 16",
+    toks_pg, l_pg, eng, _ = _ring_trace(model, params, smi, "windowed paged pool, page 16",
                                      paged_cache=True, page_size=16)
     check(l_pg.get("paged_decode", 0) > 0, f"windowed paged run launches: {l_pg}")
     del eng
@@ -2720,7 +2875,7 @@ def phase_main_path_ring(smi):
     log(f"[ring-main] token agreement with the ring/paged-decode run: swa decode "
         f"{match(toks, toks_swa):.3f}, windowed paged pool {match(toks, toks_pg):.3f} of "
         "requests (bf16, random weights; no gate)")
-    _, l_il, eng = _ring_trace(model, params, smi, "ring, interleaved", lens=(64, 48, 33, 17),
+    _, l_il, eng, _ = _ring_trace(model, params, smi, "ring, interleaved", lens=(64, 48, 33, 17),
                                gen=16, prefill="interleaved")
     check(l_il.get("paged_decode_ring", 0) > 0 and not l_il.get("flash_prefill")
           and eng.prefill_dispatches == 0, f"interleaved run launches: {l_il}")
@@ -2733,26 +2888,118 @@ def phase_main_path_ring(smi):
 # ----------------------------------------------------------------- phase 5d
 def phase_serve_batch(smi, model, params):
     """The single-batch path at full width: batch 4, prompt 64, gen 64,
-    window 96 (the ring wraps at step 96); swa_decode must launch."""
+    window 96 (the ring wraps at step 96) through its decode-and-argmax
+    graph; swa_decode must launch; then with every step eager: the same
+    tokens and launches."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch.engine import synthetic_prompts
+    from repro_torch.launch.graphs import GraphCache
     from repro_torch.launch.serve import generate_batch
 
     cfg = model.cfg
     prompts = torch.from_numpy(synthetic_prompts(cfg, 4, 64, 0)).to(DEVICE)
+    runs = {}
+    for graphed in (True, False):
+        graphs = GraphCache(DEVICE, enabled=graphed)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        gen, t_prefill, t_gen = generate_batch(model, params, prompts, 64, window=96,
+                                               graphs=graphs)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        runs[graphed] = (gen, launches, graphs.counts)
+        check(gen.shape == (4, 64) and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+              f"serve_batch output {tuple(gen.shape)} out of range")
+        check(launches.get("swa_decode", 0) > 0 and not launches.get("paged_decode_ring"),
+              f"serve_batch launches: {launches}")
+        check(graphs.counts == {"decode": 1}, f"serve_batch compiles {graphs.counts}")
+        log(f"[serve-batch] ({smi}), {'graphed' if graphed else 'eager'}: batch 4, prompt 64 "
+            f"teacher-forced in {t_prefill:.3f} s, 64 tokens/row in {t_gen:.3f} s: "
+            f"{4 * 64 / t_gen:.1f} tok/s; window 96, ring 96 slots; launches {launches}; "
+            f"compiles {graphs.counts}; graph pool "
+            f"{graphs.pool_bytes() / 1e9:.3f} GB")
+        del graphs
+    same = torch.equal(runs[True][0], runs[False][0]) and runs[True][1] == runs[False][1]
+    expect(same, "graphs vs eager, serve_batch: tokens or launches differ")
+    log(f"[graphs] serve_batch ({smi}): graphed vs eager tokens and launches equal: {same}")
+
+
+# ----------------------------------------------------------------- phase 5h
+class _HostRead:
+    """A model whose decode reads a logit on the host (``.item()``): the
+    planted fault the decode graph's capture must refuse."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def decode(self, *a, **kw):
+        cache, logits = self.model.decode(*a, **kw)
+        return cache, logits * float(logits[0, 0].item() == logits[0, 0].item())
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+
+def phase_graph_fault(smi):
+    """5h: a host read inside a captured region raises at capture, with no
+    eager fallback: an engine (the smoke config, bf16) over a model whose
+    decode calls ``.item()`` admits a request eagerly, then its first decode
+    step's capture must raise; the same engine with ``graphs=False`` serves
+    the request. A capture whose Python allocates past the cyclic
+    collector's thresholds, beside a dead graph cache in a reference cycle,
+    must hold."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.launch.graphs import GraphCache
+    from repro_torch.models.model import build_model
+
+    cfg = get_smoke_config("stablelm-1.6b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    req = lambda: Request(uid=0, prompt=np.arange(1, 9, dtype=np.int32),  # noqa: E731
+                          max_new_tokens=3)
+    eng = ServeEngine(_HostRead(model), params, num_slots=2, max_seq=16, device=DEVICE)
+    eng.submit(req())
+    raised = None
+    try:
+        eng.run()
+    except Exception as e:  # noqa: BLE001 (any capture error passes the gate)
+        raised = e
+    check(raised is not None, "a host read inside the decode graph did not raise at capture")
+    check(eng.compiles["decode"] == 0, f"a failed capture was counted: {eng.compiles}")
+    del eng
+    gc.collect()
+    out = ServeEngine(_HostRead(model), params, num_slots=2, max_seq=16, device=DEVICE,
+                      graphs=False).run([req()])
+    check(len(out) == 1 and len(out[0].tokens) == 3, "the eager engine did not serve")
+    # a dead graph cache in a reference cycle (as engines are) is not
+    # collected inside another capture: CUDA refuses to destroy a graph
+    # while a stream captures, which invalidates the capture
+    dead = GraphCache(DEVICE)
+    x = torch.ones(256, device=DEVICE)
+    for _ in range(2):
+        dead("f", (), lambda t: t * 2, x)
+    dead.me = dead
+    del dead
+
+    def churn(t):
+        if torch.cuda.is_current_stream_capturing():
+            junk = [[] for _ in range(20000)]   # past the collector's thresholds
+            del junk
+        return t + 1
+
+    live = GraphCache(DEVICE)
+    got = [live("g", (), churn, torch.ones(4)).clone() for _ in range(2)]
     torch.cuda.synchronize()
-    ops.reset_launches()
-    gen, t_prefill, t_gen = generate_batch(model, params, prompts, 64, window=96)
-    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-    check(gen.shape == (4, 64) and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
-          f"serve_batch output {tuple(gen.shape)} out of range")
-    check(launches.get("swa_decode", 0) > 0 and not launches.get("paged_decode_ring"),
-          f"serve_batch launches: {launches}")
-    log(f"[serve-batch] ({smi}): batch 4, prompt 64 teacher-forced in {t_prefill:.3f} s, 64 "
-        f"tokens/row in {t_gen:.3f} s: {4 * 64 / t_gen:.1f} tok/s; window 96, ring 96 slots; "
-        f"launches {launches}")
+    check(all(g.tolist() == [2.0] * 4 for g in got) and gc.isenabled(),
+          f"a capture beside a dead graph in a cycle: {got}")
+    log(f"[graph-fault] ({smi}): a decode that calls .item() raised at capture "
+        f"({type(raised).__name__}: {str(raised).splitlines()[0][:120]}); with graphs=False "
+        "the same model served its request; a capture that allocates past the collector's "
+        "thresholds beside a dead graph in a reference cycle held")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3196,6 +3443,7 @@ def main() -> int:
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
+    phase_graph_fault(smi)
     rows.update(phase_channel_kernels(smi))
     train_launches = phase_training(smi)
     launches.update({k: train_launches[k] for k in CHANNEL})

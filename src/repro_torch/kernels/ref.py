@@ -158,7 +158,7 @@ def kv_quant_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     amax = xf.abs().amax(dim=-1)
     # divide by a tensor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which is not the IEEE quotient
-    scale = (amax / amax.new_tensor(127.0)).clamp(min=EPS)
+    scale = (amax / amax.new_full((), 127.0)).clamp(min=EPS)
     q = torch.round(xf / scale[..., None]).clamp(-127, 127)
     return q.to(torch.int8), scale
 
@@ -177,14 +177,15 @@ def int8_encode_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return kv_quant_ref(x)
 
 
-def live_slots(table_rows: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor | None,
+def page_slots(table_rows: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor | None,
                s: int, page: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Where a paged ring write of S tokens per row lands: (live (n, S)
-    bool, phys, off), the live tokens' pages and offsets in row-major order.
-    Row r's token j is live iff j < lengths[r] and j >= lengths[r] − T·page
-    (a row longer than its ring keeps its last T·page tokens, so no two live
-    tokens share a slot; ``lengths`` None: one token per row) and goes to
-    logical ring slot (starts[r] + j) mod T·page of ``table_rows`` (n, T)."""
+    bool, phys (n, S), off (n, S)) for every token, live or not. Row r's
+    token j is live iff j < lengths[r] and j >= lengths[r] − T·page (a row
+    longer than its ring keeps its last T·page tokens, so no two live tokens
+    share a slot; ``lengths`` None: one token per row) and goes to logical
+    ring slot (starts[r] + j) mod T·page of ``table_rows`` (n, T). No host
+    read: a CUDA graph can hold it."""
     cap = table_rows.shape[1] * page
     j = torch.arange(s, device=starts.device)[None, :]
     if lengths is None:
@@ -193,7 +194,15 @@ def live_slots(table_rows: torch.Tensor, starts: torch.Tensor, lengths: torch.Te
         n_tok = lengths.long()[:, None]
         live = (j < n_tok) & (j >= n_tok - cap)
     slot = (starts.long()[:, None] + j) % cap
-    return live, table_rows.long().gather(1, slot // page)[live], (slot % page)[live]
+    return live, table_rows.long().gather(1, slot // page), slot % page
+
+
+def live_slots(table_rows: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor | None,
+               s: int, page: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``page_slots`` with phys and off of the live tokens only, in
+    row-major order (a boolean mask: the host waits for its count)."""
+    live, phys, off = page_slots(table_rows, starts, lengths, s, page)
+    return live, phys[live], off[live]
 
 
 def kv_write_int8_ref(pool: dict, k: torch.Tensor, v: torch.Tensor, table_rows: torch.Tensor,

@@ -18,8 +18,9 @@ over either KV layout:
   ``watermark_pages`` free while other slots are live.
   With a window the slot's logical ring is ceil(window/page) pages.
 * ``prefill="chunked"``: every admission round is one batched prefill,
-  padded to a shape bucket (pow2 width × pow2 length ladder), split into a
-  cold dispatch (flash prefill) and a prefix-hit dispatch (suffix prefill).
+  padded to a shape bucket (pow2 width × pow2 length ladder; at its exact
+  shape with ``bucket_prefill=False``), split into a cold dispatch (flash
+  prefill) and a prefix-hit dispatch (suffix prefill).
   ``prefill="interleaved"``: prompt tokens are teacher-forced through the
   decode step, one per iteration (paged: pages arrive lazily); a prompt
   token's logits are discarded until the slot's last prompt token.
@@ -49,12 +50,27 @@ over either KV layout:
   demoted there and promoted back when a later prompt matches them.
 
 The caches and tables live on the engine's device and are updated in place
-(the reference donated them through ``jit``). A mesh (tensor-parallel
-serving) belongs to a later slice and raises at construction."""
+(the reference donated them through ``jit``); no cache tensor is ever
+rebound. Every hot-path dispatch goes through the engine's ``GraphCache``
+(``launch/graphs.py``): one CUDA graph per shape key, captured at its first
+use and replayed after, as the reference's jit specializations are traced
+once per shape. ``compiles`` counts them per entry point ("decode": one
+per engine; "prefill_slots" per cold (width, length) bucket;
+"prefill_suffix" per suffix (width, length, prefix-page width);
+"sample_rows", the batched sampler at the full slot width, one; with a
+draft "draft_prefill" per length bucket, "draft_propose" per whether any
+row samples, and "spec_verify" per (width, length, prefix-page width)).
+``graphs=False`` runs every dispatch eagerly: the same tokens and counters.
+What stays eager: page-table pushes, slot resets, copy-on-write page
+copies, host-tier copies, the greedy argmax, the speculative acceptance,
+rollback and position fix-up, and the drafts' round trip to the host. A
+mesh (tensor-parallel serving) belongs to a later slice and raises at
+construction."""
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import logging
 import time
 
@@ -63,6 +79,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import SyntheticCorpus
+from repro_torch.launch.graphs import GraphCache
 from repro_torch.launch.prefix_cache import PrefixCache
 from repro_torch.launch.sampling import (
     SamplingParams, request_stream, sample_rows, speculative_acceptance,
@@ -75,6 +92,10 @@ from repro_torch.models.transformer import KV_PLANES, reset_slot
 # Smallest padded prompt length of the bucket ladder.
 LEN_BUCKET_MIN = 8
 PREFILL_MODES = ("chunked", "interleaved")
+# The reference's compile counters (``prefill``: per-request prefill, not
+# ported yet, stays 0), and with a draft its speculative ones.
+COMPILE_ENTRIES = ("decode", "prefill", "prefill_slots", "prefill_suffix")
+SPEC_COMPILE_ENTRIES = ("spec_verify", "draft_propose", "draft_prefill")
 
 
 def bucket_width(n: int, num_slots: int) -> int:
@@ -362,7 +383,10 @@ class ServeEngine:
     "eos"); ``seed`` keys the streams of sampled requests without a seed of
     their own. The clock is ``time.monotonic``. ``device`` is where the
     caches live and the model runs (``"cuda"`` unless the caller asks for
-    the CPU)."""
+    the CPU). ``bucket_prefill=False`` dispatches each admission round at
+    its exact (width, length), so every distinct shape is a new
+    specialization. ``graphs=False`` runs every dispatch eagerly instead of
+    through CUDA graphs (the same tokens and counters)."""
 
     def __init__(
         self,
@@ -388,6 +412,8 @@ class ServeEngine:
         spec_tokens: int = 0,
         eos_id: int | None = None,
         seed: int = 0,
+        bucket_prefill: bool = True,
+        graphs: bool = True,
         mesh=None,
     ):
         if mesh is not None:
@@ -445,6 +471,10 @@ class ServeEngine:
         self.kv_dtype = kv_dtype
         self.eos_id = eos_id
         self.seed = seed
+        self.bucket_prefill = bucket_prefill
+        self.graphs = GraphCache(
+            self.device, enabled=graphs,
+            entries=COMPILE_ENTRIES + (SPEC_COMPILE_ENTRIES if speculative else ()))
         self._t0 = time.monotonic()
 
         self.prefix_disabled_reason = None
@@ -511,7 +541,7 @@ class ServeEngine:
             self.draft = make_draft_backend(
                 draft_model, draft_params, num_slots=num_slots,
                 cap=min(self.cap, self.pool.capacity * self.page_size),
-                spec_tokens=spec_tokens, device=self.device,
+                spec_tokens=spec_tokens, device=self.device, graphs=self.graphs,
             )
             # host mirror of each draft row's consumed-token count; -1 =
             # diverged or dead, forcing a re-sync prefill before the next
@@ -558,22 +588,31 @@ class ServeEngine:
         self.spec_emitted = 0
         if self.paged_cache:
             self.pool.peak_in_use = self.pool.in_use
+        if self.prefix is not None:
+            self.prefix.reset_stats()
         self.reset_clock()
 
     def warm(self, prompt_lens, *, gen_tokens: int = 2,
              sampling: SamplingParams | None = None) -> None:
         """Run every (width, length) bucket a trace of ``prompt_lens`` can
-        dispatch once (first-use costs: kernel builds and loads, allocator
-        growth; interleaved admission only sees width 1), then clear the
-        prefix index and the host tier and reset metrics. Pass ``sampling``
-        when the trace will sample, so the sampler's first use is here too."""
+        dispatch once (first-use costs: graph captures, kernel builds and
+        loads, allocator growth; interleaved admission only sees width 1;
+        without ``bucket_prefill`` every exact (width, length)), then clear
+        the prefix index and the host tier and reset metrics. Each warm run
+        starts from an empty prefix index, so that its round is a cold one
+        at its bucket (the warm prompts are all zeros and would otherwise
+        hit the pages the previous run published). Pass ``sampling`` when
+        the trace will sample, so the sampler's first use is here too."""
         chunked = self.prefill_mode == "chunked"
         for p in sorted(set(prompt_lens)):
             for w in range(1, self.num_slots + 1) if chunked else [1]:
-                key = (bucket_width(w, self.num_slots), bucket_length(p)) if chunked else (w, p)
+                key = ((bucket_width(w, self.num_slots), bucket_length(p))
+                       if chunked and self.bucket_prefill else (w, p))
                 if key in self._warmed:
                     continue
                 self._warmed.add(key)
+                if self.prefix is not None:
+                    self.prefix.clear()
                 self.run([
                     Request(uid=-1 - j, prompt=np.zeros(p, np.int32),
                             max_new_tokens=max(gen_tokens, 1), sampling=sampling)
@@ -584,6 +623,22 @@ class ServeEngine:
         if self.host is not None:
             self.host.clear()
         self.reset_metrics()
+
+    @property
+    def compiles(self) -> dict[str, int]:
+        """Specializations (captured graphs; keys seen with ``graphs=False``)
+        per hot-path entry point since construction. Not reset by
+        ``reset_metrics``, as the reference's are not: captured graphs
+        outlive a metrics window, and bucketing keeps these bounded as
+        traffic diversity grows."""
+        return dict(self.graphs.counts)
+
+    @property
+    def prefill_compiles(self) -> int:
+        """``prefill_slots`` + suffix + per-request prefill specializations:
+        what the bucket ladder bounds."""
+        c = self.graphs.counts
+        return c["prefill_slots"] + c["prefill_suffix"] + c["prefill"]
 
     @property
     def pool_stats(self) -> dict | None:
@@ -679,6 +734,12 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    @staticmethod
+    def _host(a: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor for the graph cache, which copies it
+        into its device buffers."""
+        return torch.from_numpy(np.ascontiguousarray(a))
+
     def _greedy(self, logits: torch.Tensor) -> list[int]:
         """Argmax over the real vocabulary, one host transfer per batch."""
         return logits[:, : self.cfg.vocab_size].argmax(dim=-1).tolist()
@@ -694,8 +755,12 @@ class ServeEngine:
     def _next_tokens(self, logits: torch.Tensor, rows: dict[int, int]) -> dict[int, int]:
         """The next token of each emitting slot (``rows``: slot → its row of
         ``logits``): greedy slots take the batched argmax, sampled slots
-        one draw each from one batched filter-and-draw pass, each with one
-        uniform from its own stream. At most two host transfers."""
+        one draw each from one batched filter-and-draw pass at the full slot
+        width (one specialization, as the reference's ``_sample_rows``),
+        each with one uniform from its own stream; greedy and idle rows
+        ride along on row 0 with a dummy uniform, and their draws are
+        dropped. A row's draw depends only on its own logits and uniform.
+        At most two host transfers."""
         greedy = [i for i in rows if self.slots[i].rng is None]
         samp = [i for i in rows if self.slots[i].rng is not None]
         out: dict[int, int] = {}
@@ -703,17 +768,23 @@ class ServeEngine:
             g = self._greedy(logits)
             out.update((i, g[rows[i]]) for i in greedy)
         if samp:
-            sps = [self.slots[i].req.sampling for i in samp]
-            u = np.array([self.slots[i].rng.random() for i in samp])
-            idx = self._tensor(np.array([rows[i] for i in samp], np.int64))
-            toks = sample_rows(
-                logits.index_select(0, idx), self._tensor(u),
-                self._tensor(np.array([sp.temperature for sp in sps], np.float32)),
-                self._tensor(np.array([sp.top_k for sp in sps], np.int64)),
-                self._tensor(np.array([sp.top_p for sp in sps], np.float32)),
-                self.cfg.vocab_size,
+            n = self.num_slots
+            src = np.zeros(n, np.int64)
+            u = np.full(n, 0.5)
+            temps = np.ones(n, np.float32)
+            topks = np.zeros(n, np.int64)
+            topps = np.ones(n, np.float32)
+            for i in samp:
+                sp = self.slots[i].req.sampling
+                src[i] = rows[i]
+                u[i] = self.slots[i].rng.random()
+                temps[i], topks[i], topps[i] = sp.temperature, sp.top_k, sp.top_p
+            toks = self.graphs(
+                "sample_rows", (), functools.partial(sample_rows, vocab_size=self.cfg.vocab_size),
+                logits.index_select(0, self._tensor(src)), self._host(u), self._host(temps),
+                self._host(topks), self._host(topps),
             ).tolist()
-            out.update(zip(samp, toks))
+            out.update((i, toks[i]) for i in samp)
         return out
 
     def _done(self, slot: _Slot, last: int) -> bool:
@@ -881,8 +952,10 @@ class ServeEngine:
             if not group:
                 continue
             sufs = [self.slots[i].feed[self.slots[i].prefix_len:] for i in group]
-            width = bucket_width(len(group), self.num_slots)
-            padded_len = bucket_length(max(p.size for p in sufs))
+            width, padded_len = len(group), max(p.size for p in sufs)
+            if self.bucket_prefill:
+                width = bucket_width(width, self.num_slots)
+                padded_len = bucket_length(padded_len)
             tokens = np.zeros((width, padded_len), np.int32)
             lengths = np.zeros(width, np.int32)
             starts = np.zeros(width, np.int32)
@@ -902,16 +975,19 @@ class ServeEngine:
                 slot_ids[len(group):] = spare[: width - len(group)]
             if suffix:
                 pw = bucket_pages(-(-int(starts.max()) // self.page_size), self.table_width)
-                self.cache, logits = self.model.prefill_slots(
-                    self.params, self.cache, self._tensor(tokens), self._tensor(lengths),
-                    self._tensor(slot_ids), starts=self._tensor(starts), prefix_pages=pw,
-                )
+                logits = self.graphs(
+                    "prefill_suffix", (pw,),
+                    lambda t, n, s, st: self.model.prefill_slots(
+                        self.params, self.cache, t, n, s, starts=st, prefix_pages=pw)[1],
+                    self._host(tokens), self._host(lengths), self._host(slot_ids),
+                    self._host(starts))
                 self.suffix_dispatches += 1
             else:
-                self.cache, logits = self.model.prefill_slots(
-                    self.params, self.cache, self._tensor(tokens), self._tensor(lengths),
-                    self._tensor(slot_ids), window=self.window,
-                )
+                logits = self.graphs(
+                    "prefill_slots", (),
+                    lambda t, n, s: self.model.prefill_slots(
+                        self.params, self.cache, t, n, s, window=self.window)[1],
+                    self._host(tokens), self._host(lengths), self._host(slot_ids))
                 self.cold_dispatches += 1
             self.prefill_dispatches += 1
             self.prefill_tokens += int(sum(p.size for p in sufs))
@@ -1157,7 +1233,7 @@ class ServeEngine:
                 toks[i, :p] = np.concatenate(
                     [slot.req.prompt, np.asarray(slot.generated, np.int32)])[:p]
                 lens[i] = p
-            self.draft.prefill_rows(self._tensor(toks), self._tensor(lens))
+            self.draft.prefill_rows(self._host(toks), self._host(lens))
             for i in stale:
                 self._draft_pos[i] = self.slots[i].pos_host
         # per-row depth: never past max_new (the correction or bonus token
@@ -1187,9 +1263,8 @@ class ServeEngine:
             block = self.slots[i].rng.random(2 * kk + 2)   # one advance per round
             u_draft[i], u_acc[i] = block[:kk], block[kk:]
         drafts_dev, logq = self.draft.propose(
-            self._tensor(feed), self._tensor(u_draft) if samp else None,
-            self._tensor(greedy), self._tensor(temps), self._tensor(topks),
-            self._tensor(topps))
+            self._host(feed), self._host(u_draft) if samp else None,
+            self._host(greedy), self._host(temps), self._host(topks), self._host(topps))
         drafts = drafts_dev.cpu().numpy()                  # (num_slots, k)
         # one verify dispatch: row j feeds [next_feed, d_1..d_kr] as a suffix
         # at starts = pos over the shared page table
@@ -1211,11 +1286,12 @@ class ServeEngine:
         in_round = set(live)
         slot_ids[n:] = [s for s in range(self.num_slots) if s not in in_round][: width - n]
         pw = bucket_pages(-(-int(starts.max()) // self.page_size), self.table_width)
-        self.cache, vlog = self.model.prefill_slots(
-            self.params, self.cache, self._tensor(tokens), self._tensor(lengths),
-            self._tensor(slot_ids), starts=self._tensor(starts), prefix_pages=pw,
-            return_all_logits=True,
-        )
+        vlog = self.graphs(
+            "spec_verify", (pw,),
+            lambda t, n, s, st: self.model.prefill_slots(
+                self.params, self.cache, t, n, s, starts=st, prefix_pages=pw,
+                return_all_logits=True)[1],
+            self._host(tokens), self._host(lengths), self._host(slot_ids), self._host(starts))
         self.spec_rounds += 1
         self.steps += 1
         # acceptance: one batched argmax transfer for the greedy rows, one
@@ -1285,6 +1361,18 @@ class ServeEngine:
         self.draft.commit(mask_t, pos_t)
         self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
 
+    def decode_step(self, feed: np.ndarray) -> torch.Tensor:
+        """One batched decode step over every slot: feed (num_slots, 1)
+        int32 on the host → logits (num_slots, Vp), the decode graph's
+        static output. Every slot writes its token at its position and
+        advances ``pos``; the graph reads the cache planes, ``pos`` and the
+        page table in place."""
+        return self.graphs(
+            "decode", (),
+            lambda f: self.model.decode(self.params, self.cache, f, window=self.window,
+                                        paged=self.paged_decode)[1],
+            self._host(feed))
+
     def step(self) -> list[RequestOutput]:
         """One iteration: admit → lazy pages (paged pool) → one batched
         decode step (or, with a draft, one speculative round) → retire. A
@@ -1304,8 +1392,7 @@ class ServeEngine:
             feed = np.zeros((self.num_slots, 1), np.int32)
             for i in live:
                 feed[i, 0] = self.slots[i].next_feed
-            self.cache, logits = self.model.decode(self.params, self.cache, self._tensor(feed),
-                                                   window=self.window, paged=self.paged_decode)
+            logits = self.decode_step(feed)
             self.steps += 1
             if self.paged_cache:
                 self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
@@ -1370,7 +1457,7 @@ def serve_continuous(
     num_pages: int = 0, watermark_pages: int = 0, prefix_cache: bool = True,
     kv_dtype: str = "fp", host_pages: int = 0, swap: bool = True,
     draft: str | None = None, spec_tokens: int = 0, sampling: SamplingParams | None = None,
-    seed: int = 0, device="cuda", log_fn=print,
+    bucket_prefill: bool = True, seed: int = 0, device="cuda", log_fn=print,
 ) -> dict:
     """Build a model with seeded random weights and an engine (the shared
     paged pool unless ``paged_cache=False``), serve a synthetic trace after
@@ -1379,7 +1466,9 @@ def serve_continuous(
     arch`` gives a same-params draft): it proposes ``spec_tokens`` tokens per
     slot per round, verified in one target dispatch. ``sampling`` samples
     every request, request r on the seed ``sampling.seed + r`` when a seed
-    is given."""
+    is given. ``bucket_prefill=False`` dispatches admission rounds at their
+    exact shapes. The result reports ``compiles`` (specializations per
+    entry point, the warm-up's included)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed), device)
@@ -1394,7 +1483,7 @@ def serve_continuous(
         page_size=page_size, num_pages=num_pages, watermark_pages=watermark_pages,
         prefix_cache=prefix_cache, kv_dtype=kv_dtype, host_pages=host_pages, swap=swap,
         draft_model=draft_model, draft_params=draft_params, spec_tokens=spec_tokens,
-        seed=seed, device=device,
+        bucket_prefill=bucket_prefill, seed=seed, device=device,
     )
     reqs = make_requests(cfg, n_requests=n_requests, prompt_len=prompt_len,
                          gen_tokens=gen_tokens, seed=seed)
@@ -1430,6 +1519,8 @@ def serve_continuous(
         "prefill_tokens": engine.prefill_tokens,
         "engine_steps": engine.steps,
         "prefill_dispatches": engine.prefill_dispatches,
+        "bucket_prefill": engine.bucket_prefill,
+        "compiles": engine.compiles,
         "pool": ps,
         "wall_seconds": wall,
         "tokens_per_second": total / max(wall, 1e-9),

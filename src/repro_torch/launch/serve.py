@@ -5,7 +5,10 @@ held against) and, with ``--continuous``, the continuous-batching engine
 (the shared paged KV pool with prefix sharing by default, or per-slot
 contiguous rings with ``--no-paged-cache``; chunked or interleaved prefill;
 sliding windows; temperature/top-k/top-p sampling; speculative decoding
-with ``--draft``/``--spec-tokens``).
+with ``--draft``/``--spec-tokens``). Every hot-path dispatch replays a CUDA
+graph captured once per shape bucket (``launch/graphs.py``);
+``--no-bucket-prefill`` dispatches admission rounds at their exact shapes,
+one prefill graph per distinct shape.
 
     # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 4 \\
@@ -41,43 +44,53 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.graphs import GraphCache
 from repro_torch.models.model import build_model
 
 
 def generate_batch(model, params, prompts: torch.Tensor, gen_tokens: int, *,
-                   window: int = 0) -> tuple[torch.Tensor, float, float]:
+                   window: int = 0, graphs: GraphCache | None = None,
+                   ) -> tuple[torch.Tensor, float, float]:
     """Lockstep greedy generation over one fixed batch: a ring cache of
     prompt + gen slots (the window's, when smaller), the prompts (B, P)
     teacher-forced through the decode step, then ``gen_tokens`` greedy
-    tokens. Decode attention streams every ring slot (``swa_decode``).
-    Returns (generated (B, gen_tokens) int64 on the CPU, prefill seconds,
-    decode seconds); the argmax stays on the device until the end."""
+    tokens. Decode attention streams every ring slot (``swa_decode``). The
+    decode step and its argmax are one specialization of ``graphs`` (a
+    fresh ``GraphCache`` on the prompts' device when None: one CUDA graph
+    on the card), replayed for every prompt and generated token; each
+    replay's token is copied into the next one's input. Returns (generated
+    (B, gen_tokens) int64 on the CPU, prefill seconds, decode seconds); the
+    tokens stay on the device until the end."""
     b, p = prompts.shape
     device = prompts.device
     vocab = model.cfg.vocab_size
+    graphs = graphs if graphs is not None else GraphCache(device)
+    prompts = prompts.long()
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     cache = model.init_cache(b, p + gen_tokens, window=window, device=device)
+
+    def step(tok):
+        _, logits = model.decode(params, cache, tok, window=window, paged=False)
+        return logits[:, :vocab].argmax(dim=-1, keepdim=True)
+
     t0 = time.perf_counter()
-    logits = None
+    tok = None
     for i in range(p):
-        cache, logits = model.decode(params, cache, prompts[:, i:i + 1], window=window,
-                                     paged=False)
+        tok = graphs("decode", (), step, prompts[:, i:i + 1])
     sync()
     t_prefill = time.perf_counter() - t0
-    generated = []
-    tok = logits[:, :vocab].argmax(dim=-1, keepdim=True)
+    generated = torch.empty((b, gen_tokens), dtype=torch.long, device=device)
     t0 = time.perf_counter()
-    for _ in range(gen_tokens):
-        generated.append(tok)
-        cache, logits = model.decode(params, cache, tok, window=window, paged=False)
-        tok = logits[:, :vocab].argmax(dim=-1, keepdim=True)
+    for j in range(gen_tokens):
+        generated[:, j:j + 1] = tok   # before the next replay rewrites it
+        tok = graphs("decode", (), step, tok)
     sync()
     t_gen = time.perf_counter() - t0
-    return torch.cat(generated, dim=1).cpu(), t_prefill, t_gen
+    return generated.cpu(), t_prefill, t_gen
 
 
 def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
@@ -92,7 +105,9 @@ def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4, prompt_len: in
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed), device)
     prompts = torch.from_numpy(synthetic_prompts(cfg, batch, prompt_len, seed)).to(device)
-    gen, t_prefill, t_gen = generate_batch(model, params, prompts, gen_tokens, window=window)
+    graphs = GraphCache(device)
+    gen, t_prefill, t_gen = generate_batch(model, params, prompts, gen_tokens, window=window,
+                                           graphs=graphs)
     result = {
         "arch": cfg.name,
         "device": str(torch.device(device)),
@@ -103,6 +118,7 @@ def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4, prompt_len: in
         "prefill_seconds": t_prefill,
         "decode_seconds": t_gen,
         "tokens_per_second": batch * gen_tokens / max(t_gen, 1e-9),
+        "compiles": dict(graphs.counts),
         "generated": gen.tolist(),
     }
     log_fn(f"{cfg.name}: prefill {prompt_len} tok in {t_prefill:.2f}s; generated "
@@ -131,6 +147,9 @@ def main(argv=None):
                     help="[continuous] number of queued requests")
     ap.add_argument("--prefill", choices=("chunked", "interleaved"), default="chunked",
                     help="[continuous] prompt admission mode")
+    ap.add_argument("--no-bucket-prefill", dest="bucket_prefill", action="store_false",
+                    help="[continuous] disable shape-bucketed admission rounds (one prefill "
+                    "graph per distinct round shape)")
     ap.add_argument("--no-paged-decode", dest="paged_decode", action="store_false",
                     help="[continuous] ring decode streams every slot instead of skipping "
                     "each slot's dead pages (the same tokens)")
@@ -236,8 +255,8 @@ def main(argv=None):
         page_size=args.page_size, num_pages=args.num_pages,
         watermark_pages=args.watermark_pages, prefix_cache=args.prefix_cache,
         kv_dtype=args.kv_dtype, host_pages=args.host_pages, swap=args.swap,
-        draft=args.draft, spec_tokens=args.spec_tokens, sampling=sampling, seed=args.seed,
-        device=args.device,
+        draft=args.draft, spec_tokens=args.spec_tokens, sampling=sampling,
+        bucket_prefill=args.bucket_prefill, seed=args.seed, device=args.device,
     )
 
 

@@ -29,12 +29,23 @@ truncates every row to its accepted length.
 Random draws: the engine passes each sampled row k uniforms per round from
 the request's stream, disjoint from the uniforms of its acceptance test.
 
+Both ends run through the engine's ``GraphCache``: the re-sync prefill as
+"draft_prefill", one graph per length bucket, and the k proposal steps with
+the trailing step as ONE "draft_propose" graph, keyed by whether any row
+samples (the all-greedy variant skips the filter and returns no q). That
+second key is the one place where the port's count may exceed the
+reference's, whose one propose trace draws for every row. The proposals
+and their log-probs are read by the acceptance test after the verify
+graph has replayed, so ``propose`` copies them out of the graph pool into
+buffers of the draft's own.
+
 The reference's recurrent draft (``XlstmDraft``, snapshot rollback for
 ``ssm`` models) needs the xlstm family, which the port does not have yet."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.graphs import GraphCache
 from repro_torch.launch.sampling import draw, filter_logits
 
 RING_ALIGN = 64  # the ring decode kernel's smallest page
@@ -63,8 +74,10 @@ class TransformerDraft:
     """Ring-cache draft backend (KV-cache models)."""
 
     def __init__(self, model, params: dict, *, num_slots: int, cap: int, spec_tokens: int,
-                 device):
+                 device, graphs: GraphCache | None = None):
         self.model = model
+        # the engine's cache (one pool, one set of counts), else its own
+        self.graphs = graphs if graphs is not None else GraphCache(device)
         # lm_logits multiplies in fp32: upcast the unembedding once, as the
         # engine does for the target
         if not model.cfg.tie_embeddings:
@@ -76,34 +89,52 @@ class TransformerDraft:
         self.cap = -(-(cap + spec_tokens + 1) // RING_ALIGN) * RING_ALIGN
         self.cache = model.init_slot_cache(num_slots, self.cap, device=device)
         self._slots = torch.arange(num_slots, device=device)
+        self._drafts = self._logq = None   # the proposals, outside the graph pool
 
     def prefill_rows(self, tokens: torch.Tensor, lengths: torch.Tensor) -> None:
         """Re-sync the rows with ``lengths > 0``: row r's first lengths[r]
         tokens overwrite its ring from slot 0 and its position becomes
         lengths[r]; length-0 rows are untouched."""
-        self.cache, _ = self.model.prefill_slots(self.params, self.cache, tokens, lengths,
-                                                 self._slots)
+        def fn(t, n):
+            self.model.prefill_slots(self.params, self.cache, t, n, self._slots)
+            return ()
 
-    def propose(self, feed: torch.Tensor, u: torch.Tensor | None, greedy: torch.Tensor,
-                temps: torch.Tensor, topks: torch.Tensor,
-                topps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """k draft tokens for every row: (drafts (B, k) int32, logq (B, k, V)
-        or None when ``u`` is None, i.e. every row is greedy). ``u`` (B, k)
-        holds each row's uniforms of this round. The rings advance k+1
-        positions."""
+        self.graphs("draft_prefill", (), fn, tokens, lengths)
+
+    def _propose(self, feed, u, greedy, temps, topks, topps):
         vocab = self.model.cfg.vocab_size
         cur = feed.to(torch.int32)
         ds, lqs = [], []
         for t in range(self.spec_tokens):
-            self.cache, logits = self.model.decode(self.params, self.cache, cur[:, None])
+            _, logits = self.model.decode(self.params, self.cache, cur[:, None])
             cur, lq = _propose_step(logits, None if u is None else u[:, t], greedy, temps,
                                     topks, topps, vocab)
             ds.append(cur)
             lqs.append(lq)
         # the trailing step feeds the last draft: a fully accepted row needs
         # the draft to have seen all k proposals in the next round
-        self.cache, _ = self.model.decode(self.params, self.cache, cur[:, None])
+        self.model.decode(self.params, self.cache, cur[:, None])
         return torch.stack(ds, dim=1), None if u is None else torch.stack(lqs, dim=1)
+
+    def propose(self, feed: torch.Tensor, u: torch.Tensor | None, greedy: torch.Tensor,
+                temps: torch.Tensor, topks: torch.Tensor,
+                topps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """k draft tokens for every row: (drafts (B, k) int32, logq (B, k, V)
+        or None when ``u`` is None, i.e. every row is greedy), in the
+        draft's own buffers (valid until the next ``propose``). ``u`` (B, k)
+        holds each row's uniforms of this round. The rings advance k+1
+        positions."""
+        drafts, logq = self.graphs("draft_propose", (u is not None,), self._propose, feed, u,
+                                   greedy, temps, topks, topps)
+        if self._drafts is None:
+            self._drafts = torch.empty_like(drafts)
+        self._drafts.copy_(drafts)
+        if logq is None:
+            return self._drafts, None
+        if self._logq is None:
+            self._logq = torch.empty_like(logq)
+        self._logq.copy_(logq)
+        return self._drafts, self._logq
 
     def commit(self, mask: torch.Tensor, new_pos: torch.Tensor) -> None:
         """Truncate the rows in ``mask`` to their accepted position (a
@@ -112,7 +143,7 @@ class TransformerDraft:
 
 
 def make_draft_backend(model, params: dict, *, num_slots: int, cap: int, spec_tokens: int,
-                       device) -> TransformerDraft:
+                       device, graphs: GraphCache | None = None) -> TransformerDraft:
     """The draft's state layout for a model: a ring cache for the models
     with the slot-cache API. Recurrent (``ssm``) drafts are not ported."""
     if model.cfg.arch_type == "ssm":
@@ -120,4 +151,4 @@ def make_draft_backend(model, params: dict, *, num_slots: int, cap: int, spec_to
             f"draft {model.cfg.name!r} is recurrent (ssm): its snapshot-rollback backend "
             "needs the xlstm family, a later slice of the port")
     return TransformerDraft(model, params, num_slots=num_slots, cap=cap,
-                            spec_tokens=spec_tokens, device=device)
+                            spec_tokens=spec_tokens, device=device, graphs=graphs)

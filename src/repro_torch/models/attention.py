@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gather_pages_ref, live_slots
+from repro_torch.kernels.ref import gather_pages_ref, page_slots
 from repro_torch.models.common import NEG_INF, default_q_chunk
 from repro_torch.models.layers import apply_rope
 
@@ -126,13 +126,19 @@ def fill_pages_rows(
     keeps only its last T·page tokens). So on an int8 pool only the written
     slots are quantized (``ops.kv_write_int8``, which works the slots out on
     the card), and shared prefix pages keep their bits: what the
-    reference's masked requantization of whole gathered rows gives."""
+    reference's masked requantization of whole gathered rows gives. An fp
+    pool takes all n·S tokens in one index store per plane, each dead token
+    sent to its offset on scratch page 0 (where dead tokens collide in no
+    defined order, as dead decode rows do): no boolean mask, so no host
+    wait, and outside page 0 the pool a masked store of the live tokens
+    leaves."""
     if "ks" in pool:
         ops.kv_write_int8(pool, k, v, table_rows, starts, lengths)
         return
-    live, phys, off = live_slots(table_rows, starts, lengths, k.shape[1], pool["k"].shape[1])
-    pool["k"][phys, off] = k[live]
-    pool["v"][phys, off] = v[live]
+    live, phys, off = page_slots(table_rows, starts, lengths, k.shape[1], pool["k"].shape[1])
+    idx = (torch.where(live, phys, torch.zeros_like(phys)).reshape(-1), off.reshape(-1))
+    pool["k"].index_put_(idx, k.reshape(-1, *k.shape[2:]))
+    pool["v"].index_put_(idx, v.reshape(-1, *v.shape[2:]))
 
 
 def decode_attend_paged(

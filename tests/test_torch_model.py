@@ -189,7 +189,8 @@ def test_rounds_match_reference_bfloat16():
 
 def test_batched_prefill_matches_own_looped_prefill():
     """One batched cold dispatch (with a length-0 padding row) against one
-    dispatch per row: same logits, same pools, same positions. Not a bitwise
+    dispatch per row: same logits, same pools outside scratch page 0 (the
+    fp write sends dead tokens there), same positions. Not a bitwise
     contract: batch shape changes the matmul blocking, so fp32 allclose."""
     cfg, model, params, _, _ = _both("float32")
     rng = np.random.default_rng(2)
@@ -209,7 +210,8 @@ def test_batched_prefill_matches_own_looped_prefill():
                                     T(lens[r:r + 1]), T(np.array([slot], np.int32)))
         looped.append(lg[0])
     torch.testing.assert_close(batched[:2], torch.stack(looped), rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(caches[0]["k"], caches[1]["k"], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(caches[0]["k"][:, 1:], caches[1]["k"][:, 1:], rtol=1e-5,
+                               atol=1e-5)
     assert caches[0]["pos"].tolist() == caches[1]["pos"].tolist() == [13, 0, 4]
 
 
