@@ -109,6 +109,14 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    under a same-params and a foreign draft, on fp and on int8 pages): tokens,
    finish reasons and the round counters exactly, the tokens also the
    reference's plain engine's; the verify and the draft's kernels launched;
+4e. golden router: the reference router's float32 traces
+   (``golden_stablelm_smoke_router.json``: 2 replicas over tight fp pools with
+   prefix sharing, arrivals over 9 rounds of a virtual clock advanced once
+   per router round, a priority pair, a deadline; replica 1 killed with no
+   host tier, every migrated request re-prefilled, and stalled with tiers of
+   32 pages, live slots carrying their pages): tokens, finish reasons, the
+   shed record, the router's counters, each replica's preemptions, swaps
+   and slot history exactly;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -136,6 +144,29 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    trace over 4 slots (other batch widths, whose bf16 GEMMs may round
    otherwise). The batched sampler's law over 16384 draws of one verify
    logit row within 0.05 total variation of softmax(filter_logits(row));
+5i. router: phase 5's 16 requests arriving 20 ms apart, served in real time
+   by ``ServeRouter`` over 2 replicas of phase 5's engine with host tiers of
+   256 pages, sharing one params dict: fault-free, kill:1@8, stall:1@8,
+   slow:1@4@0.05, a sampled pair (fault-free, kill:1@8), and kill:1@8 over
+   replicas without a tier (every migrated request re-prefills). Gates:
+   every request finishes, none is shed, kill and stall record one
+   migration; a faulted run's tokens are its fault-free run's for every
+   request that did not re-prefill its history (those are printed: in bf16
+   the prefill's K/V are not the decode step's), also where a request was
+   admitted in rounds of other shapes (counted apart); device memory grows
+   by less than one params' size from one replica to two. The same runs at
+   the smoke config in float32 gate every request, the re-prefilled ones
+   too.
+   Printed per run: tok/s, TTFT and latency p50 from arrival,
+   ``router_stats``, each replica's ``compiles`` and graph pool, the
+   first-use captures inside the trace, the kernels' launches;
+5j. lifecycle, one engine at full width on a virtual clock: a dry pool
+   preempts the old priority -1 request (at priority 0: the youngest); a
+   swapped mid-prompt victim past its deadline is shed and its tier entry
+   released; ``max_wall_s`` retires a slot with "timeout" and publishes
+   none of its pages; 4 mid-decode requests (greedy and sampled) exported
+   with their pages and imported by a second engine continue token for
+   token; ``prefix_probe`` changes no counter, refcount or LRU order;
 5b. int8 main path: the same model over an int8 pool with a host tier; 8
    cold prompts of 256-384 tokens x 64 tokens in a pool tight enough that
    slots are preempted and swapped out, then 8 shared-prefix prompts x 32
@@ -1732,6 +1763,12 @@ def _numel(tree) -> int:
     return tree.numel()
 
 
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -2149,6 +2186,84 @@ def phase_golden_spec():
         del eng
 
 
+# ----------------------------------------------------------------- phase 4e
+ROUTER_COUNTERS = ("migrations", "migrated_requests", "affinity_routed", "balance_routed",
+                   "retries", "forced_placements", "preemptions", "timeouts", "shed_requests",
+                   "replica_requests", "replica_steps", "healthy")
+ROUTER_POOL_COUNTERS = ("preemptions", "swapped_out_pages", "swapped_in_pages",
+                        "prefix_hit_pages", "cow_copies", "prefill_tokens")
+
+
+def _router_summary(router) -> dict:
+    """What a router run must reproduce of the reference's: tokens, finish
+    reasons, sheds, the router's counters, each replica's pool counters and
+    slot history (the golden file's keys)."""
+    rs = router.router_stats
+    outs = sorted(router.finished, key=lambda o: o.uid)
+    return {
+        "tokens": [[o.uid, [int(t) for t in o.tokens]] for o in outs],
+        "finish_reasons": [[o.uid, o.finish_reason] for o in outs],
+        "shed": [[e.uid, e.reason] for e in router.shed_errors],
+        "counters": {k: rs[k] for k in ROUTER_COUNTERS},
+        "pool": [{k: e.pool_stats[k] for k in ROUTER_POOL_COUNTERS} for e in router.engines],
+        "slot_history": [sorted([int(u), list(v)] for u, v in e.slot_history.items())
+                         for e in router.engines],
+    }
+
+
+def phase_golden_router():
+    """4e: the reference router's float32 traces
+    (``golden_stablelm_smoke_router.json``: 2 replicas over tight fp pools
+    with prefix sharing, staggered arrivals on a virtual clock advanced once
+    per router round, a priority pair, a deadline; replica 1 killed without
+    host tiers (re-prefill) and stalled with tiers of 32 pages (carried
+    pages)): tokens, finish reasons, sheds, the router's counters, each
+    replica's preemptions, swaps and slot history exactly."""
+    import torch
+
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request
+    from repro_torch.launch.router import ServeRouter, parse_fault_spec
+    from repro_torch.models.model import build_model
+
+    g = json.loads((ROOT / "src/repro_torch/testdata/golden_stablelm_smoke_router.json")
+                   .read_text())
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), dtype="float32")
+    model = build_model(cfg)
+    params = params_from_numpy(numpy_params(cfg, g["seed"]), cfg, DEVICE)
+    for run in g["runs"]:
+        clock = [0.0]
+        router = ServeRouter(model, params, fault_plan=parse_fault_spec(run["fault"]),
+                             time_fn=lambda: clock[0], host_pages=run["host_pages"],
+                             device=DEVICE, **g["router"], **g["engine"])
+        todo = [Request(uid=q["uid"], prompt=np.asarray(q["prompt"], np.int32),
+                        max_new_tokens=q["max_new_tokens"], arrival_time=q["arrival_time"],
+                        priority=q["priority"], deadline_s=q["deadline_s"])
+                for q in g["requests"]]
+        before = dict(ops.LAUNCHES)
+        while todo or router.has_work:  # submit at arrival; one round per tick
+            while todo and todo[0].arrival_time <= clock[0]:
+                router.submit(todo.pop(0))
+            router.step()
+            clock[0] += 1.0
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in SERVING}
+        got = _router_summary(router)
+        for key, val in got.items():
+            check(val == run[key], f"golden router {run['name']}: {key} differ from the "
+                                   f"reference's:\n{val}\n{run[key]}")
+        check(all(v > 0 for v in launched.values()),
+              f"golden router {run['name']}: a kernel never launched: {launched}")
+        log(f"[golden-router] {run['name']} ({', '.join(run['fault'])}, host tier "
+            f"{run['host_pages']} pages): {len(got['tokens'])} requests, fp32 tokens, finish "
+            f"reasons, sheds {got['shed']}, router counters {got['counters']}, pool counters "
+            f"{got['pool']} and slot histories identical to the reference router's; kernel "
+            f"launches {launched}")
+        del router
+
+
 # ------------------------------------------------------------ phases 5e, 5f
 SPEC_K = 4
 
@@ -2448,6 +2563,370 @@ def phase_sampling(smi, main, spec):
     log(f"[sampled] batched sampler, {TV_DRAWS} draws of one verify logit row (vocab {vocab}, "
         f"{support} tokens kept by the filter): total variation {tv:.4f} from "
         f"softmax(filter_logits(row)) (tol 0.05)")
+
+
+# ------------------------------------------------------------- phases 5i, 5j
+ROUTER_STAGGER = 0.02
+# (label, fault spec, replicas with host tiers, sampled)
+ROUTER_RUNS = (("fault-free", None, True, False), ("kill", "kill:1@8", True, False),
+               ("stall", "stall:1@8", True, False), ("slow", "slow:1@4@0.05", True, False),
+               ("sampled fault-free", None, True, True), ("sampled kill", "kill:1@8", True, True),
+               ("kill, recompute", "kill:1@8", False, False))
+
+
+def _router_engine_kw(host_pages):
+    """Phase 5's engine (8 slots, page 16, prefix cache) with a host tier."""
+    return dict(num_slots=8, max_seq=384 + 32, page_size=16, prefix_cache=True, paged_cache=True,
+                host_pages=host_pages, device=DEVICE)
+
+
+def _watch_router(engines) -> tuple[dict, dict]:
+    """Instrument ``engines`` for one router run: how each migrated request
+    resumed (``moves``: "carried" when its importer adopted its pages,
+    "recompute" when it re-prefills its history, "fresh" when it had emitted
+    nothing) and the shape of every admission round each request went
+    through (``rounds``: cold or suffix, bucket width and length, prefix-page
+    width)."""
+    from repro_torch.launch.engine import bucket_length, bucket_pages, bucket_width
+
+    moves, rounds = {}, {}
+    for e in engines:
+        def imported(items, e=e, fn=e.import_inflight):
+            fn(items)
+            for req, res in items:
+                moves[req.uid] = ("fresh" if res is None or not res.generated else
+                                  "carried" if res.host_key is not None else "recompute")
+
+        def prefill(claimed, e=e, fn=e._prefill_claimed):
+            for hit in (False, True):
+                group = [i for i in claimed if (e.slots[i].prefix_len > 0) == hit]
+                if not group:
+                    continue
+                lens = [len(e.slots[i].feed) - e.slots[i].prefix_len for i in group]
+                pw = bucket_pages(-(-max(e.slots[i].prefix_len for i in group) // e.page_size),
+                                  e.table_width) if hit else 0
+                for i in group:
+                    rounds.setdefault(e.slots[i].req.uid, []).append(
+                        ("suffix" if hit else "cold", bucket_width(len(group), e.num_slots),
+                         bucket_length(max(lens)), pw))
+            return fn(claimed)
+
+        e.import_inflight = imported
+        e._prefill_claimed = prefill
+    return moves, rounds
+
+
+def _router_run(engines, reqs, fault, sampling, smi, label):
+    """One real-time router run over warmed ``engines``: arrivals
+    ROUTER_STAGGER apart from the clock's restart at ``warm``. Returns the
+    run's record, and logs its throughput, TTFT and latency p50 from
+    arrival, router counters, compiles and graph pools, the first-use
+    captures inside the trace and the kernels' launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request
+    from repro_torch.launch.router import ServeRouter, parse_fault_spec
+
+    router = ServeRouter(engines=engines, fault_plan=parse_fault_spec([fault]) if fault else None,
+                         stall_patience=3)
+    lens = sorted({len(r.prompt) for r in reqs})
+    router.warm(lens, gen_tokens=2, sampling=sampling(0) if sampling else None)
+    moves, rounds = _watch_router(engines)
+    compiles = [e.graphs.graphs for e in engines]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = router.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                               arrival_time=j * ROUTER_STAGGER,
+                               sampling=sampling(r.uid) if sampling else None)
+                       for j, r in enumerate(reqs)], realtime=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for e in engines:  # drop the instruments
+        del e.import_inflight, e._prefill_claimed
+    launches = {k: c for k, c in ops.LAUNCHES.items() if c}
+    rs = router.router_stats
+    tokens = sum(len(o.tokens) for o in outs)
+    ttft = float(np.percentile([o.ttft for o in outs], 50))
+    lat = float(np.percentile([o.latency for o in outs], 50))
+    captures = [e.graphs.graphs - c for e, c in zip(engines, compiles)]
+    log(f"[router-main] {label} ({smi}): {len(outs)} requests, {tokens} tokens in {wall:.3f} s: "
+        f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, latency p50 {lat * 1e3:.1f} ms "
+        f"(both from arrival); first-use captures inside the trace per replica {captures}")
+    log(f"[router-main] {label}: router_stats {rs}; moves {moves}")
+    log(f"[router-main] {label}: per replica compiles {[e.compiles for e in engines]}, graph "
+        f"pools {[_pool_gb(e) for e in engines]}; kernel launches {launches}")
+    return dict(outs={o.uid: o for o in outs}, stats=rs, moves=moves, rounds=rounds,
+                shed=router.shed_errors, launches=launches, tok_s=tokens / wall, ttft=ttft,
+                lat=lat)
+
+
+def _router_suite(model, params, reqs, smi, tag, gate_recompute):
+    """The runs of ROUTER_RUNS over 2 replicas of ``model`` sharing
+    ``params``. Gates: every request finishes with 32 tokens and none is
+    shed; the kill and stall runs record one migration with at least one
+    migrated request; each faulted run's tokens equal its fault-free run's
+    for every request that kept its pages, carried them or moved before its
+    first token, and with ``gate_recompute`` (float32) also for those that
+    re-prefilled their history (in bf16 the prefill's K/V are not the decode
+    step's: reported by ``_agreement``). Requests whose admission rounds had
+    other shapes than in the fault-free run are gated like the rest and
+    counted apart, with the shapes, for the log. Returns the runs'
+    records."""
+    import torch
+
+    from repro_torch.launch.router import ServeRouter
+    from repro_torch.launch.sampling import SamplingParams
+
+    pairs = {}
+    runs = {}
+    for label, fault, tier, sampled in ROUTER_RUNS:
+        if tier not in pairs:  # the runs of one pair of replicas come together
+            pairs.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            pairs[tier] = ServeRouter(model, params, replicas=2,
+                                      **_router_engine_kw(256 if tier else 0)).engines
+        sp = (lambda u: SamplingParams(**SAMPLED, seed=1000 + u)) if sampled else None
+        r = _router_run(pairs[tier], reqs, fault, sp, smi, f"{tag}, {label}")
+        runs[label] = r
+        check(len(r["outs"]) == len(reqs) and all(len(o.tokens) == 32 for o in r["outs"].values()),
+              f"router {tag} {label}: not every request finished with 32 tokens")
+        check(not r["shed"], f"router {tag} {label}: requests shed: {r['shed']}")
+        if fault and not fault.startswith("slow"):
+            check(r["stats"]["migrations"] == 1 and r["stats"]["migrated_requests"] >= 1,
+                  f"router {tag} {label}: no migration recorded: {r['stats']}")
+        else:
+            check(r["stats"]["migrations"] == 0, f"router {tag} {label}: a migration")
+    sub = lambda d, us: {u: d[u] for u in sorted(us)}  # noqa: E731
+    for label, fault, tier, sampled in ROUTER_RUNS:
+        if fault is None:
+            continue
+        base = runs["sampled fault-free" if sampled else "fault-free"]
+        r = runs[label]
+        toks = {u: o.tokens for u, o in r["outs"].items()}
+        want = {u: o.tokens for u, o in base["outs"].items()}
+        recompute = {u for u, m in r["moves"].items() if m == "recompute"}
+        gated = [u for u in toks if gate_recompute or u not in recompute]
+        reshaped = {u for u in gated if r["rounds"].get(u) != base["rounds"].get(u)}
+        bad = [u for u in gated if toks[u] != want[u]]
+        check(not bad, f"router {tag} {label}: tokens differ from the fault-free run for "
+                       f"requests {bad} (moves {r['moves']}, rounds "
+                       f"{[r['rounds'].get(u) for u in bad]} vs "
+                       f"{[base['rounds'].get(u) for u in bad]})")
+        log(f"[router-main] {tag}, {label} against its fault-free run: {len(gated)} of "
+            f"{len(toks)} requests gated, identical ({len(reshaped)} of them admitted in rounds "
+            f"of other shapes than in the fault-free run); {len(recompute)} re-prefilled their "
+            "history"
+            + (f" (not gated): {_agreement(sub(toks, recompute), sub(want, recompute))}"
+               if recompute and not gate_recompute else ""))
+    del pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_router_main(smi, main):
+    """5i: phase 5's trace (8 cold prompts of 96-384 tokens, then 8 on a
+    shared 256-token prefix, 32 tokens each) arriving ROUTER_STAGGER apart,
+    served in real time by ``ServeRouter`` over 2 replicas of phase 5's
+    engine with host tiers of 256 pages, at stablelm-1.6b's published widths
+    (bf16), sharing one params dict: fault-free, kill:1@8, stall:1@8
+    (patience 3), slow:1@4@0.05, kill:1@8 with ``host_pages=0`` (every
+    migrated request re-prefills), and a sampled pair (fault-free,
+    kill:1@8). Gates: ``_router_suite``'s (in bf16 the re-prefilled
+    requests are reported, not gated), and device memory growing by less
+    than one params' size from one replica to two. The same runs again at
+    the smoke config in float32, where every request is gated, the
+    re-prefilled ones too."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.router import ServeRouter
+    from repro_torch.models.model import build_model
+
+    model, params = main["model"], main["params"]
+    reqs = main["cold"] + main["hits"]
+    p_bytes = _nbytes(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    one = ServeRouter(model, params, replicas=1, **_router_engine_kw(256))
+    m1 = torch.cuda.memory_allocated()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = ServeRouter(model, params, replicas=2, **_router_engine_kw(256))
+    m2 = torch.cuda.memory_allocated()
+    del two
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(m2 - m1 < p_bytes, f"router: a second replica took {(m2 - m1) / 1e9:.3f} GB, not less "
+                             f"than the params' {p_bytes / 1e9:.3f} GB (weights copied?)")
+    log(f"[router-main] device memory: one replica +{(m1 - m0) / 1e9:.3f} GB, two +"
+        f"{(m2 - m0) / 1e9:.3f} GB (the second {(m2 - m1) / 1e9:.3f} GB < params "
+        f"{p_bytes / 1e9:.3f} GB: shared weights)")
+    t0 = time.perf_counter()
+    runs = _router_suite(model, params, reqs, smi, "bf16", gate_recompute=False)
+    log(f"[router-main] bf16 runs wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(get_smoke_config("stablelm-1.6b"), dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    cold32, hits32 = _main_path_requests(cfg32.vocab_size)
+    _router_suite(model32, params32, cold32 + hits32, smi, "fp32 smoke", gate_recompute=True)
+    log(f"[router-main] fp32 smoke runs wall {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def phase_lifecycle(smi, main):
+    """5j: the request lifecycle on one engine at stablelm-1.6b's published
+    widths (bf16), on a virtual clock advanced once per step. Gates: (a) a
+    pool that runs dry preempts the old priority -1 request, not the
+    youngest (which it does at priority 0); (b) a swapped mid-prefill victim
+    (interleaved) queued past its deadline is shed with "deadline_exceeded"
+    and its host-tier entry released; (c) ``max_wall_s`` retires a live slot
+    with "timeout" and the prefix index holds none of its pages (without the
+    watchdog the same request publishes them); (d) ``export_inflight`` of
+    4 mid-decode requests (2 greedy, 2 sampled) and ``import_inflight`` into
+    a second engine with a host tier: the pages are carried and swapped in,
+    and every token is the uninterrupted run's; (e) ``prefix_probe`` leaves
+    the hit rate, the LRU order and every refcount as they were."""
+    import torch
+
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.launch.sampling import SamplingParams
+
+    model, params = main["model"], main["params"]
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(23)
+    clock = [0.0]
+    kw = dict(page_size=16, paged_cache=True, device=DEVICE, time_fn=lambda: clock[0])
+
+    def prompt(n):
+        return rng.integers(0, vocab, n, dtype=np.int32)
+
+    def drive(eng, reqs=(), until=None):
+        for r in reqs:
+            eng.submit(r)
+        outs = []
+        while eng.has_work and not (until is not None and until(eng)):
+            outs += eng.step()
+            clock[0] += 1.0
+        return {o.uid: o for o in outs}
+
+    # (a) priorities on a pool that runs dry 12 tokens into decoding
+    eng = ServeEngine(model, params, num_slots=2, max_seq=176, num_pages=16, host_pages=64, **kw)
+    pair = [prompt(100), prompt(100)]
+    victims = {}
+    for prio in ((-1, 0), (0, 0)):
+        eng.reset_metrics()
+        outs = drive(eng, [Request(uid=u, prompt=pair[u], max_new_tokens=64, priority=prio[u])
+                           for u in (0, 1)])
+        check(len(outs) == 2 and all(len(o.tokens) == 64 for o in outs.values()),
+              f"lifecycle (a) {prio}: not every request finished")
+        check(eng.preemptions > 0, f"lifecycle (a) {prio}: the pool never ran dry")
+        victims[prio] = [u for u in (0, 1) if len(eng.slot_history[u]) > 1]
+        victims[prio, "tokens"] = {u: o.tokens for u, o in outs.items()}
+    check(victims[(-1, 0)] == [0], f"lifecycle (a): priorities (-1, 0) preempted {victims[(-1, 0)]}"
+                                   ", not the old low-priority request 0")
+    check(victims[(0, 0)] == [1], f"lifecycle (a): equal priorities preempted {victims[(0, 0)]}, "
+                                  "not the youngest request 1")
+    log(f"[lifecycle] (a) {smi}: a 15-page pool, 2 requests of 100 + 64 tokens: priorities (-1, 0)"
+        f" preempt request 0 (the older), (0, 0) request 1 (the youngest); swapped back, tokens "
+        f"of the two runs: {_agreement(victims[(-1, 0), 'tokens'], victims[(0, 0), 'tokens'])}")
+    del eng
+
+    # (b) a swapped mid-prefill victim past its deadline
+    eng = ServeEngine(model, params, num_slots=2, max_seq=128, num_pages=7, host_pages=64,
+                      prefill="interleaved", **kw)
+    swapped = lambda e: any(not r.generated and r.host_key is not None  # noqa: E731
+                            for r in e._resume.values())
+    drive(eng, [Request(uid=u, prompt=prompt(60), max_new_tokens=2) for u in (0, 1)],
+          until=swapped)
+    check(swapped(eng), "lifecycle (b): no mid-prefill victim was swapped out")
+    victim = next(u for u, r in eng._resume.items() if r.host_key is not None)
+    held = eng.host.pages
+    for r in eng.waiting:
+        if r.uid == victim:
+            r.deadline_s = 1e-9
+    outs = drive(eng)
+    check([(e.uid, e.reason) for e in eng.shed] == [(victim, "deadline_exceeded")],
+          f"lifecycle (b): shed {[(e.uid, e.reason) for e in eng.shed]}")
+    check(eng.host.pages == 0 and victim not in eng._resume and victim not in outs,
+          f"lifecycle (b): the shed request's tier entry stayed ({eng.host.pages} pages)")
+    log(f"[lifecycle] (b) {smi}: interleaved, a 6-page pool: request {victim} swapped out "
+        f"mid-prompt ({held} tier pages), its deadline passed in the queue: shed with "
+        f"deadline_exceeded, tier back to {eng.host.pages} pages; request "
+        f"{sorted(outs)} served")
+    del eng
+
+    # (c) the watchdog, then (e) the probe on the index the control run fills
+    eng = ServeEngine(model, params, num_slots=2, max_seq=416, prefix_cache=True, max_wall_s=5.0,
+                      **kw)
+    req = prompt(96)
+    out = drive(eng, [Request(uid=0, prompt=req, max_new_tokens=32)])[0]
+    check(out.finish_reason == "timeout" and eng.timeouts == 1 and 0 < len(out.tokens) < 32,
+          f"lifecycle (c): {out.finish_reason}, {len(out.tokens)} tokens, {eng.timeouts} timeouts")
+    check(eng.prefix.size == 0 and eng.prefix_probe(req) == 0 and eng.pool.in_use == 0,
+          f"lifecycle (c): the timed-out slot's pages reached the prefix index "
+          f"({eng.prefix.size} pages)")
+    eng.max_wall_s = 0.0
+    full = drive(eng, [Request(uid=1, prompt=req, max_new_tokens=32)])[1]
+    check(full.finish_reason == "length" and full.tokens[:len(out.tokens)] == out.tokens
+          and eng.prefix.size == 6, f"lifecycle (c): control run {full.finish_reason}, index "
+                                    f"{eng.prefix.size} pages")
+    log(f"[lifecycle] (c) {smi}: max_wall_s 5 steps retired the slot after {len(out.tokens)} "
+        f"tokens with 'timeout', index 0 pages; without the watchdog the same request ran to "
+        f"32 tokens (the same first {len(out.tokens)}) and published 6 pages")
+    leaves = lambda: sorted((n.last_used, n.page) for n in eng.prefix._leaves())  # noqa: E731
+    snap = lambda: (eng.pool_stats["prefix_hit_rate"], eng.prefix.lookups,  # noqa: E731
+                    eng.prefix.hit_pages, [eng.pool.refcount(p) for p in range(eng.num_pages)],
+                    leaves())
+    before = snap()
+    hits = [eng.prefix_probe(req), eng.prefix_probe(req[:40]), eng.prefix_probe(prompt(96))]
+    check(hits == [96, 32, 0] and snap() == before,
+          f"lifecycle (e): probes {hits}, state changed: {snap() != before}")
+    log(f"[lifecycle] (e) {smi}: prefix_probe {hits} tokens; hit rate, lookups, hit pages, "
+        f"every refcount and the LRU order unchanged")
+    del eng
+
+    # (d) export mid-decode, import with carried pages
+    sp = SamplingParams(**SAMPLED)
+    four = [prompt(n) for n in (96, 150, 200, 120)]
+    reqs = lambda: [Request(uid=u, prompt=p, max_new_tokens=32,  # noqa: E731
+                            sampling=dataclasses.replace(sp, seed=2000 + u) if u >= 2 else None)
+                    for u, p in enumerate(four)]
+    src = ServeEngine(model, params, num_slots=4, max_seq=416, prefix_cache=True, host_pages=256,
+                      **kw)
+    whole = {u: o.tokens for u, o in drive(src, reqs()).items()}
+    src.prefix.clear()
+    src.reset_metrics()
+    for r in reqs():
+        src.submit(r)
+    early = {}
+    for _ in range(6):
+        early.update({o.uid: o for o in src.step()})
+        clock[0] += 1.0
+    items = src.export_inflight()
+    carried = sum(res is not None and res.host_arrays is not None for _, res in items)
+    check(carried == 4 and not src.has_work and src.pool.in_use == 0,
+          f"lifecycle (d): {carried} of {len(items)} exported requests carry pages")
+    dst = ServeEngine(model, params, num_slots=4, max_seq=416, prefix_cache=True, host_pages=256,
+                      **kw)
+    dst.import_inflight(items)
+    adopted = sum(res.host_key is not None for _, res in items)
+    merged = {u: o.tokens for u, o in {**early, **drive(dst)}.items()}
+    check(adopted == 4 and dst.swapped_in_pages > 0 and dst.prefill_tokens == 0,
+          f"lifecycle (d): {adopted} adopted, {dst.swapped_in_pages} pages swapped in, "
+          f"{dst.prefill_tokens} prefill tokens")
+    check(merged == whole, f"lifecycle (d): migrated tokens differ: {_agreement(merged, whole)}")
+    log(f"[lifecycle] (d) {smi}: 4 requests (2 greedy, 2 sampled) exported after 6 steps with "
+        f"their pages, adopted and swapped in ({dst.swapped_in_pages} pages, no prefill) by a "
+        f"second engine: every token the uninterrupted run's ({_agreement(merged, whole)})")
+    del src, dst
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_eos(smi, main):
@@ -3410,6 +3889,7 @@ def phase_first_sync_ties():
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     smi = phase_device()
     import torch
 
@@ -3426,12 +3906,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_golden_spec()
     log(f"[golden-spec] phase 4d wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_golden_router()
+    log(f"[golden-router] phase 4e wall {time.perf_counter() - t0:.1f} s")
     launches, main_trace = phase_main_path(smi)
     t0 = time.perf_counter()
     phase_eos(smi, main_trace)
     spec = phase_spec_main(smi, main_trace)
     phase_sampling(smi, main_trace, spec)
     log(f"[spec-main] phases EOS, 5e and 5f wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_router_main(smi, main_trace)
+    log(f"[router-main] phase 5i wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_lifecycle(smi, main_trace)
+    log(f"[lifecycle] phase 5j wall {time.perf_counter() - t0:.1f} s")
     spec_launches = spec.pop("launches")
     del main_trace, spec
     gc.collect()
@@ -3451,6 +3940,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_first_sync_ties()
     check(not FAILED, f"{len(FAILED)} numeric checks failed: {FAILED}")
+    log(f"[smoke] script wall {time.perf_counter() - t_script:.1f} s")
     # the speculative traces' launches: the verify's suffix prefills, the
     # draft's ring decode and re-sync prefills, the int8 verify's pool writes
     for k, c in spec_launches.items():

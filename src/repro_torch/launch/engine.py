@@ -48,6 +48,18 @@ over either KV layout:
   its pool refs drop and are restored at re-admission without a prefill
   (swap instead of recompute), and prefix pages evicted from the index are
   demoted there and promoted back when a later prompt matches them.
+* The request lifecycle: a request is never admitted before its
+  ``arrival_time`` under ``step(respect_arrivals=True)``; a QUEUED request
+  past its ``deadline_s`` is shed with an ``AdmissionError`` record
+  (``shed``), a live slot older than ``max_wall_s`` retires with
+  ``finish_reason="timeout"``, and a dry pool preempts the lowest
+  ``priority`` first, the youngest within a priority. ``export_inflight``
+  strips every in-flight request (live slots with their pages gathered to
+  the host, their tokens, timing stamps and sampling streams; the queue with
+  its resume records) and ``import_inflight`` adopts them at another
+  engine's queue head: a layout-compatible importer with a host tier swaps
+  the carried pages in, any other re-prefills (``launch/router.py`` moves a
+  failed replica's work this way).
 
 The caches and tables live on the engine's device and are updated in place
 (the reference donated them through ``jit``); no cache tensor is ever
@@ -124,10 +136,24 @@ def bucket_pages(pages: int, table_width: int) -> int:
     return min(w, max(table_width, 1))
 
 
+def serving_params(cfg, params: dict) -> dict:
+    """``params`` as the engine reads them: ``lm_logits`` multiplies in
+    fp32, so an untied unembedding is upcast once here instead of once per
+    step. Idempotent (an fp32 leaf is returned as is), so engines built
+    from one upcast dict share its tensors: the router upcasts once for all
+    its replicas."""
+    if cfg.tie_embeddings:
+        return params
+    return {**params, "embed": {**params["embed"],
+                                "unembed": params["embed"]["unembed"].float()}}
+
+
 class AdmissionError(ValueError):
-    """Submit-time rejection of a request the engine could never serve.
-    ``reason`` is ``"exceeds_pool"`` (paged) or ``"exceeds_max_seq"``
-    (rings)."""
+    """A request the engine could not serve, with ``reason``: raised at
+    submit for one it could never hold (``"exceeds_pool"`` on the pool,
+    ``"exceeds_max_seq"`` on rings), recorded in ``shed`` for one shed from
+    the queue (``"deadline_exceeded"``), and by the router for one no
+    healthy replica can take (``"no_healthy_replica"``)."""
 
     def __init__(self, uid: int, reason: str, message: str):
         super().__init__(message)
@@ -291,24 +317,40 @@ class _ResumeState:
     the slot's write position at preemption (the tokens of prompt +
     generated written so far; fewer than the prompt for a victim still
     teacher-forcing its prompt). A dropped tier entry falls back to the
-    re-prefill."""
+    re-prefill.
+
+    ``host_arrays`` carries the page content itself (plane name → (L, n,
+    ...) CPU tensor) while the record migrates between engines
+    (``export_inflight``): a tier key means nothing outside the engine that
+    owns the tier, the copied pages do. ``rng`` is the request's sampling
+    stream itself, so whoever resumes it continues its draws exactly."""
     generated: list[int]
     first_token_time: float
     admit_time: float
     host_key: tuple | None = None
     pos: int = 0
     rng: np.random.Generator | None = None
+    host_arrays: dict | None = None
 
 
 @dataclasses.dataclass
 class Request:
-    """One generation request. Every request counts as arrived at zero on
-    the engine clock (its last ``reset_clock``/``reset_metrics``).
-    ``sampling=None`` (or temperature 0) decodes greedily."""
+    """One generation request. ``arrival_time`` is seconds on the engine
+    clock (since its last ``reset_clock``/``reset_metrics``); with
+    ``respect_arrivals`` the engine never admits a request before it.
+    ``sampling=None`` (or temperature 0) decodes greedily. ``priority``
+    orders preemption, not admission: a dry pool preempts the lowest
+    priority first, the youngest within one (priority 0 everywhere is
+    youngest-first). ``deadline_s``, relative to the arrival: a request
+    still queued past it is shed with an ``AdmissionError("deadline_exceeded")``
+    record; a request that has emitted tokens is never shed."""
     uid: int
     prompt: np.ndarray            # (prompt_len,) int32 token ids
     max_new_tokens: int
+    arrival_time: float = 0.0
     sampling: SamplingParams | None = None
+    priority: int = 0
+    deadline_s: float | None = None
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -324,21 +366,21 @@ class RequestOutput:
     prompt: list[int]
     tokens: list[int]             # generated ids (greedy or sampled), <= max_new
     slot: int
-    finish_reason: str            # "eos" | "length"
+    finish_reason: str            # "eos" | "length" | "timeout"
+    arrival_time: float
     admit_time: float
     first_token_time: float
     finish_time: float
 
     @property
     def latency(self) -> float:
-        """Finish time from arrival at clock zero."""
-        return self.finish_time
+        """Finish time from arrival."""
+        return self.finish_time - self.arrival_time
 
     @property
     def ttft(self) -> float:
-        """Time to first token, from arrival at clock zero (includes
-        queueing)."""
-        return self.first_token_time
+        """Time to first token, from arrival (includes queueing)."""
+        return self.first_token_time - self.arrival_time
 
 
 @dataclasses.dataclass
@@ -355,7 +397,7 @@ class _Slot:
     first_token_time: float = -1.0
     resumed: bool = False         # next emission is already known
     pos_host: int = 0             # host mirror of the slot's write position
-    seq: int = 0                  # admission order (preemption takes the max)
+    seq: int = 0                  # admission order (preemption: youngest in a priority)
     rng: np.random.Generator | None = None  # the request's stream (None = greedy)
 
 
@@ -375,13 +417,18 @@ class ServeEngine:
     ``watermark_pages``, ``prefix_cache``, ``kv_dtype`` ("fp" or "int8"
     pages), ``host_pages`` (the host tier's capacity, 0 = none) and ``swap``
     (whether preemption swaps to that tier; prefix pages demote there either
-    way). Without a window each slot's table holds ``num_slots *
-    ceil(max_seq/page_size)`` logical pages. ``draft_model``,
-    ``draft_params`` and ``spec_tokens`` turn on speculative decoding (a
-    ``ValueError`` names what blocks it). A request finishes after
-    ``max_new_tokens`` or at ``eos_id`` (``finish_reason`` "length" or
-    "eos"); ``seed`` keys the streams of sampled requests without a seed of
-    their own. The clock is ``time.monotonic``. ``device`` is where the
+    way). Without a window each slot's table holds ``table_width`` logical
+    pages: by default ``num_slots * ceil(max_seq/page_size)``, the whole
+    allocatable pool with ``long_requests``. ``prefix_cache_pages`` caps the
+    pages the prefix index may pin (0 = the pool's capacity).
+    ``draft_model``, ``draft_params`` and ``spec_tokens`` turn on
+    speculative decoding (a ``ValueError`` names what blocks it). A request
+    finishes after ``max_new_tokens`` or at ``eos_id`` (``finish_reason``
+    "length" or "eos"), or at ``max_wall_s`` seconds after its first
+    admission ("timeout"; 0 = no watchdog); ``seed`` keys the streams of
+    sampled requests without a seed of their own. ``time_fn`` is the clock
+    (``time.monotonic`` by default; a virtual one makes deadlines and the
+    watchdog reproducible). ``device`` is where the
     caches live and the model runs (``"cuda"`` unless the caller asks for
     the CPU). ``bucket_prefill=False`` dispatches each admission round at
     its exact (width, length), so every distinct shape is a new
@@ -397,8 +444,11 @@ class ServeEngine:
         max_seq: int = 128,
         page_size: int = 16,
         num_pages: int = 0,
+        table_width: int = 0,
+        long_requests: bool = False,
         watermark_pages: int = 0,
         prefix_cache: bool = False,
+        prefix_cache_pages: int = 0,
         device="cuda",
         window: int = 0,
         prefill: str = "chunked",
@@ -412,6 +462,8 @@ class ServeEngine:
         spec_tokens: int = 0,
         eos_id: int | None = None,
         seed: int = 0,
+        max_wall_s: float = 0.0,
+        time_fn=None,
         bucket_prefill: bool = True,
         graphs: bool = True,
         mesh=None,
@@ -455,13 +507,7 @@ class ServeEngine:
         self.cfg = model.cfg
         self.model = model
         self.device = torch.device(device)
-        # lm_logits multiplies in fp32: upcast the unembedding once here
-        # instead of once per step
-        if not self.cfg.tie_embeddings:
-            params = {**params, "embed": {
-                **params["embed"], "unembed": params["embed"]["unembed"].float(),
-            }}
-        self.params = params
+        self.params = serving_params(self.cfg, params)
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.window = window
@@ -471,11 +517,13 @@ class ServeEngine:
         self.kv_dtype = kv_dtype
         self.eos_id = eos_id
         self.seed = seed
+        self.max_wall_s = max_wall_s
         self.bucket_prefill = bucket_prefill
         self.graphs = GraphCache(
             self.device, enabled=graphs,
             entries=COMPILE_ENTRIES + (SPEC_COMPILE_ENTRIES if speculative else ()))
-        self._t0 = time.monotonic()
+        self._time_fn = time_fn or time.monotonic
+        self._t0 = self._time_fn()
 
         self.prefix_disabled_reason = None
         if paged_cache:
@@ -491,6 +539,11 @@ class ServeEngine:
                 if num_pages - 1 < self.table_width:
                     raise ValueError(f"num_pages {num_pages} cannot back a table of "
                                      f"{self.table_width} pages (window {window})")
+            elif table_width > 0:
+                self.table_width = table_width
+            elif long_requests:
+                # one request may stretch across every allocatable page
+                self.table_width = num_pages - 1
             else:
                 self.table_width = num_slots * pages_per_ring
             self.cap = self.table_width * page_size
@@ -526,7 +579,7 @@ class ServeEngine:
         self._kv_names = tuple(n for n in KV_PLANES if n in self.cache)
         self.swap = swap and self.host is not None
         self.prefix = PrefixCache(
-            self.pool,
+            self.pool, prefix_cache_pages,
             demote_fn=self._demote_prefix_page if self.host else None,
             promote_fn=self._promote_prefix_page if self.host else None,
         ) if prefix_cache and self.prefix_disabled_reason is None else None
@@ -548,24 +601,34 @@ class ServeEngine:
             # proposal (a reused slot never aliases its old occupant's state)
             self._draft_pos = np.full(num_slots, -1, np.int64)
 
+        # resume records live in both cache layouts: ring engines never
+        # preempt, but may import another engine's in-flight requests
         self._resume: dict[int, _ResumeState] = {}
         self._admit_seq = 0
         self.waiting: collections.deque[Request] = collections.deque()
         self.slots: list[_Slot | None] = [None] * num_slots
         self.finished: list[RequestOutput] = []
+        self.shed: list[AdmissionError] = []   # deadline sheds, as records
+        self.slot_history: dict[int, list[int]] = {}  # uid -> slots it ran in
         self._warmed: set[tuple] = set()
         self.reset_metrics()
 
     # ------------------------------------------------------------- plumbing
     def _now(self) -> float:
-        return time.monotonic() - self._t0
+        return self._time_fn() - self._t0
 
     def reset_clock(self) -> None:
-        self._t0 = time.monotonic()
+        """Restart the engine clock at 0 (arrival times are relative to
+        it)."""
+        self._t0 = self._time_fn()
 
     def reset_metrics(self) -> None:
         """Drop outputs and counters and restart the clock."""
         self.finished.clear()
+        self.shed.clear()
+        self.slot_history.clear()
+        self.shed_requests = 0
+        self.timeouts = 0
         self.steps = 0
         self.prefill_dispatches = 0
         self.suffix_dispatches = 0
@@ -654,6 +717,8 @@ class ServeEngine:
             "pages_in_use": self.pool.in_use,
             "peak_pages_in_use": self.pool.peak_in_use,
             "preemptions": self.preemptions,
+            "shed_requests": self.shed_requests,
+            "timeouts": self.timeouts,
             "occupancy_mean": float(np.mean(occ)) if occ else 0.0,
             "occupancy_max": float(np.max(occ)) if occ else 0.0,
             "prefix_cache": self.prefix_cache,
@@ -699,10 +764,29 @@ class ServeEngine:
     def has_work(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
+    @property
+    def active_slots(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def next_arrival(self) -> float | None:
+        """Earliest arrival among waiting requests, or None."""
+        return min((r.arrival_time for r in self.waiting), default=None)
+
+    def prefix_probe(self, tokens) -> int:
+        """Predicted cached-prefix tokens for a prompt: a read-only walk of
+        the prefix index (``PrefixCache.probe``: no LRU touch, no hit or
+        lookup counted, no page reference taken), in full pages times the
+        page size. 0 without prefix sharing."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.probe(tokens) * self.page_size
+
     def capacity_shortfall(self, req: Request) -> int:
         """Tokens by which ``req`` exceeds the engine's static capacity (0 =
         servable): none with a window (the ring wraps), else the table width
-        and the physical pool (paged) or ``max_seq`` (rings)."""
+        (``table_width``/``long_requests``) and the physical pool (paged) or
+        ``max_seq`` (rings). It changes nothing, so a router may probe every
+        replica with it."""
         need = len(req.prompt) + req.max_new_tokens
         if self.window != 0:
             return 0
@@ -731,6 +815,34 @@ class ServeEngine:
         self.waiting.append(req)
 
     # ------------------------------------------------------------ scheduling
+    def _shed_expired(self, now: float) -> None:
+        """Shed queued requests past their deadline, each recorded as an
+        ``AdmissionError("deadline_exceeded")`` in ``shed`` (nobody calls
+        the scheduler who could catch it). A preempted request that has
+        emitted tokens is exempt: its client has output already. A shed
+        request's resume record goes, and with it its host-tier entry."""
+        if not any(r.deadline_s is not None for r in self.waiting):
+            return
+        kept: collections.deque[Request] = collections.deque()
+        while self.waiting:
+            req = self.waiting.popleft()
+            resume = self._resume.get(req.uid)
+            mid_stream = resume is not None and bool(resume.generated)
+            if (req.deadline_s is not None and not mid_stream
+                    and now - req.arrival_time > req.deadline_s):
+                dropped = self._resume.pop(req.uid, None)
+                if dropped is not None and dropped.host_key is not None and self.host is not None:
+                    self.host.pop(dropped.host_key)
+                self.shed.append(AdmissionError(
+                    req.uid, "deadline_exceeded",
+                    f"request {req.uid}: queued {now - req.arrival_time:.3f}s past arrival, "
+                    f"deadline was {req.deadline_s:.3f}s; shed unserved",
+                ))
+                self.shed_requests += 1
+            else:
+                kept.append(req)
+        self.waiting = kept
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
@@ -792,8 +904,10 @@ class ServeEngine:
             return True
         return len(slot.generated) >= slot.req.max_new_tokens
 
-    def _admit(self, now: float) -> None:
-        """Fill free slots from the queue in submission order. Chunked
+    def _admit(self, now: float, respect_arrivals: bool = False) -> None:
+        """Shed the queue's expired requests, then fill free slots from the
+        queue in submission order, stopping at the first request whose
+        arrival is still ahead with ``respect_arrivals``. Chunked
         admission prefills each round's claims in one batched prefill;
         interleaved admission only queues the prompt for the decode step. On
         the paged pool each chunked claim takes its prompt pages up front
@@ -805,11 +919,14 @@ class ServeEngine:
         tier without a prefill (``_swap_in``), or through the re-prefill when
         the tier dropped it."""
         chunked = self.prefill_mode == "chunked"
+        self._shed_expired(now)
         while True:
             free = [i for i, s in enumerate(self.slots) if s is None]
             claimed: list[int] = []
             while free and self.waiting:
                 req = self.waiting[0]
+                if respect_arrivals and req.arrival_time > now:
+                    break
                 resume = self._resume.get(req.uid)
                 if resume is not None and resume.host_key is not None and (
                         self.host is None or self.host.n_pages(resume.host_key) == 0):
@@ -883,6 +1000,7 @@ class ServeEngine:
                     slot.admit_time = resume.admit_time
                     slot.resumed = bool(resume.generated)
                     slot.rng = resume.rng
+                self.slot_history.setdefault(req.uid, []).append(i)
                 self.slots[i] = slot
                 if chunked:
                     slot.pos_host = len(feed)
@@ -936,6 +1054,7 @@ class ServeEngine:
                      pending=collections.deque(int(t) for t in stream[resume.pos + 1:]))
         self._admit_seq += 1
         slot.seq = self._admit_seq
+        self.slot_history.setdefault(req.uid, []).append(i)
         self.slots[i] = slot
         return True
 
@@ -1014,21 +1133,34 @@ class ServeEngine:
                 retired = True
         return retired
 
-    def _retire(self, i: int, slot: _Slot) -> None:
-        eos = self.eos_id is not None and slot.generated[-1] == self.eos_id
+    def _retire(self, i: int, slot: _Slot, reason: str | None = None) -> None:
+        """Emit the slot's output and free it. Its full prompt pages are
+        published to the prefix index first, except on a ``"timeout"``
+        (an interleaved slot timed out mid-prompt may hold a partly written
+        page, which no other request may alias)."""
+        if reason is None:
+            eos = self.eos_id is not None and slot.generated[-1] == self.eos_id
+            reason = "eos" if eos else "length"
         self.finished.append(RequestOutput(
             uid=slot.req.uid, prompt=slot.req.prompt.tolist(), tokens=list(slot.generated),
-            slot=i, finish_reason="eos" if eos else "length", admit_time=slot.admit_time,
-            first_token_time=slot.first_token_time, finish_time=self._now(),
+            slot=i, finish_reason=reason, arrival_time=slot.req.arrival_time,
+            admit_time=slot.admit_time, first_token_time=slot.first_token_time,
+            finish_time=self._now(),
         ))
+        self._release(i, publish=reason != "timeout")
+
+    def _release(self, i: int, publish: bool = False) -> None:
+        """Empty slot ``i``: the draft re-syncs its next occupant; on the
+        pool (with ``publish``, the FULL prompt pages first go to the prefix
+        index, which takes its own refs) the slot's page refs drop and its
+        table row reverts to the scratch page."""
+        slot = self.slots[i]
         self.slots[i] = None
         if self.draft is not None:
-            self._draft_pos[i] = -1  # the next occupant re-syncs the draft
+            self._draft_pos[i] = -1
         if not self.paged_cache:
             return
-        if self.prefix is not None:
-            # publish the FULL prompt pages (the index takes its own refs)
-            # before the slot's refs drop
+        if publish and self.prefix is not None:
             n_pub = min(len(slot.req.prompt) // self.page_size, len(self._slot_pages[i]))
             if n_pub > 0:
                 self.prefix.insert(slot.req.prompt, self._slot_pages[i][:n_pub])
@@ -1036,6 +1168,24 @@ class ServeEngine:
         self._slot_pages[i] = []
         self._table_np[i, :] = 0
         self._table_dirty = True
+
+    def _watchdog(self) -> None:
+        """Retire every live slot older than ``max_wall_s`` since its first
+        admission (a preemption round trip keeps the stamp) with
+        ``finish_reason="timeout"`` and the tokens it has, so a slot that
+        stops advancing cannot wedge ``run()``. Runs first in every step."""
+        if self.max_wall_s <= 0:
+            return
+        now = self._now()
+        for i, slot in enumerate(self.slots):
+            if slot is not None and now - slot.admit_time > self.max_wall_s:
+                self._retire_timeout(i, slot)
+
+    def _retire_timeout(self, i: int, slot: _Slot) -> None:
+        """The watchdog's retirement: a ``"timeout"`` output with the tokens
+        generated so far; its pages are freed unpublished."""
+        self.timeouts += 1
+        self._retire(i, slot, "timeout")
 
     # ----------------------------------------------------------- paged pool
     def _sync_table(self) -> None:
@@ -1090,6 +1240,13 @@ class ServeEngine:
         self.host_promote_hits += 1
         return pages[0]
 
+    def _preempt_victim(self) -> int:
+        """The slot a dry pool preempts: the lowest priority first, the
+        youngest (largest admission ``seq``) within a priority, so default
+        priorities preempt youngest-first."""
+        return min((i for i, s in enumerate(self.slots) if s is not None),
+                   key=lambda i: (self.slots[i].req.priority, -self.slots[i].seq))
+
     def _preempt(self, i: int) -> None:
         """Send slot ``i`` back to the HEAD of the queue, freeing its pages;
         re-admission re-prefills prompt + generated and continues. With the
@@ -1105,24 +1262,19 @@ class ServeEngine:
             if self.host.put(key, self._gather_host(pages), len(pages)):
                 host_key = key
                 self.swapped_out_pages += len(pages)
-        self.pool.free(pages)
-        self._slot_pages[i] = []
-        self._table_np[i, :] = 0
-        self._table_dirty = True
         self._resume[slot.req.uid] = _ResumeState(
             generated=list(slot.generated), first_token_time=slot.first_token_time,
             admit_time=slot.admit_time, host_key=host_key, pos=slot.pos_host, rng=slot.rng,
         )
         self.waiting.appendleft(slot.req)
-        self.slots[i] = None
-        if self.draft is not None:
-            self._draft_pos[i] = -1
+        self._release(i)
         self.preemptions += 1
 
     def _ensure_decode_pages(self, live: list[int]) -> None:
         """Before a decode step, give every live slot whose next write
         crosses into an unallocated logical page one page; when the pool is
-        dry, evict prefix-index pages, then preempt the youngest slot."""
+        dry, evict prefix-index pages, then preempt ``_preempt_victim``'s
+        slot (until a page frees up, or the needy slot itself went)."""
         for i in live:
             slot = self.slots[i]
             if slot is None:
@@ -1139,13 +1291,87 @@ class ServeEngine:
                     break
                 if self.prefix is not None and self.prefix.evict(1) > 0:
                     continue
-                victim = max(
-                    (j for j, s in enumerate(self.slots) if s is not None),
-                    key=lambda j: self.slots[j].seq,
-                )
+                victim = self._preempt_victim()
                 self._preempt(victim)
                 if victim == i:
                     break
+
+    # ------------------------------------------------------------ migration
+    def export_inflight(self) -> list[tuple[Request, _ResumeState | None]]:
+        """Strip every in-flight request off this engine, to be imported by
+        another: live slots first, in admission order, then the queue, front
+        first. Afterwards the engine holds no work and no page of them.
+
+        A live slot that has emitted tokens leaves with a resume record: its
+        tokens, timing stamps, write position and sampling stream (the
+        ``np.random.Generator`` object itself, so the importer's draws
+        continue it exactly), and on the pool its pages' content gathered to
+        the host before they are freed (``host_arrays``; the importer's first
+        dispatch may rewrite a freed page). A queued request keeps its
+        resume record; a swapped one's tier entry is popped and carried as
+        arrays, since its key means nothing to another engine."""
+        items: list[tuple[Request, _ResumeState | None]] = []
+        live = sorted((i for i, s in enumerate(self.slots) if s is not None),
+                      key=lambda i: self.slots[i].seq)
+        for i in live:
+            slot = self.slots[i]
+            resume = None
+            if slot.generated:
+                resume = _ResumeState(
+                    generated=list(slot.generated), first_token_time=slot.first_token_time,
+                    admit_time=slot.admit_time, pos=slot.pos_host, rng=slot.rng)
+                if self.paged_cache and self._slot_pages[i]:
+                    resume.host_arrays = self._gather_host(self._slot_pages[i])
+            items.append((slot.req, resume))
+            self._release(i)
+        while self.waiting:
+            req = self.waiting.popleft()
+            resume = self._resume.pop(req.uid, None)
+            if resume is not None and resume.host_key is not None:
+                if self.host is not None:
+                    resume.host_arrays = self.host.pop(resume.host_key)
+                resume.host_key = None
+            items.append((req, resume))
+        return items
+
+    def _adopt_host_arrays(self, uid: int, resume: _ResumeState, arrays: dict) -> bool:
+        """Put a migrated record's page content into this engine's host tier
+        under its own ("swap", uid) key, so that admission swaps the request
+        in instead of re-prefilling it. Only an exactly matching pool layout
+        adopts (the same planes, fp or int8 with scales, layer count, page
+        shape and dtypes); anything else recomputes."""
+        if self.host is None or resume.pos <= 0:
+            return False
+        if set(arrays) != set(self._kv_names):
+            return False
+        for name in self._kv_names:
+            ref, a = self.cache[name], arrays[name]
+            if a.shape[0] != ref.shape[0] or a.shape[2:] != ref.shape[2:] or a.dtype != ref.dtype:
+                return False
+        key = ("swap", uid)
+        if not self.host.put(key, arrays, int(arrays[self._kv_names[0]].shape[1])):
+            return False
+        resume.host_key = key
+        return True
+
+    def import_inflight(self, items: list[tuple[Request, _ResumeState | None]]) -> None:
+        """Adopt exported requests at the front of the queue, in their
+        order: a failed replica's in-flight work is older than anything
+        queued here. A request with emitted tokens resumes: by swap-in of
+        its carried pages when this engine adopts them, else by the
+        re-prefill of prompt + generated[:-1]; either way it re-feeds its
+        last token and continues its own sampling stream."""
+        for req, resume in reversed(items):
+            if self.capacity_shortfall(req) > 0:
+                raise AdmissionError(
+                    req.uid, "exceeds_pool",
+                    f"migrated request {req.uid} exceeds this engine's static capacity")
+            if resume is not None and resume.generated:
+                if resume.host_arrays is not None:
+                    self._adopt_host_arrays(req.uid, resume, resume.host_arrays)
+                    resume.host_arrays = None
+                self._resume[req.uid] = resume
+            self.waiting.appendleft(req)
 
     # ------------------------------------------------------- spec decoding
     def _ensure_spec_pages(self, live: list[int],
@@ -1373,14 +1599,18 @@ class ServeEngine:
                                         paged=self.paged_decode)[1],
             self._host(feed))
 
-    def step(self) -> list[RequestOutput]:
-        """One iteration: admit → lazy pages (paged pool) → one batched
-        decode step (or, with a draft, one speculative round) → retire. A
-        slot still teacher-forcing its prompt (interleaved) discards its
-        logits; a resumed slot re-feeds its last known token. Returns the
-        requests that finished in it."""
+    def step(self, *, respect_arrivals: bool = False) -> list[RequestOutput]:
+        """One iteration: watchdog → admit → lazy pages (paged pool) → one
+        batched decode step (or, with a draft, one speculative round) →
+        retire. A slot still teacher-forcing its prompt (interleaved)
+        discards its logits; a resumed slot re-feeds its last known token.
+        With ``respect_arrivals`` admission compares each request's
+        ``arrival_time`` with the engine clock; otherwise the queue drains
+        in order as slots free up (virtual time). Returns the requests that
+        finished in it."""
         n_done = len(self.finished)
-        self._admit(self._now())
+        self._watchdog()
+        self._admit(self._now(), respect_arrivals)
         live = [i for i, s in enumerate(self.slots) if s is not None]
         if live and self.paged_cache:
             self._ensure_decode_pages(live)
@@ -1419,13 +1649,22 @@ class ServeEngine:
                     self._retire(i, slot)
         return self.finished[n_done:]
 
-    def run(self, requests=()) -> list[RequestOutput]:
-        """Drain ``requests`` (plus anything queued) to completion."""
-        for req in requests:
+    def run(self, requests=(), *, realtime: bool = False) -> list[RequestOutput]:
+        """Drain ``requests`` (submitted in arrival order) plus anything
+        queued to completion. ``realtime=True`` honours arrival times on the
+        engine clock, sleeping only while no slot is live and the next
+        arrival is ahead; otherwise the queue replays in arrival order at
+        full speed."""
+        for req in sorted(requests, key=lambda r: r.arrival_time):
             self.submit(req)
         outs: list[RequestOutput] = []
         while self.has_work:
-            outs.extend(self.step())
+            if realtime and self.active_slots == 0:
+                nxt = self.next_arrival()
+                delay = 0.0 if nxt is None else nxt - self._now()
+                if delay > 0:
+                    time.sleep(delay)
+            outs.extend(self.step(respect_arrivals=realtime))
         return sorted(outs, key=lambda o: o.uid)
 
 
@@ -1440,12 +1679,13 @@ def synthetic_prompts(cfg, n: int, prompt_len: int, seed: int = 0) -> np.ndarray
 
 
 def make_requests(cfg, *, n_requests: int, prompt_len: int, gen_tokens: int,
-                  seed: int = 0) -> list[Request]:
+                  seed: int = 0, stagger: float = 0.0) -> list[Request]:
     """Synthetic trace: row r of ``synthetic_prompts`` is request r, so uid
-    r's output is comparable with ``serve_batch``'s row r."""
+    r's output is comparable with ``serve_batch``'s row r; request r
+    arrives at ``r * stagger`` seconds."""
     prompts = synthetic_prompts(cfg, n_requests, prompt_len, seed)
     return [
-        Request(uid=r, prompt=prompts[r], max_new_tokens=gen_tokens)
+        Request(uid=r, prompt=prompts[r], max_new_tokens=gen_tokens, arrival_time=r * stagger)
         for r in range(n_requests)
     ]
 
@@ -1454,10 +1694,12 @@ def serve_continuous(
     arch: str, *, smoke: bool = True, num_slots: int = 4, n_requests: int = 8,
     prompt_len: int = 32, gen_tokens: int = 32, window: int = 0, prefill: str = "chunked",
     paged_decode: bool = True, paged_cache: bool = True, page_size: int = 16,
-    num_pages: int = 0, watermark_pages: int = 0, prefix_cache: bool = True,
+    num_pages: int = 0, long_requests: bool = False, watermark_pages: int = 0,
+    prefix_cache: bool = True, prefix_cache_pages: int = 0,
     kv_dtype: str = "fp", host_pages: int = 0, swap: bool = True,
     draft: str | None = None, spec_tokens: int = 0, sampling: SamplingParams | None = None,
-    bucket_prefill: bool = True, seed: int = 0, device="cuda", log_fn=print,
+    bucket_prefill: bool = True, seed: int = 0, stagger: float = 0.0, max_wall_s: float = 0.0,
+    device="cuda", log_fn=print,
 ) -> dict:
     """Build a model with seeded random weights and an engine (the shared
     paged pool unless ``paged_cache=False``), serve a synthetic trace after
@@ -1467,8 +1709,10 @@ def serve_continuous(
     slot per round, verified in one target dispatch. ``sampling`` samples
     every request, request r on the seed ``sampling.seed + r`` when a seed
     is given. ``bucket_prefill=False`` dispatches admission rounds at their
-    exact shapes. The result reports ``compiles`` (specializations per
-    entry point, the warm-up's included)."""
+    exact shapes. Request r arrives at ``r * stagger`` seconds; with a
+    stagger the trace is served in real time (``run(realtime=True)``).
+    The result reports ``compiles`` (specializations per entry point, the
+    warm-up's included)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed), device)
@@ -1480,20 +1724,21 @@ def serve_continuous(
     engine = ServeEngine(
         model, params, num_slots=num_slots, max_seq=prompt_len + gen_tokens, window=window,
         prefill=prefill, paged_decode=paged_decode, paged_cache=paged_cache,
-        page_size=page_size, num_pages=num_pages, watermark_pages=watermark_pages,
-        prefix_cache=prefix_cache, kv_dtype=kv_dtype, host_pages=host_pages, swap=swap,
-        draft_model=draft_model, draft_params=draft_params, spec_tokens=spec_tokens,
-        bucket_prefill=bucket_prefill, seed=seed, device=device,
+        page_size=page_size, num_pages=num_pages, long_requests=long_requests,
+        watermark_pages=watermark_pages, prefix_cache=prefix_cache,
+        prefix_cache_pages=prefix_cache_pages, kv_dtype=kv_dtype, host_pages=host_pages,
+        swap=swap, draft_model=draft_model, draft_params=draft_params, spec_tokens=spec_tokens,
+        bucket_prefill=bucket_prefill, seed=seed, max_wall_s=max_wall_s, device=device,
     )
     reqs = make_requests(cfg, n_requests=n_requests, prompt_len=prompt_len,
-                         gen_tokens=gen_tokens, seed=seed)
+                         gen_tokens=gen_tokens, seed=seed, stagger=stagger)
     if sampling is not None and not sampling.is_greedy:
         for r in reqs:  # a stream of its own per request, even under one seed
             r.sampling = dataclasses.replace(
                 sampling, seed=None if sampling.seed is None else sampling.seed + r.uid)
     engine.warm([prompt_len], gen_tokens=min(2, gen_tokens), sampling=sampling)
     t0 = time.time()
-    outs = engine.run(reqs)
+    outs = engine.run(reqs, realtime=stagger > 0)
     wall = time.time() - t0
     total = sum(len(o.tokens) for o in outs)
     lat = [o.latency for o in outs] or [0.0]
@@ -1530,6 +1775,8 @@ def serve_continuous(
         "latency_p50": float(np.percentile(lat, 50)),
         "latency_p95": float(np.percentile(lat, 95)),
         "ttft_p50": float(np.percentile(ttft, 50)),
+        "shed": [(e.uid, e.reason) for e in engine.shed],
+        "timeouts": engine.timeouts,
     }
     pool_line = ""
     if ps is not None:

@@ -1,6 +1,6 @@
 """Radix prefix index over the shared paged KV pool (prefix sharing) — the
 port's own copy of the reference's ``launch/prefix_cache.py`` (numpy only),
-with its host-tier demote/promote hooks and without the router's
+with its host-tier demote/promote hooks and the router's read-only
 ``probe``.
 
 The serve engine's page tables decouple a slot's logical token positions
@@ -142,6 +142,20 @@ class PrefixCache:
         return True
 
     # ----------------------------------------------------------------- api
+    def probe(self, tokens) -> int:
+        """Read-only hit prediction: how many leading full pages of
+        ``tokens`` are indexed. Unlike ``match`` it touches no LRU clock,
+        counts no lookup and takes no page reference, so a router can score
+        every replica's cache affinity for a prompt without moving any
+        replica's eviction order or hit rate."""
+        node, pages = self._root, 0
+        for chunk in self._chunks(tokens):
+            node = node.children.get(chunk)
+            if node is None:
+                break
+            pages += 1
+        return pages
+
     def match(self, tokens) -> list[int]:
         """Longest indexed prefix of ``tokens`` in full pages: physical
         page ids, in logical order. Touches the matched path (LRU).

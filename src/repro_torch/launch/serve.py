@@ -5,10 +5,13 @@ held against) and, with ``--continuous``, the continuous-batching engine
 (the shared paged KV pool with prefix sharing by default, or per-slot
 contiguous rings with ``--no-paged-cache``; chunked or interleaved prefill;
 sliding windows; temperature/top-k/top-p sampling; speculative decoding
-with ``--draft``/``--spec-tokens``). Every hot-path dispatch replays a CUDA
-graph captured once per shape bucket (``launch/graphs.py``);
-``--no-bucket-prefill`` dispatches admission rounds at their exact shapes,
-one prefill graph per distinct shape.
+with ``--draft``/``--spec-tokens``; arrivals ``--stagger`` seconds apart,
+served in real time; a ``--max-wall-s`` watchdog). ``--replicas N`` serves
+through the fault-tolerant router over N engine replicas
+(``launch/router.py``), with faults injected by ``--fault``. Every hot-path
+dispatch replays a CUDA graph captured once per shape bucket
+(``launch/graphs.py``); ``--no-bucket-prefill`` dispatches admission rounds
+at their exact shapes, one prefill graph per distinct shape.
 
     # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 4 \\
@@ -35,6 +38,10 @@ one prefill graph per distinct shape.
         --temperature 0.8 --top-k 40 --top-p 0.95
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
         --draft stablelm-1.6b --spec-tokens 3
+    # two replicas behind the router, replica 1 killed at its step 4: its
+    # in-flight requests finish on replica 0 with the same tokens
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
+        --replicas 2 --fault kill:1@4 --stagger 0.01
 """
 from __future__ import annotations
 
@@ -164,9 +171,22 @@ def main(argv=None):
     ap.add_argument("--watermark-pages", type=int, default=0,
                     help="[continuous] free pages admission keeps in reserve while other "
                     "slots are live")
+    ap.add_argument("--long-requests", action="store_true",
+                    help="[continuous] give every slot the whole allocatable pool as its "
+                    "logical width instead of the ring-equivalent default (requests longer "
+                    "than the slot count would split, at a wider page table)")
+    # None = the advertised default (on where the config supports it);
+    # an explicit --prefix-cache fails on a config that cannot honour it
     ap.add_argument("--no-prefix-cache", dest="prefix_cache", action="store_false",
+                    default=None,
                     help="[continuous] disable shared-prefix KV reuse (off anyway with "
                     "--no-paged-cache, a window or interleaved prefill)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache", action="store_true",
+                    help="[continuous] require shared-prefix KV reuse (the default where the "
+                    "config supports it; an error on a config that cannot honour it)")
+    ap.add_argument("--prefix-cache-pages", type=int, default=0,
+                    help="[continuous] cap on pool pages the prefix index may pin (0 = the "
+                    "pool's allocatable capacity); entries are LRU-evicted under pressure")
     ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp",
                     help="[continuous] KV page storage: the model dtype, or int8 with one "
                     "f32 scale per token slot per kv head")
@@ -184,6 +204,18 @@ def main(argv=None):
                     "is a same-params draft); greedy tokens stay those of the plain engine")
     ap.add_argument("--spec-tokens", type=int, default=0,
                     help="[continuous] draft lookahead depth k per round (needs --draft)")
+    ap.add_argument("--stagger", type=float, default=0.0,
+                    help="[continuous] seconds between arrivals (> 0 serves in real time)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="[continuous] serve through the fault-tolerant router over this many "
+                    "engine replicas sharing one set of weights (prefix-affinity and "
+                    "occupancy placement, token-exact failover); 1 = one engine, no router")
+    ap.add_argument("--fault", action="append", default=None, metavar="KIND:R@S",
+                    help="[router] inject a fault: kill:R@S, stall:R@S or slow:R@S@SEC "
+                    "(replica R at its own step S); repeatable, the specs make one plan")
+    ap.add_argument("--max-wall-s", type=float, default=0.0,
+                    help="[continuous] per-request watchdog: retire a slot older than this "
+                    "with a timeout result (0 = off)")
     # sampling (temperature 0 = greedy; request r samples on --seed + r)
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="[continuous] sampling temperature (0 = greedy)")
@@ -195,13 +227,39 @@ def main(argv=None):
     args = ap.parse_args(argv)
     # the reference's fail-fast contract: a flag the engine would have to
     # ignore is a configuration error, not a degraded run
-    for flag, hit in (("--kv-dtype int8", args.kv_dtype != "fp"),
-                      (f"--host-pages {args.host_pages}", args.host_pages > 0)):
+    if args.replicas > 1 and not args.continuous:
+        ap.error("--replicas requires --continuous (the router fronts continuous-batching "
+                 "engine replicas)")
+    if args.fault and args.replicas <= 1:
+        ap.error("--fault requires --replicas > 1 (fault injection is a router harness; a "
+                 "single engine has nowhere to fail over to)")
+    if args.prefix_cache:
+        blockers = []
+        if not args.continuous:
+            blockers.append("batch mode (use --continuous)")
+        if not args.paged_cache:
+            blockers.append("--no-paged-cache (prefix sharing rides the page table)")
+        if args.window > 0:
+            blockers.append(f"--window {args.window} (sliding-window ring wraps; prefix pages "
+                            "would be overwritten)")
+        if args.prefill == "interleaved":
+            blockers.append("--prefill interleaved (suffix rounds need chunked batched "
+                            "admission)")
+        if blockers:
+            ap.error("--prefix-cache cannot be honored by this config: " + "; ".join(blockers))
+    for flag, hit, replicas_why in (
+            ("--kv-dtype int8", args.kv_dtype != "fp",
+             "router replicas build fp pools; int8 replica pools are not wired yet"),
+            (f"--host-pages {args.host_pages}", args.host_pages > 0,
+             "router replicas manage their own pools; per-replica host tiers are not wired "
+             "yet")):
         blockers = []
         if hit and not args.continuous:
             blockers.append("batch mode (use --continuous)")
         if hit and not args.paged_cache:
             blockers.append("--no-paged-cache (it works on the page pool)")
+        if hit and args.replicas > 1:
+            blockers.append(f"--replicas ({replicas_why})")
         if blockers:
             ap.error(f"{flag} cannot be honored by this config: " + "; ".join(blockers))
     if args.host_pages < 0:
@@ -234,6 +292,8 @@ def main(argv=None):
         if args.window > 0:
             blockers.append(f"--window {args.window} (verify positions assume the "
                             "full-context page layout)")
+        if args.replicas > 1:
+            blockers.append("--replicas (router replicas do not build draft models yet)")
         if blockers:
             ap.error("speculative decoding cannot be honored by this config: "
                      + "; ".join(blockers))
@@ -248,15 +308,29 @@ def main(argv=None):
     if args.temperature > 0:
         sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                                   top_p=args.top_p, seed=args.seed)
+    if args.replicas > 1:
+        from repro_torch.launch.router import parse_fault_spec, serve_router_continuous
+
+        return serve_router_continuous(
+            args.arch, smoke=args.smoke, replicas=args.replicas, num_slots=args.slots,
+            n_requests=args.requests, prompt_len=args.prompt_len, gen_tokens=args.gen,
+            window=args.window, paged_cache=args.paged_cache, page_size=args.page_size,
+            num_pages=args.num_pages, watermark_pages=args.watermark_pages,
+            prefix_cache=args.prefix_cache is not False, sampling=sampling,
+            fault_plan=parse_fault_spec(args.fault) if args.fault else None,
+            seed=args.seed, stagger=args.stagger, max_wall_s=args.max_wall_s,
+            device=args.device,
+        )
     return serve_continuous(
         args.arch, smoke=args.smoke, num_slots=args.slots, n_requests=args.requests,
         prompt_len=args.prompt_len, gen_tokens=args.gen, window=args.window,
         prefill=args.prefill, paged_decode=args.paged_decode, paged_cache=args.paged_cache,
-        page_size=args.page_size, num_pages=args.num_pages,
-        watermark_pages=args.watermark_pages, prefix_cache=args.prefix_cache,
-        kv_dtype=args.kv_dtype, host_pages=args.host_pages, swap=args.swap,
-        draft=args.draft, spec_tokens=args.spec_tokens, sampling=sampling,
-        bucket_prefill=args.bucket_prefill, seed=args.seed, device=args.device,
+        page_size=args.page_size, num_pages=args.num_pages, long_requests=args.long_requests,
+        watermark_pages=args.watermark_pages, prefix_cache=args.prefix_cache is not False,
+        prefix_cache_pages=args.prefix_cache_pages, kv_dtype=args.kv_dtype,
+        host_pages=args.host_pages, swap=args.swap, draft=args.draft,
+        spec_tokens=args.spec_tokens, sampling=sampling, bucket_prefill=args.bucket_prefill,
+        seed=args.seed, stagger=args.stagger, max_wall_s=args.max_wall_s, device=args.device,
     )
 
 
