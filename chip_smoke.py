@@ -117,6 +117,17 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    32 pages, live slots carrying their pages): tokens, finish reasons, the
    shed record, the router's counters, each replica's preemptions, swaps
    and slot history exactly;
+4f. golden training: the reference trainer's float32 traces
+   (``golden_train_smoke.json``: the smoke config on the bridged weights, 2
+   clouds with sample counts (30, 10), H = 2, 6 steps of 2 x 16, int8 with
+   error feedback and DP clip 0.5, no noise) under fedavg, dynamic,
+   gradient, async, fedavg with the nesterov outer optimizer and fedavg at
+   2 microbatches, replayed through the channel kernels (leaves down to 128
+   elements, under one 256-block): per-step per-cloud losses within rtol
+   1e-4 and the final global params' per-leaf sum and sum of squares within
+   1e-2 of the leaf's RMS per element (``golden_train_errors``); the planted
+   fault, the sample counts ignored, must land outside in the fedavg and
+   gradient cases;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -226,7 +237,8 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    each with its kernels' device time one by one and its time by CUDA
    events back to back, and beside the rows top-k and int8 on the
    bf16-grid update, the clip alone (sigma 0, against ``torch.mul``) and
-   the bf16 norm;
+   the bf16 norm (against ``torch.linalg.vector_norm``, whose square is the
+   function);
 7. training: ``run_training`` over stablelm-1.6b at its published widths
    (2 clouds, H = 2, 4 steps, batch 8 x 256 per cloud, topk+int8 with error
    feedback, DP clip 1.0 and noise 0.1, FedAvg): finite losses, every
@@ -238,7 +250,34 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    and exactly k, per block) with the same noise seed, whose new global
    parameters must agree; last, a second, untimed run of the same
    configuration and seed logs its first sync's share of blocks whose k-th
-   magnitude is tied at the embedding leaves (embed.tok, embed.unembed);
+   magnitude is tied at the embedding leaves (embed.tok, embed.unembed).
+   Printed beside the run: the modelled WAN wall of one sync round
+   (``core/protocols.py``: TCP, gRPC and QUIC, star and ring) at the
+   measured uplink bytes and at the uncompressed update's;
+7b. the other aggregators at the same settings: gradient (every cloud's
+   params equal the global params bitwise after every step), async (in each
+   sync the cloud that did not arrive keeps its params bitwise, the arrived
+   one holds the new global), fedavg with the nesterov outer optimizer (the
+   momentum finite and nonzero after each sync) and dynamic; each with
+   finite losses, every channel kernel launched, its steady local-step
+   wall, tokens/s, sync walls and peak memory; async, nesterov and dynamic
+   also with phase 7's kernel-vs-plain sync round from a copy of the state
+   (a live ``loss_accum``, a mask with a late cloud);
+7d. secure aggregation on the two clouds' fp32 deltas at 7b's dynamic
+   run's first sync (their params copied to the host there, outside the
+   run's timings, and taken up after the run), raw and DP-clipped, one
+   leaf at a time: ``secure_aggregate`` bitwise
+   ``from_fixed(sum to_fixed)``, a masked transmit equal to its fixed-point
+   update on at most 8 of 1.64e9 elements, planted faults (a pair's mask
+   with the wrong sign, a cloud on the next round) that must not cancel; its
+   time and relative L2 error against the fp32 sum;
+7c. microbatches: one local step at full width, ``microbatches=2`` against
+   ``=1`` on 7b's trained params: the loss and each fp32 gradient leaf
+   within 0.05 relative L2, the planted fault (the halves summed, not
+   divided) outside; peak memory of both;
+7e. checkpoint: the bf16 global params saved in the reference's format
+   under ``build/`` and restored bitwise; save and restore walls, bytes on
+   disk; the directory removed;
 8. a ``{"kernels": [...]}`` line (thirteen kernels: launches from the fp
    main path, the int8 main path, the ring main path (``swa_decode``'s from
    its paged-decode-off run, at the shape 3c times), the speculative traces
@@ -2264,6 +2303,50 @@ def phase_golden_router():
         del router
 
 
+# ----------------------------------------------------------------- phase 4f
+def phase_golden_train():
+    """4f: the reference trainer's float32 golden traces (fedavg, dynamic,
+    gradient, async, nesterov, 2 microbatches; int8 with error feedback and
+    DP clip 0.5, so the channel kernels run, on leaves down to 128
+    elements) replayed on the card: per-step per-cloud losses within
+    ``GOLDEN_TRAIN_RTOL`` and the final global params' checksums within
+    ``GOLDEN_TRAIN_SUM_TOL``; with the sample counts ignored the fedavg and
+    gradient cases must land outside."""
+    import torch
+
+    from golden_train import (GOLDEN_TRAIN, GOLDEN_TRAIN_FAULTED, GOLDEN_TRAIN_RTOL,
+                              GOLDEN_TRAIN_SUM_TOL, golden_train_errors, golden_train_replay)
+    from repro_torch.kernels import ops
+
+    g = json.loads(GOLDEN_TRAIN.read_text())
+    kernels = ("int8_roundtrip", "sq_norm", "clip_noise")
+    for name, case in g["cases"].items():
+        t0 = time.perf_counter()
+        before = dict(ops.LAUNCHES)
+        got = golden_train_replay(g, name, DEVICE)
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in kernels}
+        loss, sums = golden_train_errors(case, got)
+        check(loss <= GOLDEN_TRAIN_RTOL and sums <= GOLDEN_TRAIN_SUM_TOL,
+              f"golden train {name}: loss rel err {loss} (tol {GOLDEN_TRAIN_RTOL}), checksum "
+              f"err {sums} (tol {GOLDEN_TRAIN_SUM_TOL})")
+        check(all(v > 0 for v in launched.values()), f"golden train {name}: a channel kernel "
+                                                      f"never launched: {launched}")
+        msg = ""
+        if name in GOLDEN_TRAIN_FAULTED:
+            f_loss, f_sums = golden_train_errors(
+                case, golden_train_replay(g, name, DEVICE, uniform_weights=True))
+            expect(f_loss > GOLDEN_TRAIN_RTOL and f_sums > GOLDEN_TRAIN_SUM_TOL,
+                   f"golden train {name}: planted fault (sample counts ignored) not caught: "
+                   f"{f_loss}, {f_sums}")
+            msg = (f"; planted fault (sample counts ignored): loss {f_loss:.3e}, checksum "
+                   f"{f_sums:.3e}")
+        log(f"[golden-train] {name}: {len(got['losses'])} steps x 2 clouds, largest loss rel err "
+            f"{loss:.3e} (tol {GOLDEN_TRAIN_RTOL:g}), checksum err {sums:.3e} (tol "
+            f"{GOLDEN_TRAIN_SUM_TOL:g}){msg}; kernel launches {launched}; "
+            f"{time.perf_counter() - t0:.2f} s")
+
+
 # ------------------------------------------------------------ phases 5e, 5f
 SPEC_K = 4
 
@@ -3618,11 +3701,13 @@ def phase_channel_kernels(smi):
                                lambda: ref.clip_noise_ref(x, one, noise, sigma),
                                lambda: torch.add(x, noise, alpha=sigma), 12 * n + 4, 3 * n),
                 # logged beside the rows: the clip alone (x read, out
-                # written) and the norm of a bf16 leaf (no single call)
+                # written) and the norm of a bf16 leaf (the library call
+                # returns the norm, whose square is the function)
                 "clip_noise sigma 0": (lambda: ops.clip_noise(x, scale),
                                        lambda: ref.clip_noise_ref(x, scale),
                                        lambda: torch.mul(x, scale), 8 * n + 4, n),
-                "sq_norm bf16": (lambda: ops.sq_norm(xb), lambda: ref.sq_norm_ref(xb), None,
+                "sq_norm bf16": (lambda: ops.sq_norm(xb), lambda: ref.sq_norm_ref(xb),
+                                 lambda: torch.linalg.vector_norm(xb, dtype=torch.float32),
                                  2 * n + 4, 2 * n),
             }
             for name, (kern, plain, lib, nbytes, flops) in timing.items():
@@ -3682,32 +3767,37 @@ def _dp_split(ev) -> str:
     return ", ".join(parts)
 
 
-def phase_training(smi):
-    """Federated training of stablelm-1.6b at its published widths, then a
-    kernel-vs-plain sync round from a copy of the trained state."""
+def _timed_run(label: str, *, on_sync=None, on_step=None, **overrides):
+    """``run_training`` at ``TRAIN``'s settings with ``overrides`` on the
+    card, each step's local part and its sync round timed apart (the
+    trainer's own ``_sync`` is kept as ``trainer.__dict__["untimed_sync"]``).
+    ``on_sync(state, arrived)``, if given, runs before each sync round and
+    returns a callable run after it, both outside the timed region;
+    ``on_step(trainer, state)`` runs after each step. Returns (result,
+    walls, launches, peak GB, total s)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    import channel_cases
     from repro_torch.kernels import ops
     from repro_torch.launch.train import run_training
-    from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    clouds, batch, seq = TRAIN["n_clouds"], TRAIN["per_cloud_batch"], TRAIN["seq_len"]
-    walls = {"local": [], "sync": []}
+    walls = {"local": [], "sync": [], "hooks": []}
 
     def step_fn(trainer, state, b, arrived, alphas):
         if "untimed_sync" not in trainer.__dict__:   # time the sync round on its own
             sync = trainer._sync
 
-            def timed_sync(*a):
+            def timed_sync(st, arr, alp):
+                t_hook = time.perf_counter()
+                after = on_sync(st, arr) if on_sync else None
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                out = sync(*a)
+                out = sync(st, arr, alp)
                 torch.cuda.synchronize()
                 walls["sync"].append(time.perf_counter() - t)
+                t_after = time.perf_counter()
+                if after:
+                    after()
+                walls["hooks"].append(t - t_hook + time.perf_counter() - t_after)
                 return out
             trainer.__dict__["untimed_sync"] = sync
             trainer._sync = timed_sync
@@ -3717,32 +3807,154 @@ def phase_training(smi):
         out = trainer.train_step(state, b, arrived, alphas)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        walls["local"].append(wall - (walls["sync"][-1] if len(walls["sync"]) > n_sync else 0))
+        if len(walls["sync"]) > n_sync:
+            wall -= walls["sync"][-1] + walls["hooks"][-1]
+        walls["local"].append(wall)
+        if on_step:
+            on_step(trainer, out[0])
         return out
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = run_training(**TRAIN, device=DEVICE, log_every=1,
-                       log_fn=lambda m: log(f"[train] {m}"), step_fn=step_fn)
+    res = run_training(**dict(TRAIN, **overrides), device=DEVICE, log_every=1,
+                       log_fn=lambda m: log(f"[{label}] {m}"), step_fn=step_fn)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    return res, walls, dict(ops.LAUNCHES), torch.cuda.max_memory_allocated() / 1e9, total
+
+
+def _run_summary(res, walls, launches, peak, total) -> tuple[str, list]:
+    """The log line of a training run, and its per-cloud losses; checks
+    finite losses and every channel kernel launched."""
+    clouds, batch, seq = TRAIN["n_clouds"], TRAIN["per_cloud_batch"], TRAIN["seq_len"]
     losses = [x for h in res["history"] for x in h["per_cloud_loss"]]
-    check(len(res["history"]) == 4 and all(np.isfinite(losses)), f"non-finite losses: {losses}")
+    check(len(res["history"]) == TRAIN["steps"] and all(np.isfinite(losses)),
+          f"non-finite losses: {losses}")
     check(all(launches[k] > 0 for k in CHANNEL), f"a channel kernel never launched: {launches}")
-    tokens = clouds * batch * seq
     steady = walls["local"][1:]
     local = sum(steady) / len(steady)
-    log(f"[train] {smi}: {res['params']:,} parameters, {clouds} clouds x "
-        f"{res['trainer'].model.cfg.n_layers} layers, 4 steps (2 sync "
-        f"rounds) in {total:.3f} s incl. init; local step walls (both clouds) "
-        f"{', '.join(f'{w * 1e3:.1f}' for w in walls['local'])} ms, steady {local * 1e3:.1f} ms "
-        f"= {tokens / local:.0f} tokens/s; sync round walls "
-        f"{', '.join(f'{w * 1e3:.1f}' for w in walls['sync'])} ms; peak memory {peak:.2f} GB "
-        f"(max_memory_allocated), {torch.cuda.memory_allocated() / 1e9:.2f} GB held after the "
-        f"run; uplink {res['bytes_per_cloud_per_sync']:,} B per cloud per sync (wire model); "
-        f"losses {losses}; launches {launches}")
+    syncs = ", ".join(f"{w * 1e3:.1f}" for w in walls["sync"]) or "none (every step aggregates)"
+    return (f"{res['params']:,} parameters, {clouds} clouds x "
+            f"{res['trainer'].model.cfg.n_layers} layers, {TRAIN['steps']} steps in {total:.3f} s "
+            f"incl. init; local step walls (both clouds) "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls['local'])} ms, steady "
+            f"{local * 1e3:.1f} ms = {clouds * batch * seq / local:.0f} tokens/s; sync round walls "
+            f"{syncs} ms; peak memory {peak:.2f} GB (max_memory_allocated); uplink "
+            f"{res['bytes_per_cloud_per_sync']:,} B per cloud per sync (wire model); losses "
+            f"{losses}; launches { {k: launches[k] for k in CHANNEL} }"), losses
+
+
+def _sync_parity(label, trainer, state, arrived, alphas, faults=()):
+    """One sync round from a copy of the trained state (clouds, error
+    feedback, global params and outer state, ``loss_accum``, the noise
+    seed; the optimizer states dropped) through the kernels, then through
+    the plain versions and each planted fault (name, ``plain_channel``
+    swaps): the new global params must agree within ``SYNC_DIFF_FRAC``, a
+    fault must not. The copy of what a sync writes in place (cloud params,
+    error feedback, the outer momentum) stays on the card; the global params,
+    which a sync replaces and never writes, are kept as they are, and the
+    kernel run's result goes to the host."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+    for c in state["clouds"]:
+        c["opt"] = None                      # the sync reads no optimizer state
+    torch.cuda.empty_cache()
+    like = state["global"]["params"]
+    snap = {"clouds": [[x.clone() for x in tree_leaves(c["params"])] for c in state["clouds"]],
+            "ef": [[x.clone() for x in tree_leaves(t)] for t in state.get("ef", [])],
+            "global": tree_leaves(like),
+            "outer": tree_map(torch.clone, state["global"]["outer"]),
+            "loss_accum": state["loss_accum"].clone()}
+
+    def sync_from_copy():
+        for c, saved in zip(state["clouds"], snap["clouds"]):
+            for p, s in zip(tree_leaves(c["params"]), saved):
+                p.copy_(s)
+        for t, saved in zip(state.get("ef", []), snap["ef"]):
+            for e, s in zip(tree_leaves(t), saved):
+                e.copy_(s)
+        state["global"] = {"params": tree_unflatten(like, snap["global"]),
+                           "outer": tree_map(torch.clone, snap["outer"])}
+        state["loss_accum"] = snap["loss_accum"].clone()
+        state["rng"] = torch.Generator(device=DEVICE).manual_seed(NOISE_SEED)
+        torch.cuda.empty_cache()   # the last round's freed blocks, split every which way
+        trainer.__dict__["untimed_sync"](state, arrived, alphas)
+        torch.cuda.synchronize()
+        return tree_leaves(state["global"]["params"])
+
+    torch.cuda.reset_peak_memory_stats()
+    got = [x.to("cpu", copy=True) for x in sync_from_copy()]
+
+    def compare(what, swap=None):
+        with plain_channel(**(swap or {})):
+            new = sync_from_copy()
+        differ = total_n = beyond = 0
+        worst = 0.0
+        for a, b in zip(new, got):
+            b = b.to(DEVICE)
+            d = (a.float() - b.float()).abs()
+            differ += int((d > 0).sum())
+            beyond += int((d > 2.0**-7 * b.float().abs()).sum())
+            total_n += d.numel()
+            worst = max(worst, d.max().item())
+        frac = differ / total_n
+        sound = frac <= SYNC_DIFF_FRAC and beyond == 0
+        if swap is not None:
+            expect(not sound, f"{label} sync round: planted fault '{what}' not caught ({frac})")
+        else:
+            expect(sound, f"{label} sync round kernels vs {what}: {differ} of {total_n} differ, "
+                          f"{beyond} by more than one bf16 ulp")
+        log(f"[{label}] sync round, new global params, kernels vs {what}: {differ} of {total_n} "
+            f"differ (fraction {frac:.3e}, tol {SYNC_DIFF_FRAC:g}), {beyond} by more than one "
+            f"bf16 ulp, max |diff| {worst:.3e}; peak memory so far "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    compare("plain versions")
+    for what, swap in faults:
+        compare(f"planted fault: {what}", swap)
+    del snap, got
+    torch.cuda.empty_cache()
+
+
+def _wan_sync_line(smi, res) -> str:
+    """The modelled WAN wall of one sync round (``core/protocols.py``,
+    ``Link()``'s defaults, 4 streams) at the run's uplink bytes and at the
+    uncompressed update's (the wire model's count: 2 B per bf16 parameter),
+    per protocol and topology."""
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.protocols import PROTOCOLS, Link, sync_wall_time
+
+    link, n = Link(), TRAIN["n_clouds"]
+    parts = []
+    for what, nbytes in (("topk+int8", res["bytes_per_cloud_per_sync"]),
+                         ("uncompressed", Compressor("none").bytes_per_sync(
+                             res["state"]["global"]["params"]))):
+        walls = ", ".join(f"{p} {topo} {sync_wall_time(nbytes, n, PROTOCOLS[p], link, 4, topo):.4f}"
+                          for p in PROTOCOLS for topo in ("star", "ring"))
+        parts.append(f"{what} ({nbytes:,} B per cloud): {walls}")
+    return (f"[train] {smi}: modelled WAN sync wall in s ({n} clouds, Link(): "
+            f"{link.latency_s * 1e3:g} ms one way, {link.bandwidth * 8 / 1e9:g} Gbit/s, loss "
+            f"{link.loss_rate:g}; 4 streams; core/protocols.py): " + "; ".join(parts))
+
+
+def phase_training(smi):
+    """Federated training of stablelm-1.6b at its published widths, then a
+    kernel-vs-plain sync round from a copy of the trained state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import channel_cases
+
+    batch, seq = TRAIN["per_cloud_batch"], TRAIN["seq_len"]
+    res, walls, launches, peak, total = _timed_run("train")
+    line, _ = _run_summary(res, walls, launches, peak, total)
+    log(f"[train] {smi}: {line}; {torch.cuda.memory_allocated() / 1e9:.2f} GB held after the "
+        f"run; all launches {launches}")
+    log(_wan_sync_line(smi, res))
 
     trainer, state = res["trainer"], res["state"]
     del res
@@ -3771,45 +3983,17 @@ def phase_training(smi):
         + "; ".join(f"{e.key[:40]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
                     for e in top))
 
-    # one sync round from a copy of the trained state: kernels, plain, fault
+    # the sync round's device time by stage, from the trained state
+    arrived = torch.ones(TRAIN["n_clouds"], dtype=torch.bool, device=DEVICE)
+    alphas = torch.full((TRAIN["n_clouds"],), 0.5, device=DEVICE)
     for c in state["clouds"]:
-        c["opt"] = None                      # the sync reads no optimizer state
+        c["opt"] = None
     torch.cuda.empty_cache()
-    like = state["global"]["params"]
-    def host(leaves):
-        return [x.to("cpu", copy=True) for x in leaves]
-
-    snap = {"clouds": [host(tree_leaves(c["params"])) for c in state["clouds"]],
-            "ef": [host(tree_leaves(t)) for t in state["ef"]],
-            "global": host(tree_leaves(like))}
-    arrived = torch.ones(clouds, dtype=torch.bool, device=DEVICE)
-    alphas = torch.full((clouds,), 0.5, device=DEVICE)
-
-    def restore():
-        for c, saved in zip(state["clouds"], snap["clouds"]):
-            for p, s in zip(tree_leaves(c["params"]), saved):
-                p.copy_(s)
-        for t, saved in zip(state["ef"], snap["ef"]):
-            for e, s in zip(tree_leaves(t), saved):
-                e.copy_(s)
-        state["global"]["params"] = tree_unflatten(like, [s.to(DEVICE) for s in snap["global"]])
-        state["loss_accum"] = torch.zeros(clouds, device=DEVICE)
-        state["rng"] = torch.Generator(device=DEVICE).manual_seed(NOISE_SEED)
-        torch.cuda.synchronize()
-
-    def sync_from_copy():
-        restore()
-        trainer.__dict__["untimed_sync"](state, arrived, alphas)
-        torch.cuda.synchronize()
-        return tree_leaves(state["global"]["params"])
-
-    restore()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         trainer.__dict__["untimed_sync"](state, arrived, alphas)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t) * 1e3
-    got = host(tree_leaves(state["global"]["params"]))
     stages: dict[str, float] = {}
     ev = _kernel_rows(prof)
     for e in ev:
@@ -3818,37 +4002,290 @@ def phase_training(smi):
         f"{sum(stages.values()):.2f} ms by stage: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(stages.items(), key=lambda x: -x[1]))
         + f"; of which {_dp_split(ev)}")
-
-    def compare(what, faults=False):
-        differ = total_n = beyond = 0
-        worst = 0.0
-        for a, b in zip(sync_from_copy(), got):
-            b = b.to(DEVICE).float()
-            d = (a.float() - b).abs()
-            differ += int((d > 0).sum())
-            beyond += int((d > 2.0**-7 * b.abs()).sum())
-            total_n += d.numel()
-            worst = max(worst, d.max().item())
-        frac = differ / total_n
-        sound = frac <= SYNC_DIFF_FRAC and beyond == 0
-        if faults:
-            expect(not sound, f"sync round: planted fault '{what}' not caught ({frac})")
-        else:
-            expect(sound, f"sync round kernels vs {what}: {differ} of {total_n} differ, "
-                          f"{beyond} by more than one bf16 ulp")
-        log(f"[train] sync round, new global params, kernels vs {what}: {differ} of {total_n} "
-            f"differ (fraction {frac:.3e}, tol {SYNC_DIFF_FRAC:g}), {beyond} by more than one "
-            f"bf16 ulp, max |diff| {worst:.3e}")
-
-    with plain_channel():
-        compare("plain versions")
-    with plain_channel(topk_sparsify=channel_cases.topk_short):
-        compare("planted fault: top-k keeps k-1 per block", faults=True)
-    with plain_channel(topk_sparsify=channel_cases.topk_exact_k):
-        compare("planted fault: top-k keeps exactly k per block (ties dropped)", faults=True)
-    del state, trainer, snap, got
+    # one sync round from a copy of the trained state: kernels, plain, faults
+    _sync_parity("train", trainer, state, arrived, alphas, faults=(
+        ("top-k keeps k-1 per block", {"topk_sparsify": channel_cases.topk_short}),
+        ("top-k keeps exactly k per block (ties dropped)",
+         {"topk_sparsify": channel_cases.topk_exact_k})))
+    del state, trainer
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ phases 7b-7e
+# the other aggregators at full width: (label, TRAIN overrides)
+AGGREGATORS_7B = (("gradient", dict(aggregation="gradient")),
+                  ("async", dict(aggregation="async")),
+                  ("nesterov", dict(outer_optimizer="nesterov")),
+                  ("dynamic", dict(aggregation="dynamic")))
+# One local step's fp32 gradients at 2 microbatches against 1, per leaf by
+# relative L2: the bf16 gradients of two half batches (GEMMs of other
+# shapes, each gradient rounded to bf16 before the fp32 sum) differ from
+# the whole batch's by a few bf16 ulps (2**-8 relative) of each element;
+# summing the halves without dividing by 2 reads 1.0.
+MICROBATCH_RTOL = 0.05
+# secure aggregation: a masked transmit equals its fixed-point update where
+# the mask is 0 (odds 2**-32 per element: ~0.4 of 1.64e9); more than this
+# many is a mask that was not drawn
+SECURE_SAME_MAX = 8
+
+
+def phase_training_aggregators(smi):
+    """7b: gradient, async, fedavg with the nesterov outer optimizer and
+    dynamic at ``TRAIN``'s settings, each gated on its own invariant, and a
+    kernel-vs-plain sync round for async, nesterov and dynamic; 7d runs on
+    the params the dynamic run's first sync saw, copied to the host there and
+    taken up after the run. Returns the dynamic run's model and global params
+    for 7c and 7e."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    n = TRAIN["n_clouds"]
+    snap_7d: dict = {}
+    for label, overrides in AGGREGATORS_7B:
+        t_run = time.perf_counter()
+        checks = {"steps": 0, "syncs": 0}
+
+        def on_step(trainer, state, label=label):
+            checks["steps"] += 1
+            if label == "gradient":     # every cloud holds the global params after every step
+                g = tree_leaves(state["global"]["params"])
+                for c in state["clouds"]:
+                    check(all(torch.equal(p, q) for p, q in zip(tree_leaves(c["params"]), g)),
+                          f"gradient: a cloud's params differ from the global params after "
+                          f"step {checks['steps']}")
+            if label == "nesterov" and state["step"] % TRAIN["local_steps"] == 0:
+                mom = tree_leaves(state["global"]["outer"]["momentum"])
+                check(all(bool(torch.isfinite(m).all()) for m in mom),
+                      "nesterov: a non-finite momentum")
+                check(any(bool((m != 0).any()) for m in mom), "nesterov: the momentum is 0")
+                checks["syncs"] += 1
+
+        def on_sync(state, arrived, label=label):
+            if label == "dynamic" and not checks["syncs"]:   # 7d's inputs: the first sync's
+                checks["syncs"] += 1
+                snap_7d.update(global_=[x.to("cpu", copy=True) for x in
+                                        tree_leaves(state["global"]["params"])],
+                               clouds=[[x.to("cpu", copy=True) for x in tree_leaves(c["params"])]
+                                       for c in state["clouds"]])
+            if label != "async":
+                return None
+            arr = arrived.tolist()
+            check(not all(arr), "async: every cloud arrived; the mask checks nothing")
+            # the late clouds' params on the host, so the gate adds nothing
+            # to the sync's peak memory on the card
+            before = {c: [x.to("cpu", copy=True)
+                          for x in tree_leaves(state["clouds"][c]["params"])]
+                      for c, a in enumerate(arr) if not a}
+
+            def after():   # late clouds keep their params, arrived ones hold the new global
+                checks["syncs"] += 1
+                g = tree_leaves(state["global"]["params"])
+                for c, a in enumerate(arr):
+                    want = g if a else before[c]
+                    check(all(torch.equal(p if a else p.cpu(), q) for p, q in
+                              zip(tree_leaves(state["clouds"][c]["params"]), want)),
+                          f"async sync {checks['syncs']}: cloud {c} (arrived {a}) does not hold "
+                          f"{'the new global params' if a else 'its own params'}")
+            return after
+
+        res, walls, launches, peak, total = _timed_run(f"train-{label}", on_sync=on_sync,
+                                                       on_step=on_step, **overrides)
+        line, losses = _run_summary(res, walls, launches, peak, total)
+        trainer, state = res["trainer"], res["state"]
+        del res
+        log(f"[train-{label}] {smi}: {line}; gates: "
+            + {"gradient": f"every cloud == global after each of {checks['steps']} steps",
+               "async": f"{checks['syncs']} syncs, the late cloud kept its params bitwise, "
+                        "the arrived one holds the new global",
+               "nesterov": f"momentum finite and nonzero after each of {checks['syncs']} syncs",
+               "dynamic": "finite losses, every channel kernel launched"}[label])
+        if label != "gradient":
+            # the sync from the trained state, with a live loss_accum (the
+            # last step's losses x H) and, for async, a mask with a late cloud
+            state["loss_accum"] = torch.tensor(losses[-n:], device=DEVICE) * TRAIN["local_steps"]
+            arrived = torch.tensor([c % 2 == 1 for c in range(n)], device=DEVICE)
+            _sync_parity(f"train-{label}", trainer, state, arrived,
+                         torch.full((n,), 0.5, device=DEVICE))
+        if label == "dynamic":
+            kept = trainer.model, state["global"]["params"]
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        if label == "dynamic":
+            phase_secure_agg(smi, {"global": snap_7d["global_"], "clouds": snap_7d["clouds"]})
+        log(f"[train-{label}] phase 7b run wall {time.perf_counter() - t_run:.1f} s")
+    return kept
+
+
+def phase_secure_agg(smi, snap):
+    """7d: secure aggregation at full width on the two clouds' fp32 deltas
+    at a sync round (``snap``: the clouds' and the global params' leaves on
+    the host, taken by 7b's dynamic run before its first sync, where the
+    error feedback is still 0), raw and DP-clipped (clip ``DP_CLIP``), one
+    leaf at a time on the card (the sum does not depend on the masks):
+    ``secure_aggregate`` equal to ``from_fixed(Σ to_fixed(u))`` bitwise,
+    each cloud's masked transmit equal to its ``to_fixed`` update on at
+    most ``SECURE_SAME_MAX`` elements; planted faults at the embedding leaf
+    (one pair's mask with the wrong sign; cloud 1 on the next round) must
+    not cancel. Prints its time and its relative L2 error against the fp32
+    sum."""
+    import torch
+
+    from repro_torch.core import privacy
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import clip_scale
+    from repro_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    g, clouds = snap["global"], snap["clouds"]
+    n_el = sum(x.numel() for x in g)
+
+    def delta(c, i):
+        return clouds[c][i].to(DEVICE).float() - g[i].to(DEVICE).float()
+
+    sq = [ops.tree_sq_norm(delta(c, i) for i in range(len(g))) for c in range(2)]
+    scales = [clip_scale(x, DP_CLIP) for x in sq]
+    rnd = 3
+    for kind in ("raw", "DP-clipped"):
+        same, err2, ref2, ms = [0, 0], 0.0, 0.0, 0.0
+        for i in range(len(g)):
+            u = [delta(c, i) for c in range(2)]
+            if kind == "DP-clipped":
+                u = [ops.clip_noise(x, s) for x, s in zip(u, scales)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = privacy.secure_aggregate(u, rnd)
+            torch.cuda.synchronize()
+            ms += (time.perf_counter() - t) * 1e3
+            fixed = [privacy.to_fixed(x) for x in u]
+            check(torch.equal(got, privacy.from_fixed(fixed[0] + fixed[1], torch.float32)),
+                  f"secure_aggregate {kind}, leaf {i}: differs from from_fixed(sum to_fixed)")
+            exact = u[0] + u[1]
+            err2 += (got - exact).square().sum(dtype=torch.float64).item()
+            ref2 += exact.square().sum(dtype=torch.float64).item()
+            if kind == "raw":
+                masked = [privacy.mask_update(f, c, 2, rnd) for c, f in enumerate(fixed)]
+                for c in range(2):
+                    same[c] += int((masked[c] == fixed[c]).sum())
+                if i == 0:   # embed.tok: the planted faults
+                    flipped = masked[1].clone()
+                    pair = privacy._pair_generator(rnd, 0, 1, DEVICE)
+                    flipped.add_(2 * torch.randint(-2**31, 2**31 - 1, flipped.shape,
+                                                   generator=pair, dtype=torch.int32,
+                                                   device=DEVICE))
+                    late = privacy.mask_update(fixed[1], 1, 2, rnd + 1)
+                    want = fixed[0] + fixed[1]
+                    bad = {what: int((privacy.secure_sum([masked[0], m1]) != want).sum())
+                           for what, m1 in (("a mask with the wrong sign", flipped),
+                                            ("cloud 1 on the next round", late))}
+                    for what, k in bad.items():
+                        check(k > 0, f"secure aggregation: planted fault '{what}' cancelled")
+                del masked
+        if kind == "raw":
+            check(max(same) <= SECURE_SAME_MAX, f"a masked transmit equals its fixed-point "
+                                                f"update on {same} elements")
+        log(f"[secure-agg] {smi}: {kind} deltas of {n_el:,} parameters x 2 clouds, one leaf at a "
+            f"time: secure_aggregate bitwise from_fixed(sum to_fixed) on every leaf; "
+            f"{ms:.1f} ms in secure_aggregate; relative L2 error against the fp32 sum "
+            f"{(err2 / ref2) ** 0.5:.4e} (fixed point 2**-16)"
+            + (f"; masked transmit == to_fixed update on {same} elements (max "
+               f"{SECURE_SAME_MAX}); planted faults at embed.tok differ on {bad} elements"
+               if kind == "raw" else
+               f"; global norms {[x.sqrt().item() for x in sq]}, clip scales "
+               f"{[x.item() for x in scales]}"))
+    log(f"[secure-agg] phase 7d wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_microbatches(smi, model, params):
+    """7c: one local step's loss and fp32 gradients at ``microbatches=2``
+    against ``=1`` on the same full-width params and batch (8 x 256), per
+    leaf by relative L2 within ``MICROBATCH_RTOL``; the planted fault (the
+    halves summed, not divided) must fail. Prints each one's peak memory."""
+    import torch
+
+    from golden_train import leaf_paths
+    from repro_torch.utils.grad import microbatched_value_and_grad
+    from repro_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    batch, seq = TRAIN["per_cloud_batch"], TRAIN["seq_len"]
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    toks = torch.randint(0, model.cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for k in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        (loss, _), grads = microbatched_value_and_grad(model.loss, params, b, k)
+        torch.cuda.synchronize()
+        out[k] = (loss.item(), tree_leaves(grads), (time.perf_counter() - t) * 1e3,
+                  (torch.cuda.max_memory_allocated() - held) / 1e9, held / 1e9)
+    (l1, g1, w1, p1, h1), (l2, g2, w2, p2, h2) = out[1], out[2]
+    rels, fault = {}, 0.0
+    for name, a, x in zip(leaf_paths(params), g1, g2):
+        norm = a.norm().item()
+        rels[name] = (x - a).norm().item() / norm
+        fault = max(fault, (2 * x - a).norm().item() / norm)
+    worst = max(rels, key=rels.get)
+    rel = rels[worst]
+    loss_rel = abs(l2 - l1) / abs(l1)
+    check(rel <= MICROBATCH_RTOL and loss_rel <= MICROBATCH_RTOL,
+          f"microbatches=2 vs 1: per-leaf rel L2 {rel}, loss rel {loss_rel}")
+    check(fault > MICROBATCH_RTOL, f"microbatch planted fault (no division) not caught: {fault}")
+    log(f"[microbatch] {smi}: one local step, {batch} x {seq}, {model.cfg.name} "
+        f"({model.cfg.n_layers} layers, d {model.cfg.d_model}): loss "
+        f"k=1 {l1:.6f}, k=2 {l2:.6f} (rel {loss_rel:.3e}); largest per-leaf rel L2 of the fp32 "
+        f"gradients {rel:.3e} at {worst} (tol {MICROBATCH_RTOL:g}; the others "
+        f"{', '.join(f'{k} {v:.1e}' for k, v in rels.items() if k != worst)}); planted fault (halves summed, not "
+        f"divided) {fault:.3f}; wall k=1 {w1:.1f} ms, k=2 {w2:.1f} ms; peak memory above the "
+        f"{h1:.2f} / {h2:.2f} GB held: k=1 {p1:.2f} GB, k=2 {p2:.2f} GB")
+    del out, g1, g2
+    torch.cuda.empty_cache()
+    log(f"[microbatch] phase 7c wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_checkpoint(smi, params):
+    """7e: the bf16 global params saved in the reference's checkpoint format
+    under ``build/`` and restored bitwise; the directory is removed."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    where = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(where, ignore_errors=True)
+    try:
+        ck = Checkpointer(str(where))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ck.save(TRAIN["steps"], params)
+        save_s = time.perf_counter() - t
+        nbytes = sum(f.stat().st_size for f in where.rglob("*") if f.is_file())
+        t = time.perf_counter()
+        back = ck.restore(ck.latest_step(), params)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        pairs = list(zip(tree_leaves(back), tree_leaves(params)))
+        check(all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in pairs), "checkpoint: a restored leaf differs")
+        n = sum(b.numel() * b.element_size() for _, b in pairs)
+        log(f"[checkpoint] {smi}: {len(pairs)} bf16 leaves, {n:,} B of params: save "
+            f"{save_s:.2f} s, {nbytes:,} B on disk, restore to the card {restore_s:.2f} s, "
+            "bitwise equal")
+        del back, pairs
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    log(f"[checkpoint] phase 7e wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_first_sync_ties():
@@ -3909,6 +4346,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_golden_router()
     log(f"[golden-router] phase 4e wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_golden_train()
+    log(f"[golden-train] phase 4f wall {time.perf_counter() - t0:.1f} s")
     launches, main_trace = phase_main_path(smi)
     t0 = time.perf_counter()
     phase_eos(smi, main_trace)
@@ -3934,10 +4374,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_graph_fault(smi)
     rows.update(phase_channel_kernels(smi))
+    t0 = time.perf_counter()
     train_launches = phase_training(smi)
     launches.update({k: train_launches[k] for k in CHANNEL})
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[train] phase 7 wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model, params = phase_training_aggregators(smi)
+    phase_microbatches(smi, model, params)
+    phase_checkpoint(smi, params)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] phases 7b-7e wall {time.perf_counter() - t0:.1f} s")
     phase_first_sync_ties()
     check(not FAILED, f"{len(FAILED)} numeric checks failed: {FAILED}")
     log(f"[smoke] script wall {time.perf_counter() - t_script:.1f} s")

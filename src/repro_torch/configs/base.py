@@ -1,9 +1,14 @@
 """Configs: the port's own copies of the reference ``ModelConfig`` (same
 fields, same defaults, same derived quantities), ``FederatedConfig`` and
 ``TrainConfig``, so the two packages agree on every shape and knob without
-the port importing the reference. The federated and training configs leave
-out the fields of parts the port does not have yet (``wire_int8``,
-``secure_agg``, the checkpoint and eval cadences)."""
+the port importing the reference. ``FederatedConfig`` leaves out
+``wire_int8`` (the in-program int8 sync of the reference's mesh, which the
+port does not have yet). ``secure_agg`` and ``TrainConfig.eval_every``
+are declared as in the reference, which reads neither; the port's
+``FederatedTrainer`` refuses them when set (secure aggregation is called
+directly, ``core/privacy.secure_aggregate``; there is no evaluation loop).
+``log_every``, ``checkpoint_every`` and ``checkpoint_dir`` are what
+``launch/train.run_training``'s loop reads."""
 from __future__ import annotations
 
 import dataclasses
@@ -127,6 +132,7 @@ class FederatedConfig:
     # --- privacy (§3.1 "Ensure Data Security") ---
     dp_clip: float = 0.0                  # 0 disables DP
     dp_noise_mult: float = 0.0
+    secure_agg: bool = False              # must stay False: the trainer raises
     # --- outer optimizer applied to the aggregated delta (beyond-paper) ---
     outer_optimizer: str = "none"         # none | sgd | nesterov
     outer_lr: float = 1.0
@@ -146,3 +152,7 @@ class TrainConfig:
     eps: float = 1e-8
     grad_clip: float = 1.0
     seed: int = 0
+    log_every: int = 10                   # steps between logged losses
+    eval_every: int = 0                   # must stay 0: the trainer raises
+    checkpoint_every: int = 0             # steps between saves; 0 saves nothing
+    checkpoint_dir: str = ""              # where the saves go

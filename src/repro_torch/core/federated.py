@@ -52,6 +52,13 @@ class FederatedTrainer:
         self.compressor = Compressor(self.fed.compression, self.fed.topk_ratio)
         if self.fed.aggregation not in agg.AGGREGATORS:
             raise ValueError(f"unknown aggregation {self.fed.aggregation!r}")
+        # declared as in the reference, which reads neither: refuse them
+        # rather than train without the masking or evaluation they ask for
+        if self.fed.secure_agg:
+            raise ValueError("secure_agg: the trainer does not mask its sync; call "
+                             "core.privacy.secure_aggregate on the clouds' updates")
+        if self.train.eval_every:
+            raise ValueError("eval_every: the trainer has no evaluation loop")
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator: torch.Generator, device, *,

@@ -7,7 +7,8 @@ Examples:
         --local-steps 2 --steps 4 --seq-len 256 --batch 8 \\
         --compression topk+int8 --dp-clip 1.0 --dp-noise 0.1
 
-The checkpointer (``--checkpoint-dir``) is not ported yet."""
+``--checkpoint-dir DIR`` saves the global parameters every 100 steps in the
+reference's checkpoint format (``repro_torch.checkpoint``)."""
 from __future__ import annotations
 
 import argparse
@@ -16,6 +17,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import FederatedConfig, TrainConfig
 from repro_torch.core.federated import FederatedTrainer
@@ -23,6 +25,8 @@ from repro_torch.core.scheduler import CloudSpec, events_to_round_masks, simulat
 from repro_torch.data import SyntheticCorpus, dirichlet_mixtures, federated_batch
 from repro_torch.models.model import build_model
 from repro_torch.utils.tree import tree_count_params
+
+CHECKPOINT_EVERY = 100   # steps between saves of the global params, as the reference
 
 
 def run_training(
@@ -44,6 +48,7 @@ def run_training(
     seed: int = 0,
     outer_optimizer: str = "none",
     log_every: int = 10,
+    checkpoint_dir: str = "",
     n_domains: int = 8,
     device: str = "cuda",
     log_fn=print,
@@ -61,7 +66,9 @@ def run_training(
     )
     tcfg = TrainConfig(
         seq_len=seq_len, global_batch=per_cloud_batch * n_clouds, steps=steps, lr=lr,
-        warmup_steps=max(steps // 10, 1), seed=seed,
+        warmup_steps=max(steps // 10, 1), seed=seed, log_every=log_every,
+        checkpoint_every=CHECKPOINT_EVERY if checkpoint_dir else 0,
+        checkpoint_dir=checkpoint_dir,
     )
     trainer = FederatedTrainer(build_model(cfg), fed, tcfg)
     init_gen = torch.Generator(device=device).manual_seed(seed)
@@ -82,6 +89,7 @@ def run_training(
     arrived_rounds, alpha_rounds = events_to_round_masks(events, n_clouds, n_rounds + 1)
 
     step_fn = step_fn or (lambda tr, *a: tr.train_step(*a))
+    ckpt = Checkpointer(tcfg.checkpoint_dir) if tcfg.checkpoint_every else None
     history = []
     t0 = time.time()
     for i in range(steps):
@@ -91,13 +99,15 @@ def run_training(
         arrived = torch.from_numpy(arrived_rounds[rnd]).to(device)
         alphas = torch.from_numpy(alpha_rounds[rnd]).to(device)
         state, metrics = step_fn(trainer, state, batch, arrived, alphas)
-        if (i + 1) % log_every == 0 or i == steps - 1:
+        if (i + 1) % tcfg.log_every == 0 or i == steps - 1:
             loss = float(metrics["loss"])
             acc = float(metrics["accuracy"])
             history.append({"step": i + 1, "loss": loss, "accuracy": acc,
                             "per_cloud_loss": metrics["per_cloud_loss"].tolist()})
             log_fn(f"step {i+1:5d}  loss {loss:.4f}  acc {acc:.4f}  "
                    f"({(time.time()-t0)/(i+1):.2f}s/step)")
+        if ckpt and (i + 1) % tcfg.checkpoint_every == 0:
+            ckpt.save(i + 1, state["global"]["params"])
 
     bytes_per_sync = trainer.sync_bytes_per_cloud(state["global"]["params"])
     total_syncs = steps * trainer.syncs_per_step()
@@ -140,6 +150,7 @@ def main():
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--outer", default="none", choices=["none", "sgd", "nesterov"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json-out", default="")
     args = ap.parse_args()
@@ -150,7 +161,8 @@ def main():
         local_steps=args.local_steps, aggregation=args.aggregation,
         compression=args.compression, topk_ratio=args.topk_ratio,
         dp_clip=args.dp_clip, dp_noise=args.dp_noise, beta=args.beta,
-        lr=args.lr, seed=args.seed, outer_optimizer=args.outer, device=args.device,
+        lr=args.lr, seed=args.seed, outer_optimizer=args.outer,
+        checkpoint_dir=args.checkpoint_dir, device=args.device,
     )
     print(f"final: loss={result['final_loss']:.4f} acc={result['final_accuracy']:.4f} "
           f"(oracle acc {result['oracle_accuracy']:.3f}); "

@@ -4,7 +4,10 @@ microbatches (the reference's ``microbatched_value_and_grad``).
 As in the reference, the gradient is taken with respect to the parameters
 in their own dtype (bf16 at full width) and then cast to fp32; with k
 microbatches the fp32 gradients are summed and divided by k, and the loss
-and metrics are microbatch means."""
+and metrics are microbatch means. The sum and the division run in place on
+the first microbatch's gradient tree (the same adds in the same order as
+the reference's ``tree_map``, so the same bits), so k > 1 holds one fp32
+gradient tree and one microbatch's beside it, not a new tree per add."""
 from __future__ import annotations
 
 from typing import Callable
@@ -47,9 +50,15 @@ def microbatched_value_and_grad(loss_fn: Callable, params: dict, batch: dict,
     for j in range(k):
         mb = {key: v[j * (b // k):(j + 1) * (b // k)] for key, v in batch.items()}
         (loss, metrics), g = _value_and_grad(loss_fn, params, mb)
-        acc = g if acc is None else tree_map(lambda a, x: a + x, acc, g)
+        if acc is None:
+            acc = g
+        else:
+            for a, x in zip(tree_leaves(acc), tree_leaves(g)):
+                a.add_(x)
+            del g
         losses = loss if losses is None else losses + loss
         for key, v in metrics.items():
             metrics_sum[key] = v if key not in metrics_sum else metrics_sum[key] + v
-    grads = tree_map(lambda a: a / k, acc)
-    return (losses / k, {key: v / k for key, v in metrics_sum.items()}), grads
+    for a in tree_leaves(acc):
+        a.div_(k)
+    return (losses / k, {key: v / k for key, v in metrics_sum.items()}), acc

@@ -76,6 +76,17 @@ ARCH = "stablelm-1.6b"
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Smoke-size torch ops on one intra-op thread: the suite runs several
+    workers at once, and teams of threads per worker oversubscribe the
+    cores (this module took 558 s of worker time in the full suite)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(**kw):
     return (dataclasses.replace(get_smoke_config(ARCH), dtype="float32", **kw),
             dataclasses.replace(ref_smoke_config(ARCH), dtype="float32", **kw))
