@@ -92,6 +92,12 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    dequantized pool; planted faults (the last prefix key or page dropped, a
    scale from the next slot) must differ. Timed as in 3, SDPA over the same
    keys as the library call; the bounds count the live queries only;
+3e. tensor-parallel kernels ([tp-kernels]): ``paged_decode``,
+   ``paged_decode_int8``, ``suffix_prefill``, ``suffix_prefill_int8`` and
+   ``flash_prefill`` at the per-shard shapes of 2 and 4 shards (Hkv 16 and
+   8) on the main path's inputs of 3: each shard against its plain version
+   and BITWISE equal to its heads of the Hkv-32 launch; device times at
+   Hkv 32, 16 and 8;
 4. golden: the port's engine replays the reference engine's float32 greedy
    trace (``src/repro_torch/testdata/golden_stablelm_smoke.json``) and must
    reproduce its tokens exactly;
@@ -127,7 +133,13 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    1e-4 and the final global params' per-leaf sum and sum of squares within
    1e-2 of the leaf's RMS per element (``golden_train_errors``); the planted
    fault, the sample counts ignored, must land outside in the fedavg and
-   gradient cases;
+   gradient cases; and the pod case (the reference's pod-mode step on a
+   2-device pod mesh: topk+int8 through the SPMD codecs, ``wire_int8``,
+   4 steps), replayed on a pod mesh naming the card twice, its fault caught
+   by the checksums;
+4g. golden tensor-parallel ([tp-golden]): the reference engine's float32
+   traces of 4 and 4c's four engine runs served on meshes of 2 and 4 shards
+   on the card (graphed): every token, every kernel of the paths launched;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -178,6 +190,21 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    none of its pages; 4 mid-decode requests (greedy and sampled) exported
    with their pages and imported by a second engine continue token for
    token; ``prefix_probe`` changes no counter, refcount or LRU order;
+5k. tensor-parallel main path ([tp-main]): first the per-shard projections'
+   column slices against the full product's columns (bitwise or not);
+   then, for meshes of 2 and 4 shards on the card: the cold round, a decode
+   step and the suffix round of the sharded forward against the unsharded
+   one (logits within 0.1 x scale), and phase 5's trace through a graphed
+   sharded engine: counters (steps, prefill tokens, dispatches, prefix
+   hits, CoW) and ``compiles`` equal to phase 5's, every serving kernel
+   launched, 24 x shards ``paged_decode`` launches per decode step, token
+   streams identical where the column slices are bitwise (else their share
+   printed); tok/s, TTFT p50, the decode step's profile, pool bytes per
+   shard;
+5l. tensor-parallel int8 ([tp-int8]): 5b's int8 trace over a pool that
+   preempts, without the host tier, at 2 shards against the unsharded
+   engine: counters equal, tokens as in 5k, every int8 kernel launched, 48
+   ``kv_write_int8`` launches per decode step;
 5b. int8 main path: the same model over an int8 pool with a host tier; 8
    cold prompts of 256-384 tokens x 64 tokens in a pool tight enough that
    slots are preempted and swapped out, then 8 shared-prefix prompts x 32
@@ -278,11 +305,17 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
 7e. checkpoint: the bf16 global params saved in the reference's format
    under ``build/`` and restored bitwise; save and restore walls, bytes on
    disk; the directory removed;
+7f. pod mode ([pod-train]): phase 7's load in pod mode (2 pods on the one
+   card, the SPMD codecs, ``wire_int8``): finite losses, the first sync's
+   int8-wire aggregate within 0.03 of each leaf's max magnitude of the
+   dense average of the same updates, the DP kernels launched and the
+   block channel kernels not; losses, walls, peak memory, payload bytes;
 8. a ``{"kernels": [...]}`` line (thirteen kernels: launches from the fp
    main path, the int8 main path, the ring main path (``swa_decode``'s from
    its paged-decode-off run, at the shape 3c times), the speculative traces
    of 5e (the verify's suffix prefills, the draft's ring decode and re-sync
-   prefills, the int8 verify's pool writes) and the training run),
+   prefills, the int8 verify's pool writes), the tensor-parallel traces of
+   5k-5l and the training run),
    then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -1705,6 +1738,46 @@ def _main_path_requests(vocab):
     return cold, hits
 
 
+def _parity_rounds(cold, hits):
+    """The inputs of the logit-parity stages (8 slots, page 16, a 52-page
+    table): the cold round's table, tokens and lengths over the 8 cold
+    prompts, and the suffix round's over the 8 shared-prefix prompts, which
+    reuse cold row 0's 16 prefix pages and get fresh pages behind them."""
+    import torch
+
+    from repro_torch.launch.engine import bucket_length, bucket_pages
+
+    page, n = 16, 8
+    table = np.zeros((n, 52), np.int32)
+    nxt = 1
+    cold_len = [len(r.prompt) for r in cold]
+    for i, length in enumerate(cold_len):
+        k = -(-(length + 1) // page)
+        table[i, :k] = np.arange(nxt, nxt + k)
+        nxt += k
+    tokens = np.zeros((n, bucket_length(max(cold_len))), np.int32)
+    for i, r in enumerate(cold):
+        tokens[i, : len(r.prompt)] = r.prompt
+    suf = [r.prompt[256:] for r in hits]
+    table_h = np.zeros((n, 52), np.int32)
+    for i, p in enumerate(suf):
+        k = -(-(256 + len(p)) // page)
+        table_h[i, :16] = table[0, :16]
+        table_h[i, 16:k] = np.arange(nxt, nxt + k - 16)
+        nxt += k - 16
+    stoks = np.zeros((n, bucket_length(max(len(p) for p in suf))), np.int32)
+    for i, p in enumerate(suf):
+        stoks[i, : len(p)] = p
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(DEVICE)
+
+    return dict(table=table, tokens=t(tokens), lengths=t(cold_len), table_h=table_h,
+                stoks=t(stoks), slens=t([len(p) for p in suf]),
+                starts=t(np.full(n, 256, np.int32)), pw=bucket_pages(16, 52),
+                slots=torch.arange(n, device=DEVICE))
+
+
 def _logit_parity(model, params, cfg, cold, hits, kv_dtype="fp"):
     """A cold round over the 8 cold prompts, one decode step and a suffix
     round over the 8 shared-prefix prompts, on the card, over an fp or an
@@ -1713,26 +1786,10 @@ def _logit_parity(model, params, cfg, cold, hits, kv_dtype="fp"):
     its kernel."""
     import torch
 
-    from repro_torch.launch.engine import bucket_length, bucket_pages
-
     page, n = 16, 8
-    width = 2 * 26 * n + 1
-    cache = model.init_paged_cache(n, width, page, 26 * 2, device=DEVICE, kv_dtype=kv_dtype)
-    table = np.zeros((n, 52), np.int32)
-    nxt = 1
-    cold_len = [len(r.prompt) for r in cold]
-    for i, L in enumerate(cold_len):
-        k = -(-(L + 1) // page)
-        table[i, :k] = np.arange(nxt, nxt + k)
-        nxt += k
-    cache["table"].copy_(torch.from_numpy(table))
-    tokens = np.zeros((n, bucket_length(max(cold_len))), np.int32)
-    for i, r in enumerate(cold):
-        tokens[i, : len(r.prompt)] = r.prompt
-    slots = torch.arange(n, device=DEVICE)
-
-    def t(a):
-        return torch.from_numpy(np.asarray(a)).to(DEVICE)
+    cache = model.init_paged_cache(n, 2 * 26 * n + 1, page, 52, device=DEVICE, kv_dtype=kv_dtype)
+    r = _parity_rounds(cold, hits)
+    cache["table"].copy_(torch.from_numpy(r["table"]))
 
     def stage(what, run, faults):
         snap = {k: v.clone() for k, v in cache.items()}
@@ -1763,8 +1820,8 @@ def _logit_parity(model, params, cfg, cold, hits, kv_dtype="fp"):
         log(msg)
         return lk
 
-    lk = stage("cold round", lambda c: model.prefill_slots(params, c, t(tokens), t(cold_len),
-                                                           slots),
+    lk = stage("cold round", lambda c: model.prefill_slots(params, c, r["tokens"], r["lengths"],
+                                                           r["slots"]),
                [("mask shifted by one", dict(flash_prefill=_prefill_shift))])
     feed = lk.argmax(-1, keepdim=True).to(torch.int32)
     int8_faults = ([("scale from the next slot", dict(paged_decode=_decode_scale_slot))]
@@ -1772,24 +1829,10 @@ def _logit_parity(model, params, cfg, cold, hits, kv_dtype="fp"):
     stage("decode step", lambda c: model.decode(params, c, feed),
           [("mask shifted by one", dict(paged_decode=_decode_shift)),
            ("last live page dropped", dict(paged_decode=_decode_drop_page)), *int8_faults])
-    # suffix round: rows reuse cold row 0's 16 prefix pages (the shared
-    # prefix) and get fresh pages behind them
-    suf = [r.prompt[256:] for r in hits]
-    table_h = np.zeros((n, 52), np.int32)
-    for i, p in enumerate(suf):
-        k = -(-(256 + len(p)) // page)
-        table_h[i, :16] = table[0, :16]
-        table_h[i, 16:k] = np.arange(nxt, nxt + k - 16)
-        nxt += k - 16
-    cache["table"].copy_(torch.from_numpy(table_h))
-    stoks = np.zeros((n, bucket_length(max(len(p) for p in suf))), np.int32)
-    for i, p in enumerate(suf):
-        stoks[i, : len(p)] = p
-    starts = t(np.full(n, 256, np.int32))
-    lens = [len(p) for p in suf]
-    pw = bucket_pages(16, 52)
-    stage("suffix round", lambda c: model.prefill_slots(params, c, t(stoks), t(lens), slots,
-                                                        starts=starts, prefix_pages=pw),
+    cache["table"].copy_(torch.from_numpy(r["table_h"]))
+    stage("suffix round", lambda c: model.prefill_slots(params, c, r["stoks"], r["slens"],
+                                                        r["slots"], starts=r["starts"],
+                                                        prefix_pages=r["pw"]),
           [("last prefix key dropped", dict(suffix_prefill=_suffix_shift)),
            ("last prefix page dropped", dict(suffix_prefill=_suffix_drop_page)),
            *([("scale from the next slot", dict(suffix_prefill=_suffix_scale_slot))]
@@ -2038,7 +2081,8 @@ def phase_main_path(smi):
     log(f"[graphs] {_trace_line('fp pages, the trace again on the graphed engine', smi, again, a_wall, eng)}"
         f"; new specializations: {eng.compiles != graphed['compiles']}")
     trace = dict(model=model, params=params, engine=eng, eager=eager, cold=cold, hits=hits,
-                 tokens={o.uid: o.tokens for o in outs}, tok_s=tokens / wall, ttft=ttft,
+                 record=graphed, tokens={o.uid: o.tokens for o in outs}, tok_s=tokens / wall,
+                 ttft=ttft,
                  dispatches=(eng.steps + ps["cold_dispatches"] + ps["suffix_dispatches"])
                  / tokens)
     return launches, trace
@@ -2311,7 +2355,9 @@ def phase_golden_train():
     elements) replayed on the card: per-step per-cloud losses within
     ``GOLDEN_TRAIN_RTOL`` and the final global params' checksums within
     ``GOLDEN_TRAIN_SUM_TOL``; with the sample counts ignored the fedavg and
-    gradient cases must land outside."""
+    gradient cases must land outside, and the pod case (the reference's
+    pod-mode step, the SPMD codecs and the int8 wire) outside the checksum
+    gate."""
     import torch
 
     from golden_train import (GOLDEN_TRAIN, GOLDEN_TRAIN_FAULTED, GOLDEN_TRAIN_RTOL,
@@ -2319,8 +2365,10 @@ def phase_golden_train():
     from repro_torch.kernels import ops
 
     g = json.loads(GOLDEN_TRAIN.read_text())
-    kernels = ("int8_roundtrip", "sq_norm", "clip_noise")
     for name, case in g["cases"].items():
+        # the pod case's channel is the SPMD codecs (plain torch): DP only
+        kernels = ("sq_norm", "clip_noise") if case.get("pod") else (
+            "int8_roundtrip", "sq_norm", "clip_noise")
         t0 = time.perf_counter()
         before = dict(ops.LAUNCHES)
         got = golden_train_replay(g, name, DEVICE)
@@ -2341,6 +2389,13 @@ def phase_golden_train():
                    f"{f_loss}, {f_sums}")
             msg = (f"; planted fault (sample counts ignored): loss {f_loss:.3e}, checksum "
                    f"{f_sums:.3e}")
+        elif case.get("pod"):
+            # 4 steps: the one sync moves the last two losses less than their gate
+            _, f_sums = golden_train_errors(
+                case, golden_train_replay(g, name, DEVICE, uniform_weights=True))
+            expect(f_sums > GOLDEN_TRAIN_SUM_TOL, f"golden train {name}: planted fault (sample "
+                                                  f"counts ignored) not caught: {f_sums}")
+            msg = f"; planted fault (sample counts ignored): checksum {f_sums:.3e}"
         log(f"[golden-train] {name}: {len(got['losses'])} steps x 2 clouds, largest loss rel err "
             f"{loss:.3e} (tol {GOLDEN_TRAIN_RTOL:g}), checksum err {sums:.3e} (tol "
             f"{GOLDEN_TRAIN_SUM_TOL:g}){msg}; kernel launches {launched}; "
@@ -4325,6 +4380,458 @@ def phase_first_sync_ties():
             f"{st['under_k_nonzero']:.4f}; rounds per block {st['rounds']:.4f}")
 
 
+# ------------------------------------------------- tensor-parallel phases
+# Meshes of the tensor-parallel phases: every shard on the one card.
+TP_SHARDS = (2, 4)
+# The counters a sharded trace must share with the unsharded one: the
+# scheduler, pool and prefix index do not see the shards.
+TP_COUNTERS = ("steps", "prefill_tokens", "prefill_dispatches", "cold_dispatches",
+               "suffix_dispatches", "prefix_hit_pages", "cow_copies", "preemptions")
+
+
+def _card_mesh(n):
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    return make_serve_mesh(n, devices=[DEVICE] * n)
+
+
+def _head_slice(x, dim, s, n):
+    """Shard s of n of ``x`` along ``dim`` (its kv-head dim), contiguous."""
+    w = x.shape[dim] // n
+    return x.narrow(dim, s * w, w).contiguous()
+
+
+def phase_kernels_tp(smi):
+    """3e: the serving kernels at the per-shard shapes of tensor-parallel
+    serving (stablelm-1.6b over 2 and 4 shards: Hkv 16 and 8, G 1, hd 64,
+    bf16), on the main path's inputs of phase 3 (decode: 8 rows at depths
+    100-380 over a scattered table with 6 shared pages; the suffix round: 8
+    x 64 behind a 256-token shared prefix; the cold round: 8 x 512), fp and
+    int8 pools. Each shard's launch is held against its plain version
+    (``RTOL``) and must equal, bitwise, its heads of the Hkv-32 launch on
+    the same inputs: nothing in the kernels' grids or split rule
+    (``split_len(cap, hd)``) depends on the head count. Device time per
+    launch at Hkv 32, 16 and 8 printed."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(31)
+    b, hkv, hd, page, t_w, num_pages = 8, 32, 64, 16, 208, 209
+    pos_list = [100 + 40 * r for r in range(b)]
+    q, kp, vp, pos, table = _decode_case(gen, torch.bfloat16, b, hkv, 1, hd, page, t_w,
+                                         num_pages, pos_list, shared=6)
+    kq, ksc = ref.kv_quant_ref(kp)
+    vq, vsc = ref.kv_quant_ref(vp)
+    n, s_suf, start, w_pfx, s_cold = 8, 64, 256, 16, 512
+    q5 = torch.randn(n, s_suf, hkv, 1, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    ks = torch.randn(n, s_suf, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    vs = torch.randn(n, s_suf, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    stable = _table(gen, [(start + s_suf) // page] * n, t_w, num_pages, shared=w_pfx).to(DEVICE)
+    starts = torch.full((n,), start, dtype=torch.int32, device=DEVICE)
+    qc = torch.randn(n, s_cold, hkv, 1, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    kc = torch.randn(n, s_cold, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    vc = torch.randn(n, s_cold, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    sfx = dict(prefix_width=w_pfx)
+    # (name, kernel, plain version, arguments, each argument's kv-head dim
+    # (None: the same for every shard), the output's kv-head dim)
+    cases = (
+        ("paged_decode", ops.paged_decode_attention, ref.paged_decode_ref,
+         (q, kp, vp, pos, table), (1, 2, 2, None, None), 1),
+        ("paged_decode_int8",
+         lambda *a: ops.paged_decode_attention(*a[:5], k_scale=a[5], v_scale=a[6]),
+         lambda *a: ref.paged_decode_int8_ref(a[0], a[1], a[2], a[5], a[6], a[3], a[4]),
+         (q, kq, vq, pos, table, ksc, vsc), (1, 2, 2, None, None, 2, 2), 1),
+        ("suffix_prefill", lambda *a: ops.suffix_prefill_attention(*a, **sfx),
+         lambda *a: ref.suffix_prefill_ref(*a, **sfx),
+         (q5, ks, vs, kp, vp, stable, starts), (2, 2, 2, 2, 2, None, None), 2),
+        ("suffix_prefill_int8",
+         lambda *a: ops.suffix_prefill_attention(*a[:7], pool_k_scale=a[7],
+                                                 pool_v_scale=a[8], **sfx),
+         lambda *a: ref.suffix_prefill_int8_ref(*a[:5], a[7], a[8], a[5], a[6], **sfx),
+         (q5, ks, vs, kq, vq, stable, starts, ksc, vsc), (2, 2, 2, 2, 2, None, None, 2, 2), 2),
+        ("flash_prefill", ops.flash_prefill_attention, ref.flash_prefill_ref,
+         (qc, kc, vc), (2, 2, 2), 2),
+    )
+    for name, fn, plain, args, dims, out_dim in cases:
+        full = fn(*args)
+        times = [f"Hkv {hkv} {timed_ms(lambda: fn(*args), iters=10)[0]:.4f}"]
+        for shards in TP_SHARDS:
+            same, worst = True, 0.0
+            for s in range(shards):
+                part = [a if d is None else _head_slice(a, d, s, shards)
+                        for a, d in zip(args, dims)]
+                out = fn(*part)
+                want = plain(*part)
+                rms = want.float().pow(2).mean().sqrt().item()
+                worst = max(worst, (out.float() - want.float()).abs().max().item() / rms)
+                same &= torch.equal(out, _head_slice(full, out_dim, s, shards))
+            check(same, f"[tp-kernels] {name} at Hkv {hkv // shards}: a shard's output is not "
+                        f"bitwise its heads of the Hkv-{hkv} launch")
+            expect(worst <= RTOL["bfloat16"], f"[tp-kernels] {name} at Hkv {hkv // shards}: "
+                                              f"err/RMS {worst} > {RTOL['bfloat16']}")
+            shard0 = [a if d is None else _head_slice(a, d, 0, shards)
+                      for a, d in zip(args, dims)]
+            times.append(f"Hkv {hkv // shards} {timed_ms(lambda: fn(*shard0), iters=10)[0]:.4f}")
+            log(f"[tp-kernels] {name} {shards} shards (Hkv {hkv // shards}, G 1, hd {hd}, "
+                f"bf16): "
+                f"each shard bitwise its heads of the Hkv-{hkv} launch: {same}; vs plain, "
+                f"worst err/RMS {worst:.3e} (tol {RTOL['bfloat16']:g})")
+        log(f"[tp-kernels] {name} ({smi}): device ms per launch " + ", ".join(times))
+        del full
+    torch.cuda.empty_cache()
+
+
+def phase_golden_tp():
+    """4g: the reference engine's float32 golden serving traces (phase 4's
+    paged trace and phase 4c's four engine runs: a windowed pool, chunked
+    and interleaved rings, swa decode) served by the port on meshes of 2 and
+    4 shards on the card (the smoke config's 4 heads, 2 and 1 per shard;
+    graphed): tokens identical to the reference's, every kernel of the
+    paths launched."""
+    import torch
+
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models.model import build_model
+
+    g = json.loads((ROOT / "src/repro_torch/testdata/golden_stablelm_smoke.json").read_text())
+    ring = json.loads((ROOT / "src/repro_torch/testdata/golden_stablelm_smoke_ring.json")
+                      .read_text())
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), dtype="float32")
+    model = build_model(cfg)
+    runs = [("paged", g, g["engine"], g["tokens"])]
+    runs += [(r["name"], ring, r["engine"], r["tokens"]) for r in ring["runs"]]
+    for shards in TP_SHARDS:
+        before = dict(ops.LAUNCHES)
+        names = []
+        for name, src, kw, want in runs:
+            params = params_from_numpy(numpy_params(cfg, src["seed"]), cfg, DEVICE)
+            eng = ServeEngine(model, params, device=DEVICE, mesh=_card_mesh(shards), **kw)
+            outs = eng.run([Request(uid=u, prompt=p, max_new_tokens=src["max_new_tokens"])
+                            for u, p in enumerate(src["prompts"])])
+            got = [o.tokens for o in outs]
+            check(got == want, f"[tp-golden] {name} on {shards} shards: fp32 tokens differ "
+                               f"from the reference's:\n{got}\n{want}")
+            names.append(name)
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in RING_GOLDEN_KERNELS + SERVING}
+        check(all(v > 0 for v in launched.values()), f"[tp-golden] {shards} shards missed a "
+                                                     f"kernel: {launched}")
+        log(f"[tp-golden] {shards} shards ({cfg.n_kv_heads // shards} kv heads each), "
+            f"{', '.join(names)}: fp32 greedy tokens identical to the reference engine's; "
+            f"kernel launches {launched}")
+
+
+def _column_slices(smi, params):
+    """Whether the per-shard projections round as the full ones: layer 0's
+    ``wq``/``wk``/``wv`` (2048 x 2048, bf16), x @ w[:, shard] against the
+    shard's columns of x @ w, at M = 8 (a decode step), 512 (a suffix round)
+    and 4096 (a cold round of 8 x 512) rows, for 2 and 4 shards. Returns
+    whether every slice is bitwise equal."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    d = params["layers"]["attn"]["wq"].shape[1]
+    readings, equal = [], True
+    for m in (8, 512, 4096):
+        x = torch.randn(m, d, generator=gen, device=DEVICE).to(torch.bfloat16)
+        for leaf in ("wq", "wk", "wv"):
+            w = params["layers"]["attn"][leaf][0]
+            full = x @ w
+            for shards in TP_SHARDS:
+                diffs = [((x @ _head_slice(w, 1, s, shards)).float()
+                          - _head_slice(full, 1, s, shards).float()).abs().max().item()
+                         for s in range(shards)]
+                equal &= max(diffs) == 0
+                readings.append(f"M{m} {leaf} /{shards}: {max(diffs):.3g}")
+    log(f"[tp-main] {smi}: column-sliced projections vs the full product's columns (max |diff|; "
+        f"0 = bitwise): " + ", ".join(readings) + f"; all bitwise: {equal}")
+    return equal
+
+
+def _tp_logit_parity(model, params, cfg, cold, hits, shards):
+    """Phase 5's cold round over the 8 cold prompts, one decode step and the
+    suffix round over the 8 shared-prefix prompts (``_parity_rounds``), at
+    full width on the card: the sharded forward (per-shard params and
+    pools, one process) vs the unsharded one, on the same inputs and cache
+    contents. Gates the worst max |dlogit| over the logit scale at
+    ``LOGIT_RTOL``; returns it and whether every stage is bitwise equal."""
+    import torch
+
+    from repro_torch.launch.engine import serving_params
+    from repro_torch.launch.mesh import shard_cache, shard_params
+    from repro_torch.models.model import build_model, localize_config
+    from repro_torch.models.sharding import TensorAxis, use_tensor_axis
+
+    page, n = 16, 8
+    mesh = _card_mesh(shards)
+    axis = TensorAxis("model", mesh.devices)
+    local = build_model(localize_config(cfg, shards))
+    full_p = serving_params(cfg, params)
+    shard_p = shard_params(full_p, mesh)
+    cache = model.init_paged_cache(n, 2 * 26 * n + 1, page, 52, device=DEVICE)
+    caches = shard_cache({k: v.clone() for k, v in cache.items()}, mesh)
+    r = _parity_rounds(cold, hits)
+
+    def set_table(tab):
+        for c in (cache, caches.full):   # the shards read one table tensor
+            c["table"].copy_(torch.from_numpy(tab))
+
+    worst, bitwise, msg = 0.0, True, []
+
+    def stage(what, run):
+        nonlocal worst, bitwise
+        lf = run(model, full_p, cache)[1][:, : cfg.vocab_size]
+        with use_tensor_axis(axis):
+            ls = run(local, shard_p, caches)[1][:, : cfg.vocab_size]
+        scale = max(lf.abs().max().item(), 1.0)
+        d = (lf - ls).abs().max().item()
+        worst, bitwise = max(worst, d / scale), bitwise and d == 0
+        msg.append(f"{what} {d:.3e} = {d / scale:.3e} x scale, argmax agreement "
+                   f"{(lf.argmax(-1) == ls.argmax(-1)).float().mean().item():.2f}")
+        return lf
+
+    set_table(r["table"])
+    lf = stage("cold round", lambda m, p, c: m.prefill_slots(p, c, r["tokens"], r["lengths"],
+                                                             r["slots"]))
+    feed = lf.argmax(-1, keepdim=True).to(torch.int32)
+    stage("decode step", lambda m, p, c: m.decode(p, c, feed))
+    set_table(r["table_h"])
+    stage("suffix round", lambda m, p, c: m.prefill_slots(
+        p, c, r["stoks"], r["slens"], r["slots"], starts=r["starts"], prefix_pages=r["pw"]))
+    del cache, caches, shard_p
+    torch.cuda.empty_cache()
+    tol = LOGIT_RTOL["bfloat16"]
+    expect(worst <= tol, f"[tp-main] {shards} shards: sharded vs unsharded logits {worst} x "
+                         f"scale > {tol}")
+    log(f"[tp-main] {shards} shards, sharded vs unsharded forward at full width (bf16): "
+        + "; ".join(msg) + f" (tol {tol:g} x scale); bitwise equal: {bitwise}")
+    return worst, bitwise
+
+
+def _tp_trace(model, params, main, smi, shards):
+    """Phase 5's trace through a ``shards``-shard engine on the card,
+    graphed, after ``warm()``: every count set to 0 just before it and read
+    just after. Returns the trace's record, its launches and the engine."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import ServeEngine
+
+    eng = ServeEngine(model, params, num_slots=8, max_seq=384 + 32, page_size=16,
+                      prefix_cache=True, paged_cache=True, device=DEVICE,
+                      mesh=_card_mesh(shards))
+    eng.warm(sorted({len(r.prompt) for r in main["cold"]}), gen_tokens=2)
+    warmed = eng.compiles
+    finite = []
+    _tap(eng, finite)
+    ops.reset_launches()
+    outs, wall = _run_trace(eng, main)
+    launches = dict(ops.LAUNCHES)
+    eng.graphs.tap = None
+    check(bool(torch.stack(finite).all()), f"[tp-main] {shards} shards: non-finite logits")
+    check(eng.compiles["decode"] == 1
+          and eng.compiles["prefill_slots"] == warmed["prefill_slots"],
+          f"[tp-main] {shards} shards: specializations {warmed} after warm() -> {eng.compiles}")
+    return _record(outs, wall, eng, launches), launches, eng
+
+
+def phase_tp_main(smi, main):
+    """5k-5l: tensor-parallel serving of stablelm-1.6b at its published widths
+    on the one card. 5k ([tp-main]): phase 5's fp trace through engines on
+    meshes of 2 and 4 shards (graphed), against the unsharded engine's
+    trace: token streams, prefill tokens, dispatches and compiles; tok/s,
+    TTFT p50, the decode step's device time and launches, pool bytes per
+    shard. The tokens are gated identical where the per-shard projections
+    round as the full ones (read first); otherwise the share of identical
+    tokens is printed and the gate is the fp32 golden traces' token identity
+    (4g) and the full-width logits within ``LOGIT_RTOL`` x scale of the
+    unsharded forward (gated always). 5l ([tp-int8]): the int8-page trace
+    of 5b on a pool tight enough to preempt, without the host tier (the
+    reference refuses it under a mesh), at 2 shards against the unsharded
+    engine. Returns the traces' launches."""
+    import torch
+
+    model, params, cfg = main["model"], main["params"], main["model"].cfg
+    exact = _column_slices(smi, params)
+    launches = {}
+    base = main["record"]
+    for shards in TP_SHARDS:
+        _tp_logit_parity(model, params, cfg, main["cold"], main["hits"], shards)
+        rec, tl, eng = _tp_trace(model, params, main, smi, shards)
+        for k in SERVING:
+            launches[k] = launches.get(k, 0) + tl[k]
+        check(all(tl[k] > 0 for k in SERVING), f"[tp-main] {shards} shards: a kernel never "
+                                               f"launched: {tl}")
+        same = sum(rec["tokens"][u] == base["tokens"][u] for u in base["tokens"])
+        tok_share = np.mean([a == b for u in base["tokens"]
+                             for a, b in zip(rec["tokens"][u], base["tokens"][u])])
+        counters = {k: (rec["counters"][k], base["counters"][k]) for k in TP_COUNTERS}
+        check(all(a == b for a, b in counters.values()),
+              f"[tp-main] {shards} shards: counters differ from the unsharded trace's "
+              f"(sharded, unsharded): {counters}")
+        check(rec["compiles"] == base["compiles"], f"[tp-main] {shards} shards: compiles "
+              f"{rec['compiles']} vs unsharded {base['compiles']}")
+        if exact:
+            check(same == len(base["tokens"]), f"[tp-main] {shards} shards: {same} of "
+                  f"{len(base['tokens'])} token streams identical to the unsharded trace's")
+        per_step = _profile_decode(eng, smi, label=f"profile tp {shards} shards")
+        check(per_step.get("paged_decode") == cfg.n_layers * shards,
+              f"[tp-main] {shards} shards: a decode step launched {per_step} (want "
+              f"{cfg.n_layers * shards} paged_decode)")
+        pool = sum(t.numel() * t.element_size() for name, t in eng.cache.shards[0].items()
+                   if name in ("k", "v"))
+        log(f"[tp-main] {shards} shards ({smi}): {rec['tok_s']:.1f} tok/s (unsharded "
+            f"{base['tok_s']:.1f}), TTFT p50 {rec['ttft'] * 1e3:.1f} ms (unsharded "
+            f"{base['ttft'] * 1e3:.1f}); token streams identical to the unsharded trace's: "
+            f"{same} of {len(base['tokens'])} ({tok_share:.4f} of tokens); counters "
+            f"(sharded, unsharded) {counters}; compiles {rec['compiles']}; launches "
+            f"{ {k: tl[k] for k in SERVING} }; pool {pool / 1e9:.4f} GB per shard "
+            f"({pool * shards / 1e9:.4f} GB in all); graph pool {rec['pool']}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 5l: int8 pages at 2 shards, a tight pool without the host tier
+    cold, hits = _int8_path_requests(cfg.vocab_size)
+    num_pages = sum(-(-len(r.prompt) // 16) for r in cold) + 4 + 1
+    base_toks, base_ps, _, eng, base_rec = _serve_trace(
+        model, params, cold, hits, smi, f"int8, {num_pages - 1} pages, unsharded",
+        kv_dtype="int8", num_pages=num_pages)
+    del eng
+    gc.collect()
+    toks, ps, tl, eng, rec = _serve_trace(
+        model, params, cold, hits, smi, f"int8, {num_pages - 1} pages, 2 shards",
+        kv_dtype="int8", num_pages=num_pages, mesh=_card_mesh(2))
+    for k in SERVING_INT8:
+        launches[k] = launches.get(k, 0) + tl[k]
+    check(all(tl[k] > 0 for k in SERVING_INT8), f"[tp-int8] an int8 kernel never launched: "
+                                                f"{tl}")
+    check(ps["preemptions"] > 0, f"[tp-int8] the tight pool did not preempt: {ps}")
+    counters = {k: (rec["counters"][k], base_rec["counters"][k]) for k in TP_COUNTERS}
+    check(all(a == b for a, b in counters.values()), f"[tp-int8] counters differ from the "
+                                                     f"unsharded trace's: {counters}")
+    same = sum(toks[u] == base_toks[u] for u in base_toks)
+    if exact:
+        check(same == len(base_toks), f"[tp-int8] {same} of {len(base_toks)} token streams "
+                                      "identical to the unsharded trace's")
+    per_step = _profile_decode(eng, smi, label="profile tp int8 2 shards")
+    check(per_step.get("kv_write_int8") == 2 * cfg.n_layers,
+          f"[tp-int8] a decode step must write each shard's pool once per layer: {per_step}")
+    log(f"[tp-int8] 2 shards ({smi}): {rec['tok_s']:.1f} tok/s (unsharded "
+        f"{base_rec['tok_s']:.1f}), TTFT p50 {rec['ttft'] * 1e3:.1f} ms; token streams "
+        f"identical to the unsharded trace's: {same} of {len(base_toks)}; counters (sharded, "
+        f"unsharded) {counters}; launches { {k: tl[k] for k in SERVING_INT8} }")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------- phase 7f
+POD_WIRE_GATE = 0.03   # the reference's own (tests/test_int8_wire.py:42)
+
+
+def phase_pod_train(smi):
+    """7f ([pod-train]): phase 7's load (2 clouds of stablelm-1.6b at its
+    published widths, 8 x 256 tokens per cloud, H = 2, 4 steps, topk+int8
+    with error feedback, DP clip and noise, fedavg) in pod mode on the one
+    card (``launch/steps.make_federated_step`` over a pod mesh naming the
+    card twice: the SPMD codecs, ``wire_int8``). The first sync's aggregate
+    is held leaf by leaf against the dense ``weighted_average`` of the same
+    transmitted updates: max error over the leaf's max magnitude <
+    ``POD_WIRE_GATE``. Prints the losses, local and sync walls (the first
+    sync's includes the gate's dense average), the peak memory, and the int8
+    payload bytes per pod against fp32's, and one more sync's device time
+    by kernel. The block channel kernels must not launch (the SPMD codecs
+    are plain torch); the DP kernels must."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import aggregation as agg
+
+    probe = {"sync": 0, "worst": 0.0, "leaves": 0, "int8": 0, "fp32": 0, "dense_leaves": 0}
+    wire = agg.int8_wire_weighted_average
+
+    def gated(stacked, weights, **kw):
+        out = wire(stacked, weights, **kw)
+        if probe["sync"] == 1:
+            dense = agg.weighted_average([x.to(out.device) for x in stacked], weights)
+            err = (out - dense).abs().max() / (dense.abs().max() + 1e-9)
+            probe["worst"] = max(probe["worst"], err.item())
+            probe["leaves"] += 1
+            x = stacked[0]
+            quantized = x.ndim > 0 and x.numel() * len(stacked) > agg.WIRE_DENSE_MAX
+            rows = x.numel() // x.shape[-1] if x.ndim else 1
+            probe["int8"] += len(stacked) * (x.numel() + 4 * rows if quantized
+                                             else 4 * x.numel())
+            probe["fp32"] += len(stacked) * 4 * x.numel()
+            probe["dense_leaves"] += not quantized
+        return out
+
+    def on_sync(state, arrived):
+        probe["sync"] += 1
+        return None
+
+    agg.int8_wire_weighted_average = gated
+    try:
+        res, walls, launches, peak, total = _timed_run("pod-train", on_sync=on_sync, pods=True,
+                                                       wire_int8=True)
+    finally:
+        agg.int8_wire_weighted_average = wire
+    losses = [x for h in res["history"] for x in h["per_cloud_loss"]]
+    check(len(res["history"]) == TRAIN["steps"] and all(np.isfinite(losses)),
+          f"[pod-train] non-finite losses: {losses}")
+    check(probe["leaves"] > 0 and probe["worst"] < POD_WIRE_GATE,
+          f"[pod-train] first sync: the int8 wire vs the dense average of the same updates, "
+          f"worst leaf {probe['worst']} of its max magnitude (gate {POD_WIRE_GATE}) over "
+          f"{probe['leaves']} leaves")
+    check(launches["sq_norm"] > 0 and launches["clip_noise"] > 0,
+          f"[pod-train] the DP kernels never launched: {launches}")
+    check(launches["topk_sparsify"] == 0 and launches["int8_roundtrip"] == 0,
+          f"[pod-train] the block channel kernels ran in pod mode: {launches}")
+    batch, seq, clouds = TRAIN["per_cloud_batch"], TRAIN["seq_len"], TRAIN["n_clouds"]
+    steady = walls["local"][1:]
+    local = sum(steady) / len(steady)
+    log(f"[pod-train] {smi}: {res['params']:,} parameters, {clouds} pods on one card, "
+        f"{TRAIN['steps']} steps in {total:.3f} s incl. init; local step walls (both clouds) "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls['local'])} ms, steady {local * 1e3:.1f} ms "
+        f"= {clouds * batch * seq / local:.0f} tokens/s; sync round walls "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls['sync'])} ms (the first holds the gate's "
+        f"dense average); peak memory {peak:.2f} GB; losses {losses}; first sync: int8 wire vs "
+        f"dense average, worst leaf {probe['worst']:.3e} of its max magnitude (gate "
+        f"{POD_WIRE_GATE:g}) over {probe['leaves']} leaves ({probe['dense_leaves']} sent "
+        f"dense); payload per sync {probe['int8']:,} B as int8 rows + fp32 scales vs "
+        f"{probe['fp32']:,} B in fp32 ({probe['fp32'] / max(probe['int8'], 1):.3f}x); "
+        f"launches { {k: launches[k] for k in CHANNEL} }")
+    # one more sync from the trained state, profiled: its device time by kernel
+    trainer, state = res["trainer"], res["state"]
+    del res
+    for c in state["clouds"]:
+        c["opt"] = None                      # the sync reads no optimizer state
+    torch.cuda.empty_cache()
+    arrived = torch.ones(clouds, dtype=torch.bool, device=DEVICE)
+    alphas = torch.full((clouds,), 0.5, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.__dict__["untimed_sync"](state, arrived, alphas)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ev = _kernel_rows(prof)
+    dev = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[pod-train] {smi}: profiled sync round wall {wall:.1f} ms, device time {dev:.2f} ms "
+        f"in {sum(e.count for e in ev)} kernel launches; top: "
+        + "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+                    for e in top))
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_script = time.perf_counter()
     smi = phase_device()
@@ -4337,6 +4844,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels_verify(smi)
     log(f"[verify] phase 3d wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_kernels_tp(smi)
+    log(f"[tp-kernels] phase 3e wall {time.perf_counter() - t0:.1f} s")
     phase_golden()
     phase_golden_int8()
     phase_golden_ring()
@@ -4349,6 +4859,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_golden_train()
     log(f"[golden-train] phase 4f wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_golden_tp()
+    log(f"[tp-golden] phase 4g wall {time.perf_counter() - t0:.1f} s")
     launches, main_trace = phase_main_path(smi)
     t0 = time.perf_counter()
     phase_eos(smi, main_trace)
@@ -4361,6 +4874,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lifecycle(smi, main_trace)
     log(f"[lifecycle] phase 5j wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_launches = phase_tp_main(smi, main_trace)
+    log(f"[tp-main] phases 5k-5l wall {time.perf_counter() - t0:.1f} s")
     spec_launches = spec.pop("launches")
     del main_trace, spec
     gc.collect()
@@ -4388,6 +4904,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] phases 7b-7e wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_pod_train(smi)
+    log(f"[pod-train] phase 7f wall {time.perf_counter() - t0:.1f} s")
     phase_first_sync_ties()
     check(not FAILED, f"{len(FAILED)} numeric checks failed: {FAILED}")
     log(f"[smoke] script wall {time.perf_counter() - t_script:.1f} s")
@@ -4396,6 +4915,9 @@ def main() -> int:
     for k, c in spec_launches.items():
         if k in launches:
             launches[k] += c
+    # the tensor-parallel traces' (5k-5l)
+    for k, c in tp_launches.items():
+        launches[k] += c
     kernels = []
     for name, r in rows.items():
         kernels.append({

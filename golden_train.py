@@ -14,6 +14,8 @@ from repro_torch.bridge import numpy_params, params_from_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import FederatedConfig, TrainConfig
 from repro_torch.core.federated import FederatedTrainer
+from repro_torch.launch.mesh import make_sim_mesh
+from repro_torch.launch.steps import make_federated_step
 from repro_torch.models.model import build_model
 from repro_torch.utils.tree import tree_leaves
 
@@ -48,32 +50,55 @@ def golden_train_replay(g: dict, name: str, device, *, uniform_weights: bool = F
     """One case of the reference's golden training file
     (``golden_train_smoke.json``) through the port's ``FederatedTrainer`` on
     ``device``: the smoke config in float32 on the bridged weights, the
-    file's batches and async masks. Returns {"losses": per step [cloud 0,
-    cloud 1], "sums": ``leaf_sums`` of the final global params}.
-    ``uniform_weights`` drops the sample counts: a planted fault."""
+    file's batches and async masks; a ``pod`` case runs the pod-mode step
+    (``launch/steps.make_federated_step``) on a pod mesh naming ``device``
+    once per cloud, with the case's compression, ``wire_int8`` and step
+    count. Returns {"losses": per step [cloud 0, cloud 1], "sums":
+    ``leaf_sums`` of the final global params}. ``uniform_weights`` drops
+    the sample counts: a planted fault."""
     case = g["cases"][name]
     cfg = dataclasses.replace(get_smoke_config(g["arch"]), dtype="float32")
-    fed = dict(g["fed"], aggregation=case["aggregation"],
-               outer_optimizer=case["outer_optimizer"],
-               cloud_sample_counts=None if uniform_weights else
-               tuple(g["fed"]["cloud_sample_counts"]))
+    fed = case_fed(g, case)
+    if uniform_weights:
+        fed["cloud_sample_counts"] = None
+    tokens = g["tokens"][: case.get("steps", len(g["tokens"]))]
     # the model's init returns the bridged weights, which init_state copies
     # to every cloud
     params = params_from_numpy(numpy_params(cfg, g["seed"]), cfg, device)
     model = dataclasses.replace(build_model(cfg), init=lambda generator, dev: params)
-    trainer = FederatedTrainer(model, FederatedConfig(**fed), TrainConfig(**g["train"]),
-                               microbatches=case["microbatches"])
+    train = TrainConfig(**dict(g["train"], steps=len(tokens)))
+    if case.get("pod"):
+        mesh = make_sim_mesh(g["fed"]["n_clouds"], devices=[device] * g["fed"]["n_clouds"])
+        trainer, step = make_federated_step(model, FederatedConfig(**fed), train,
+                                            microbatches=case["microbatches"], mesh=mesh)
+    else:
+        trainer = FederatedTrainer(model, FederatedConfig(**fed), train,
+                                   microbatches=case["microbatches"])
+        step = trainer.train_step
     state = trainer.init_state(torch.Generator(device=device).manual_seed(0), device)
     losses = []
-    for i, toks in enumerate(g["tokens"]):
+    for i, toks in enumerate(tokens):
         t = torch.tensor(toks, dtype=torch.int32, device=device)
         r = i // fed["local_steps"]
-        state, m = trainer.train_step(
-            state, {"tokens": t[..., :-1], "labels": t[..., 1:]},
-            torch.tensor(g["arrived"][r], device=device),
-            torch.tensor(g["alphas"][r], dtype=torch.float32, device=device))
+        batch = {"tokens": t[..., :-1], "labels": t[..., 1:]}
+        if case.get("pod"):
+            state, m = step(state, batch)
+        else:
+            state, m = step(state, batch, torch.tensor(g["arrived"][r], device=device),
+                            torch.tensor(g["alphas"][r], dtype=torch.float32, device=device))
         losses.append(m["per_cloud_loss"].tolist())
     return {"losses": losses, "sums": leaf_sums(state["global"]["params"])}
+
+
+def case_fed(g: dict, case: dict) -> dict:
+    """The ``FederatedConfig`` fields of one golden case: the file's, with
+    the case's aggregation and outer optimizer and, where the case names
+    them, its compression and ``wire_int8``."""
+    return dict(g["fed"], aggregation=case["aggregation"],
+                outer_optimizer=case["outer_optimizer"],
+                compression=case.get("compression", g["fed"]["compression"]),
+                wire_int8=case.get("wire_int8", False),
+                cloud_sample_counts=tuple(g["fed"]["cloud_sample_counts"]))
 
 
 def golden_train_errors(want: dict, got: dict) -> tuple[float, float]:

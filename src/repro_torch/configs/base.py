@@ -1,12 +1,14 @@
 """Configs: the port's own copies of the reference ``ModelConfig`` (same
-fields, same defaults, same derived quantities), ``FederatedConfig`` and
-``TrainConfig``, so the two packages agree on every shape and knob without
-the port importing the reference. ``FederatedConfig`` leaves out
-``wire_int8`` (the in-program int8 sync of the reference's mesh, which the
-port does not have yet). ``secure_agg`` and ``TrainConfig.eval_every``
-are declared as in the reference, which reads neither; the port's
-``FederatedTrainer`` refuses them when set (secure aggregation is called
-directly, ``core/privacy.secure_aggregate``; there is no evaluation loop).
+fields, same defaults, same derived quantities), ``FederatedConfig``,
+``TrainConfig`` and ``MeshConfig``, so the two packages agree on every shape
+and knob without the port importing the reference. ``FederatedConfig.wire_int8``
+is read by the pod-mode trainer (``FederatedTrainer(spmd_axis="pod")``): its
+sync then carries the clouds' updates to the combining device as int8 rows
+(``core/aggregation.int8_wire_weighted_average``). ``secure_agg`` and
+``TrainConfig.eval_every`` are declared as in the reference, which reads
+neither; the port's ``FederatedTrainer`` refuses them when set (secure
+aggregation is called directly, ``core/privacy.secure_aggregate``; there is
+no evaluation loop).
 ``log_every``, ``checkpoint_every`` and ``checkpoint_dir`` are what
 ``launch/train.run_training``'s loop reads."""
 from __future__ import annotations
@@ -129,6 +131,9 @@ class FederatedConfig:
     compression: str = "none"             # none | topk | int8 | topk+int8
     topk_ratio: float = 0.01              # keep-fraction for top-k sparsification
     error_feedback: bool = True
+    # pod mode: the sync's payload crosses the pod axis as int8 rows plus
+    # fp32 row scales instead of fp32 (outside async aggregation)
+    wire_int8: bool = False
     # --- privacy (§3.1 "Ensure Data Security") ---
     dp_clip: float = 0.0                  # 0 disables DP
     dp_noise_mult: float = 0.0
@@ -156,3 +161,14 @@ class TrainConfig:
     eval_every: int = 0                   # must stay 0: the trainer raises
     checkpoint_every: int = 0             # steps between saves; 0 saves nothing
     checkpoint_dir: str = ""              # where the saves go
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    data: int = 1
+    model: int = 1
+    pods: int = 1
+
+    @property
+    def devices(self) -> int:
+        return self.data * self.model * self.pods

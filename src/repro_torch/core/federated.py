@@ -11,8 +11,20 @@ Per the paper:
 
 Where the reference stacks per-cloud state on a leading axis under
 ``jax.vmap``, the port keeps a list of per-cloud states and loops over it;
-``lax.cond`` on the sync round becomes ``if step % H == 0``. The state is
-updated in place and returned. The sync round streams leaf by leaf: a
+``lax.cond`` on the sync round becomes ``if step % H == 0``.
+
+Pod mode (``spmd_axis="pod"`` with a ``mesh`` of one device per cloud,
+``launch/mesh.make_sim_mesh``; the reference's SPMD mode): cloud i's
+parameters, moments and error feedback live on pod device i and its local
+steps run there; the global parameters live on the combining device, the
+mesh's first. The channel takes the reference's SPMD codecs
+(``Compressor(spmd=True)``), and a ``wire_int8`` sync (fedavg or dynamic;
+refused without pod mode and under async or gradient aggregation) carries
+each cloud's transmitted update to the combining device as int8 rows
+(``aggregation.int8_wire_weighted_average``); otherwise the updates move
+there in fp32. All pods may share one device (the CPU, one card).
+
+The state is updated in place and returned. The sync round streams leaf by leaf: a
 cloud's fp32 delta is made when a leaf is reached (twice under DP: once for
 the norm, once to send), so a full-width sync holds a few leaves of fp32
 temporaries instead of whole delta trees. Deltas, error feedback and the
@@ -25,7 +37,7 @@ when compression runs with error feedback}."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Any, Iterator
 
 import torch
 
@@ -46,12 +58,27 @@ class FederatedTrainer:
     model: ModelAPI
     fed: FederatedConfig
     train: TrainConfig
+    spmd_axis: str | None = None     # "pod": pod mode over ``mesh``
     microbatches: int = 1            # grad-accumulation chunks per local step
+    mesh: Any = None                 # the pod mesh (one device per cloud)
 
     def __post_init__(self):
-        self.compressor = Compressor(self.fed.compression, self.fed.topk_ratio)
+        self.compressor = Compressor(self.fed.compression, self.fed.topk_ratio,
+                                     spmd=self.spmd_axis is not None)
         if self.fed.aggregation not in agg.AGGREGATORS:
             raise ValueError(f"unknown aggregation {self.fed.aggregation!r}")
+        if self.spmd_axis is not None:
+            pods = dict(self.mesh.shape).get(self.spmd_axis) if self.mesh is not None else None
+            if pods != self.fed.n_clouds:
+                raise ValueError(f"pod mode needs a mesh with a {self.spmd_axis!r} axis of "
+                                 f"{self.fed.n_clouds} devices (one per cloud), got {self.mesh}")
+        # the int8 wire is the pod-mode sync of formulas 1-2: refuse it
+        # where the sync would silently move fp32 instead
+        if self.fed.wire_int8 and self.spmd_axis is None:
+            raise ValueError("wire_int8 needs pod mode (spmd_axis='pod' and a pod mesh)")
+        if self.fed.wire_int8 and self.fed.aggregation in ("async", "gradient"):
+            raise ValueError(f"wire_int8 with {self.fed.aggregation!r} aggregation: the int8 "
+                             "wire carries the fedavg/dynamic sync only")
         # declared as in the reference, which reads neither: refuse them
         # rather than train without the masking or evaluation they ask for
         if self.fed.secure_agg:
@@ -61,17 +88,25 @@ class FederatedTrainer:
             raise ValueError("eval_every: the trainer has no evaluation loop")
 
     # ------------------------------------------------------------------ init
+    def _cloud_device(self, c: int, device):
+        """Where cloud c's state lives: its pod device in pod mode."""
+        return self.mesh.devices[c] if self.spmd_axis is not None else torch.device(device)
+
     def init_state(self, generator: torch.Generator, device, *,
                    noise_seed: int = 0xFED) -> dict:
         """Fresh weights from ``generator`` on ``device``, copied to every
-        cloud; the DP noise generator is seeded with ``noise_seed`` on
-        ``device``."""
+        cloud (to its pod device in pod mode); the DP noise generator is
+        seeded with ``noise_seed`` on ``device``. In pod mode ``device`` is
+        the mesh's first device, the combining device."""
         c = self.fed.n_clouds
+        if self.spmd_axis is not None:
+            device = self.mesh.devices[0]
         params = self.model.init(generator, device)
         counts = self.fed.cloud_sample_counts or (1,) * c
+        clouds = [tree_map(lambda p, i=i: p.to(self._cloud_device(i, device), copy=True), params)
+                  for i in range(c)]
         state = {
-            "clouds": [{"params": tree_map(torch.clone, params), "opt": adamw_init(params)}
-                       for _ in range(c)],
+            "clouds": [{"params": cp, "opt": adamw_init(cp)} for cp in clouds],
             "global": {"params": params, "outer": outer_init(self.fed, params)},
             "sample_counts": torch.tensor(counts, dtype=torch.float32, device=device),
             "loss_accum": torch.zeros(c, dtype=torch.float32, device=device),
@@ -79,8 +114,8 @@ class FederatedTrainer:
             "rng": torch.Generator(device=device).manual_seed(noise_seed),
         }
         if self._use_error_feedback():
-            state["ef"] = [tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-                           for _ in range(c)]
+            state["ef"] = [tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), cp)
+                           for cp in clouds]
         return state
 
     def _use_error_feedback(self) -> bool:
@@ -145,7 +180,7 @@ class FederatedTrainer:
         ef = [tree_leaves(e) for e in state["ef"]] if "ef" in state else None
 
         def delta(c):
-            return lambda i: clouds[c][i].float() - g_leaves[i].float()
+            return lambda i: clouds[c][i].float() - g_leaves[i].to(clouds[c][i].device).float()
 
         mean_losses = state["loss_accum"] / max(fed.local_steps, 1)
         if fed.aggregation == "dynamic":
@@ -159,13 +194,18 @@ class FederatedTrainer:
         for gl, sent in zip(g_leaves, channel):
             if fed.aggregation == "async":
                 # reconstructed per-cloud params after the lossy channel
-                recon = [gl.float() + t for t in sent]
+                recon = [gl.float() + t.to(gl.device) for t in sent]
                 new_leaves.append(agg.masked_async_update(gl, recon, alphas, arrived))
+                continue
+            if fed.wire_int8:
+                # each cloud's int8 rows and row scales move to the combining device
+                d = agg.int8_wire_weighted_average(sent, weights, pod_axis=self.spmd_axis,
+                                                   mesh=self.mesh)
             else:
-                d = agg.weighted_average(sent, weights)
-                if std > 0:
-                    d = privacy.add_gaussian_noise(d, state["rng"], std)
-                new_leaves.append((gl.float() + d.float()).to(gl.dtype))
+                d = agg.weighted_average([t.to(gl.device) for t in sent], weights)
+            if std > 0:
+                d = privacy.add_gaussian_noise(d, state["rng"], std)
+            new_leaves.append((gl.float() + d.float()).to(gl.dtype))
         aggregated = tree_unflatten(g, new_leaves)
 
         if fed.aggregation == "async":
@@ -200,10 +240,10 @@ class FederatedTrainer:
         if fed.aggregation == "gradient":
             return self._gradient_step(state, batch_stack)
 
-        metrics = [self._local_step(cloud, {k: v[i] for k, v in batch_stack.items()})
+        metrics = [self._local_step(cloud, self._cloud_batch(batch_stack, i, device))
                    for i, cloud in enumerate(state["clouds"])]
-        losses = torch.stack([m["loss"] for m in metrics])
-        accs = torch.stack([m["accuracy"] for m in metrics])
+        losses = torch.stack([m["loss"].to(device) for m in metrics])
+        accs = torch.stack([m["accuracy"].to(device) for m in metrics])
         state["loss_accum"] = state["loss_accum"] + losses
         state["step"] += 1
         synced = state["step"] % max(fed.local_steps, 1) == 0
@@ -212,13 +252,19 @@ class FederatedTrainer:
         return state, {"loss": losses.mean(), "accuracy": accs.mean(),
                        "per_cloud_loss": losses, "synced": float(synced)}
 
+    def _cloud_batch(self, batch_stack: dict, i: int, device) -> dict:
+        """Cloud i's batch, on its device."""
+        dev = self._cloud_device(i, device)
+        return {k: v[i].to(dev) for k, v in batch_stack.items()}
+
     # ------------------------------------------------- gradient aggregation
     def _gradient_step(self, state: dict, batch_stack: dict) -> tuple[dict, dict]:
         """Formula 3: aggregate ∇w_i every step, one global optimizer."""
         fed = self.fed
+        device = state["loss_accum"].device
         grads, metrics = [], []
         for i, cloud in enumerate(state["clouds"]):
-            (_, m), gr = self._grads(cloud["params"], {k: v[i] for k, v in batch_stack.items()})
+            (_, m), gr = self._grads(cloud["params"], self._cloud_batch(batch_stack, i, device))
             grads.append(tree_leaves(gr))
             metrics.append(m)
         g = state["global"]["params"]
@@ -230,7 +276,7 @@ class FederatedTrainer:
             channel = self._channel([(lambda i, gc=gc: gc[i]) for gc in grads], ef,
                                     len(grads[0]))
             for sent in channel:
-                d = agg.gradient_aggregate(None, sent, weights)
+                d = agg.gradient_aggregate(None, [t.to(device) for t in sent], weights)
                 agg_leaves.append(privacy.add_gaussian_noise(d, state["rng"], std)
                                   if std > 0 else d)
         del grads
@@ -248,8 +294,8 @@ class FederatedTrainer:
                             x.copy_(x0)
                     cloud["opt"]["count"] = opt0["count"]
         state["step"] += 1
-        losses = torch.stack([m["loss"] for m in metrics])
-        accs = torch.stack([m["accuracy"] for m in metrics])
+        losses = torch.stack([m["loss"].to(device) for m in metrics])
+        accs = torch.stack([m["accuracy"].to(device) for m in metrics])
         return state, {"loss": losses.mean(), "accuracy": accs.mean(),
                        "per_cloud_loss": losses, "synced": 1.0}
 

@@ -75,9 +75,23 @@ row samples, and "spec_verify" per (width, length, prefix-page width)).
 ``graphs=False`` runs every dispatch eagerly: the same tokens and counters.
 What stays eager: page-table pushes, slot resets, copy-on-write page
 copies, host-tier copies, the greedy argmax, the speculative acceptance,
-rollback and position fix-up, and the drafts' round trip to the host. A
-mesh (tensor-parallel serving) belongs to a later slice and raises at
-construction."""
+rollback and position fix-up, and the drafts' round trip to the host.
+
+A ``mesh`` (``launch/mesh.make_serve_mesh``: a ``model`` axis over a list of
+devices) serves tensor-parallel: the engine keeps its params and cache as
+``Sharded`` trees, every replicated leaf once (positions and the one
+host-side page table among them) beside each shard's ``wq``/``wk``/``wv``
+head slices and its kv-head slice of every page or ring, and each dispatch
+runs the per-shard model (``model.localize_config``) under the mesh's
+tensor axis: attention per shard, the heads gathered, the rest once
+(``models/sharding.py``). One process drives every shard; the scheduler,
+pool and prefix index are unchanged, so the counters equal the unsharded
+engine's. A mesh may name one
+device several times (every shard on one card, or on the CPU); shards on
+distinct devices run only with ``graphs=False`` (a graph captures one
+device's stream) and are untested. A mesh refuses the host tier and
+speculative decoding, as the reference does, and ``export_inflight`` carries
+no pages from it."""
 from __future__ import annotations
 
 import collections
@@ -92,13 +106,17 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import SyntheticCorpus
 from repro_torch.launch.graphs import GraphCache
+from repro_torch.launch.mesh import (
+    MODEL_AXIS, axis_size, make_serve_mesh, shard_cache, shard_params,
+)
 from repro_torch.launch.prefix_cache import PrefixCache
 from repro_torch.launch.sampling import (
     SamplingParams, request_stream, sample_rows, speculative_acceptance,
 )
 from repro_torch.launch.spec_decode import make_draft_backend
 from repro_torch.models.attention import ring_capacity
-from repro_torch.models.model import ModelAPI, build_model
+from repro_torch.models.model import ModelAPI, build_model, localize_config
+from repro_torch.models.sharding import TensorAxis, use_tensor_axis
 from repro_torch.models.transformer import KV_PLANES, reset_slot
 
 # Smallest padded prompt length of the bucket ladder.
@@ -433,7 +451,9 @@ class ServeEngine:
     the CPU). ``bucket_prefill=False`` dispatches each admission round at
     its exact (width, length), so every distinct shape is a new
     specialization. ``graphs=False`` runs every dispatch eagerly instead of
-    through CUDA graphs (the same tokens and counters)."""
+    through CUDA graphs (the same tokens and counters). ``mesh`` serves
+    tensor-parallel over its ``model`` axis (see the module docstring); the
+    engine then runs on the mesh's first device."""
 
     def __init__(
         self,
@@ -468,9 +488,6 @@ class ServeEngine:
         graphs: bool = True,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "not in the port yet (a later slice): a mesh (tensor-parallel serving)")
         if prefill not in PREFILL_MODES:
             raise ValueError(f"prefill {prefill!r} not in {PREFILL_MODES}")
         if num_slots < 1:
@@ -499,6 +516,8 @@ class ServeEngine:
                                 "suffix-prefill round)")
             if window != 0:
                 blockers.append(f"window={window} (suffix prefill is windowless)")
+            if mesh is not None:
+                blockers.append("mesh serving (single-device verify only)")
             if draft_model is not None and draft_model.cfg.vocab_size != model.cfg.vocab_size:
                 blockers.append(f"draft vocab {draft_model.cfg.vocab_size} != target vocab "
                                 f"{model.cfg.vocab_size}")
@@ -507,7 +526,33 @@ class ServeEngine:
         self.cfg = model.cfg
         self.model = model
         self.device = torch.device(device)
+        # tensor-parallel serving: the shard count, the per-shard model and
+        # the axis its dispatches run under (a 1-shard mesh keeps the model
+        # and still runs the per-shard plumbing)
+        self.mesh = mesh
+        self.num_shards = 1
+        self._tp_axis = None
+        self._serve_model = model
+        if mesh is not None:
+            if MODEL_AXIS not in mesh.axis_names:
+                raise ValueError(f"serving mesh needs a 'model' axis, got {mesh.axis_names}")
+            if host_pages > 0:
+                raise ValueError("host_pages with a mesh: the host tier copies a single-device "
+                                 "pool, and a mesh shards it")
+            if mesh.devices[0].type != self.device.type:
+                raise ValueError(f"mesh on {mesh.devices[0]}, engine device {self.device}")
+            if graphs and len(mesh.distinct_devices) > 1:
+                raise ValueError(
+                    f"graphs=True over a mesh of {len(mesh.distinct_devices)} distinct devices: "
+                    "a CUDA graph captures one device's stream (pass graphs=False)")
+            self.num_shards = axis_size(mesh, MODEL_AXIS)
+            self.device = mesh.devices[0]
+            self._tp_axis = TensorAxis(MODEL_AXIS, tuple(mesh.devices))
+            if self.num_shards > 1:
+                self._serve_model = build_model(localize_config(model.cfg, self.num_shards))
         self.params = serving_params(self.cfg, params)
+        if mesh is not None:
+            self.params = shard_params(self.params, mesh)
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.window = window
@@ -575,8 +620,14 @@ class ServeEngine:
         if self.prefix_disabled_reason is not None:
             logging.getLogger(__name__).warning(
                 "prefix_cache requested but disabled: %s", self.prefix_disabled_reason)
+        if mesh is not None:
+            self.cache = shard_cache(self.cache, mesh)
+        # the trees holding the cache planes (every shard's under a mesh) and
+        # the one holding the positions and the page table
+        self._planes = self.cache.shards if mesh is not None else [self.cache]
+        self._slots = self.cache.full if mesh is not None else self.cache
         # the planes that carry page content: what every page copy moves
-        self._kv_names = tuple(n for n in KV_PLANES if n in self.cache)
+        self._kv_names = tuple(n for n in KV_PLANES if n in self._planes[0])
         self.swap = swap and self.host is not None
         self.prefix = PrefixCache(
             self.pool, prefix_cache_pages,
@@ -711,6 +762,11 @@ class ServeEngine:
             return None
         occ = self.occupancy
         return {
+            "shards": self.num_shards,
+            "mesh_axes": dict(self.mesh.shape) if self.mesh is not None else None,
+            # page tables are shard-invariant: every shard holds its kv-head
+            # slice of the same live pages, so each shard's fill is the pool's
+            "occupancy": [self.pool.in_use / max(self.pool.capacity, 1)] * self.num_shards,
             "page_size": self.page_size,
             "num_pages": self.num_pages,
             "allocatable_pages": self.pool.capacity,
@@ -967,7 +1023,7 @@ class ServeEngine:
                             break  # stays queued
                 self.waiting.popleft()
                 i = free.pop(0)
-                reset_slot(self.cache, i)
+                reset_slot(self._slots, i)
                 slot = _Slot(req=req, generated=[], next_feed=-1, admit_time=now, feed=feed,
                              prefix_len=suffix_start, rng=self._request_rng(req))
                 self._admit_seq += 1
@@ -976,8 +1032,9 @@ class ServeEngine:
                     pages = list(hits)
                     if cow:
                         src, dst = pages[-1], self.pool.alloc(1)[0]
-                        for name in self._kv_names:  # int8: the scale planes too
-                            self.cache[name][:, dst] = self.cache[name][:, src]
+                        for c in self._planes:
+                            for name in self._kv_names:  # int8: the scale planes too
+                                c[name][:, dst] = c[name][:, src]
                         self.pool.free([src])
                         pages[-1] = dst
                         self.cow_copies += 1
@@ -1043,7 +1100,7 @@ class ServeEngine:
         self._table_np[i, :] = 0
         self._table_np[i, :n_need] = pages
         self._table_dirty = True
-        self.cache["pos"][i] = resume.pos
+        self._slots["pos"][i] = resume.pos
         # written tokens = stream[:pos]; the slot feeds stream[pos] next and
         # (a victim still teacher-forcing its prompt) the rest after it
         stream = np.concatenate([req.prompt, np.asarray(resume.generated, np.int32)])
@@ -1096,16 +1153,15 @@ class ServeEngine:
                 pw = bucket_pages(-(-int(starts.max()) // self.page_size), self.table_width)
                 logits = self.graphs(
                     "prefill_suffix", (pw,),
-                    lambda t, n, s, st: self.model.prefill_slots(
-                        self.params, self.cache, t, n, s, starts=st, prefix_pages=pw)[1],
+                    lambda t, n, s, st: self._forward("prefill_slots", t, n, s, starts=st,
+                                                      prefix_pages=pw),
                     self._host(tokens), self._host(lengths), self._host(slot_ids),
                     self._host(starts))
                 self.suffix_dispatches += 1
             else:
                 logits = self.graphs(
                     "prefill_slots", (),
-                    lambda t, n, s: self.model.prefill_slots(
-                        self.params, self.cache, t, n, s, window=self.window)[1],
+                    lambda t, n, s: self._forward("prefill_slots", t, n, s, window=self.window),
                     self._host(tokens), self._host(lengths), self._host(slot_ids))
                 self.cold_dispatches += 1
             self.prefill_dispatches += 1
@@ -1191,8 +1247,15 @@ class ServeEngine:
     def _sync_table(self) -> None:
         """Push the host page-table mirror (authoritative) to the device."""
         if self.paged_cache and self._table_dirty:
-            self.cache["table"].copy_(torch.from_numpy(self._table_np))
+            self._slots["table"].copy_(torch.from_numpy(self._table_np))
             self._table_dirty = False
+
+    def _forward(self, entry: str, *args, **kwargs) -> torch.Tensor:
+        """The serving model's ``entry`` ("decode" or "prefill_slots") on the
+        engine's params and cache, per shard under a mesh; its logits."""
+        with use_tensor_axis(self._tp_axis):
+            fn = getattr(self._serve_model, entry)
+            return fn(self.params, self.cache, *args, **kwargs)[1]
 
     # -------------------------------------------------------- host tier I/O
     def _gather_host(self, pages: list[int]) -> dict:
@@ -1305,9 +1368,10 @@ class ServeEngine:
         A live slot that has emitted tokens leaves with a resume record: its
         tokens, timing stamps, write position and sampling stream (the
         ``np.random.Generator`` object itself, so the importer's draws
-        continue it exactly), and on the pool its pages' content gathered to
-        the host before they are freed (``host_arrays``; the importer's first
-        dispatch may rewrite a freed page). A queued request keeps its
+        continue it exactly), and on an unsharded pool its pages' content
+        gathered to the host before they are freed (``host_arrays``; the
+        importer's first dispatch may rewrite a freed page; a mesh's
+        requests re-prefill instead, as the reference's do). A queued request keeps its
         resume record; a swapped one's tier entry is popped and carried as
         arrays, since its key means nothing to another engine."""
         items: list[tuple[Request, _ResumeState | None]] = []
@@ -1320,7 +1384,7 @@ class ServeEngine:
                 resume = _ResumeState(
                     generated=list(slot.generated), first_token_time=slot.first_token_time,
                     admit_time=slot.admit_time, pos=slot.pos_host, rng=slot.rng)
-                if self.paged_cache and self._slot_pages[i]:
+                if self.paged_cache and self.mesh is None and self._slot_pages[i]:
                     resume.host_arrays = self._gather_host(self._slot_pages[i])
             items.append((slot.req, resume))
             self._release(i)
@@ -1514,9 +1578,8 @@ class ServeEngine:
         pw = bucket_pages(-(-int(starts.max()) // self.page_size), self.table_width)
         vlog = self.graphs(
             "spec_verify", (pw,),
-            lambda t, n, s, st: self.model.prefill_slots(
-                self.params, self.cache, t, n, s, starts=st, prefix_pages=pw,
-                return_all_logits=True)[1],
+            lambda t, n, s, st: self._forward("prefill_slots", t, n, s, starts=st,
+                                              prefix_pages=pw, return_all_logits=True),
             self._host(tokens), self._host(lengths), self._host(slot_ids), self._host(starts))
         self.spec_rounds += 1
         self.steps += 1
@@ -1583,7 +1646,7 @@ class ServeEngine:
                 slot.next_feed = emitted_i[-1]
                 self._draft_pos[i] = p + appended
         mask_t, pos_t = self._tensor(mask), self._tensor(new_pos)
-        self.cache["pos"].copy_(torch.where(mask_t, pos_t, self.cache["pos"]))
+        self._slots["pos"].copy_(torch.where(mask_t, pos_t, self._slots["pos"]))
         self.draft.commit(mask_t, pos_t)
         self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
 
@@ -1595,8 +1658,7 @@ class ServeEngine:
         page table in place."""
         return self.graphs(
             "decode", (),
-            lambda f: self.model.decode(self.params, self.cache, f, window=self.window,
-                                        paged=self.paged_decode)[1],
+            lambda f: self._forward("decode", f, window=self.window, paged=self.paged_decode),
             self._host(feed))
 
     def step(self, *, respect_arrivals: bool = False) -> list[RequestOutput]:
@@ -1696,10 +1758,10 @@ def serve_continuous(
     paged_decode: bool = True, paged_cache: bool = True, page_size: int = 16,
     num_pages: int = 0, long_requests: bool = False, watermark_pages: int = 0,
     prefix_cache: bool = True, prefix_cache_pages: int = 0,
-    kv_dtype: str = "fp", host_pages: int = 0, swap: bool = True,
-    draft: str | None = None, spec_tokens: int = 0, sampling: SamplingParams | None = None,
-    bucket_prefill: bool = True, seed: int = 0, stagger: float = 0.0, max_wall_s: float = 0.0,
-    device="cuda", log_fn=print,
+    kv_dtype: str = "fp", host_pages: int = 0, swap: bool = True, num_shards: int = 0,
+    num_devices: int = 0, draft: str | None = None, spec_tokens: int = 0,
+    sampling: SamplingParams | None = None, bucket_prefill: bool = True, seed: int = 0,
+    stagger: float = 0.0, max_wall_s: float = 0.0, device="cuda", log_fn=print,
 ) -> dict:
     """Build a model with seeded random weights and an engine (the shared
     paged pool unless ``paged_cache=False``), serve a synthetic trace after
@@ -1711,11 +1773,19 @@ def serve_continuous(
     is given. ``bucket_prefill=False`` dispatches admission rounds at their
     exact shapes. Request r arrives at ``r * stagger`` seconds; with a
     stagger the trace is served in real time (``run(realtime=True)``).
-    The result reports ``compiles`` (specializations per entry point, the
-    warm-up's included)."""
+    ``num_shards > 0`` serves tensor-parallel on a ``model``-axis mesh of
+    that many shards over the visible devices of ``device``'s type, or with
+    ``num_devices > 0`` over ``device`` named that many times (every shard
+    on one device). The result reports ``compiles`` (specializations per
+    entry point, the warm-up's included)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed), device)
+    mesh = None
+    if num_shards > 0:
+        dev = torch.device(device)
+        mesh = make_serve_mesh(num_shards, devices=[dev] * num_devices if num_devices else None,
+                               kind=dev.type)
     draft_model = draft_params = None
     if draft is not None:
         draft_model = build_model(get_smoke_config(draft) if smoke else get_config(draft))
@@ -1729,6 +1799,7 @@ def serve_continuous(
         prefix_cache_pages=prefix_cache_pages, kv_dtype=kv_dtype, host_pages=host_pages,
         swap=swap, draft_model=draft_model, draft_params=draft_params, spec_tokens=spec_tokens,
         bucket_prefill=bucket_prefill, seed=seed, max_wall_s=max_wall_s, device=device,
+        mesh=mesh,
     )
     reqs = make_requests(cfg, n_requests=n_requests, prompt_len=prompt_len,
                          gen_tokens=gen_tokens, seed=seed, stagger=stagger)
@@ -1755,6 +1826,8 @@ def serve_continuous(
         "prefill": prefill,
         "paged_decode": paged_decode,
         "paged_cache": paged_cache,
+        "shards": engine.num_shards,
+        "mesh_axes": dict(engine.mesh.shape) if engine.mesh is not None else None,
         "prefix_cache": engine.prefix_cache,
         "kv_dtype": kv_dtype,
         "host_pages": host_pages,
@@ -1784,6 +1857,8 @@ def serve_continuous(
             f", pool occ mean {ps['occupancy_mean']:.0%} / max {ps['occupancy_max']:.0%} over "
             f"{ps['allocatable_pages']} pages, {ps['preemptions']} preemptions"
         )
+    if engine.mesh is not None:
+        pool_line += f", {engine.num_shards}-shard mesh"
     if engine.prefix_cache:
         pool_line += (
             f", prefix hit {ps['prefix_hit_rate']:.0%} "

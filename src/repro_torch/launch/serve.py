@@ -8,7 +8,9 @@ sliding windows; temperature/top-k/top-p sampling; speculative decoding
 with ``--draft``/``--spec-tokens``; arrivals ``--stagger`` seconds apart,
 served in real time; a ``--max-wall-s`` watchdog). ``--replicas N`` serves
 through the fault-tolerant router over N engine replicas
-(``launch/router.py``), with faults injected by ``--fault``. Every hot-path
+(``launch/router.py``), with faults injected by ``--fault``. ``--mesh N``
+serves tensor-parallel over N model-axis shards (``launch/mesh.py``; with
+``--num-devices N`` every shard on ``--device``). Every hot-path
 dispatch replays a CUDA graph captured once per shape bucket
 (``launch/graphs.py``); ``--no-bucket-prefill`` dispatches admission rounds
 at their exact shapes, one prefill graph per distinct shape.
@@ -42,6 +44,10 @@ at their exact shapes, one prefill graph per distinct shape.
     # in-flight requests finish on replica 0 with the same tokens
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
         --replicas 2 --fault kill:1@4 --stagger 0.01
+    # tensor-parallel over 2 shards, both on the CPU (on the card: --full and
+    # no --device); the tokens are the unsharded engine's
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
+        --mesh 2 --num-devices 2
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.graphs import GraphCache
+from repro_torch.launch.mesh import visible_devices
 from repro_torch.models.model import build_model
 
 
@@ -216,6 +223,13 @@ def main(argv=None):
     ap.add_argument("--max-wall-s", type=float, default=0.0,
                     help="[continuous] per-request watchdog: retire a slot older than this "
                     "with a timeout result (0 = off)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="[continuous] serve tensor-parallel over this many model-axis shards "
+                    "(0 = unsharded); n_heads and n_kv_heads must divide by it; the tokens "
+                    "are the unsharded engine's")
+    ap.add_argument("--num-devices", type=int, default=0,
+                    help="name --device this many times as the mesh's devices (every shard "
+                    "on one device; 0 = the visible devices of --device's type)")
     # sampling (temperature 0 = greedy; request r samples on --seed + r)
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="[continuous] sampling temperature (0 = greedy)")
@@ -227,6 +241,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
     # the reference's fail-fast contract: a flag the engine would have to
     # ignore is a configuration error, not a degraded run
+    if args.mesh > 0:
+        if not args.continuous:
+            ap.error("--mesh requires --continuous (tensor-parallel serving is an engine path)")
+        kind = torch.device(args.device).type
+        have = args.num_devices or len(visible_devices(kind))
+        if have < args.mesh:
+            ap.error(f"--mesh {args.mesh} needs {args.mesh} devices, found {have}; pass "
+                     f"--num-devices {args.mesh} (every shard on --device) or run on a larger "
+                     "host")
+    if args.replicas > 1 and args.mesh > 0:
+        ap.error("--replicas with --mesh is not supported: the router builds single-device "
+                 "replicas (data-parallel across replicas, not tensor-parallel within one)")
     if args.replicas > 1 and not args.continuous:
         ap.error("--replicas requires --continuous (the router fronts continuous-batching "
                  "engine replicas)")
@@ -260,6 +286,9 @@ def main(argv=None):
             blockers.append("--no-paged-cache (it works on the page pool)")
         if hit and args.replicas > 1:
             blockers.append(f"--replicas ({replicas_why})")
+        if hit and flag.startswith("--host-pages") and args.mesh > 0:
+            blockers.append(f"--mesh {args.mesh} (the KV pool is sharded; the host tier "
+                            "assumes a single-device pool)")
         if blockers:
             ap.error(f"{flag} cannot be honored by this config: " + "; ".join(blockers))
     if args.host_pages < 0:
@@ -292,6 +321,9 @@ def main(argv=None):
         if args.window > 0:
             blockers.append(f"--window {args.window} (verify positions assume the "
                             "full-context page layout)")
+        if args.mesh > 0:
+            blockers.append(f"--mesh {args.mesh} (the draft runs single-device; sharded "
+                            "verify is not wired)")
         if args.replicas > 1:
             blockers.append("--replicas (router replicas do not build draft models yet)")
         if blockers:
@@ -328,7 +360,8 @@ def main(argv=None):
         page_size=args.page_size, num_pages=args.num_pages, long_requests=args.long_requests,
         watermark_pages=args.watermark_pages, prefix_cache=args.prefix_cache is not False,
         prefix_cache_pages=args.prefix_cache_pages, kv_dtype=args.kv_dtype,
-        host_pages=args.host_pages, swap=args.swap, draft=args.draft,
+        host_pages=args.host_pages, swap=args.swap, num_shards=args.mesh,
+        num_devices=args.num_devices, draft=args.draft,
         spec_tokens=args.spec_tokens, sampling=sampling, bucket_prefill=args.bucket_prefill,
         seed=args.seed, stagger=args.stagger, max_wall_s=args.max_wall_s, device=args.device,
     )

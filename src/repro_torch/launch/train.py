@@ -23,6 +23,8 @@ from repro_torch.configs.base import FederatedConfig, TrainConfig
 from repro_torch.core.federated import FederatedTrainer
 from repro_torch.core.scheduler import CloudSpec, events_to_round_masks, simulate_async_schedule
 from repro_torch.data import SyntheticCorpus, dirichlet_mixtures, federated_batch
+from repro_torch.launch.mesh import make_sim_mesh
+from repro_torch.launch.steps import make_federated_step
 from repro_torch.models.model import build_model
 from repro_torch.utils.tree import tree_count_params
 
@@ -50,19 +52,24 @@ def run_training(
     log_every: int = 10,
     checkpoint_dir: str = "",
     n_domains: int = 8,
+    pods: bool = False,
+    wire_int8: bool = False,
     device: str = "cuda",
     log_fn=print,
     step_fn=None,
 ) -> dict:
     """Federated training from seeded random weights on synthetic non-IID
-    data. ``step_fn(trainer, state, batch, arrived, alphas)``, if given,
-    replaces ``trainer.train_step`` (a caller's timing hook). The result
-    holds the trainer and its final state under "trainer" and "state"."""
+    data. ``pods`` trains in pod mode (``launch/steps.make_federated_step``)
+    over a pod mesh naming ``device`` once per cloud; ``wire_int8`` is
+    ``FederatedConfig.wire_int8``. ``step_fn(trainer, state, batch,
+    arrived, alphas)``, if given, replaces ``trainer.train_step`` (a
+    caller's timing hook). The result holds the trainer and its final state
+    under "trainer" and "state"."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     fed = FederatedConfig(
         n_clouds=n_clouds, local_steps=local_steps, aggregation=aggregation,
         compression=compression, topk_ratio=topk_ratio, dp_clip=dp_clip,
-        dp_noise_mult=dp_noise, outer_optimizer=outer_optimizer,
+        dp_noise_mult=dp_noise, outer_optimizer=outer_optimizer, wire_int8=wire_int8,
     )
     tcfg = TrainConfig(
         seq_len=seq_len, global_batch=per_cloud_batch * n_clouds, steps=steps, lr=lr,
@@ -70,7 +77,11 @@ def run_training(
         checkpoint_every=CHECKPOINT_EVERY if checkpoint_dir else 0,
         checkpoint_dir=checkpoint_dir,
     )
-    trainer = FederatedTrainer(build_model(cfg), fed, tcfg)
+    if pods:
+        mesh = make_sim_mesh(n_clouds, devices=[device] * n_clouds)
+        trainer, _ = make_federated_step(build_model(cfg), fed, tcfg, mesh=mesh)
+    else:
+        trainer = FederatedTrainer(build_model(cfg), fed, tcfg)
     init_gen = torch.Generator(device=device).manual_seed(seed)
     state = trainer.init_state(init_gen, device, noise_seed=seed + 0xFED)
     n_params = tree_count_params(state["global"]["params"])

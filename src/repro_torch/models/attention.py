@@ -13,16 +13,23 @@ T·page). Where the reference donated the pool through ``jit``, the port
 writes it in place. An int8 pool adds one f32 scale plane per k and v
 (``ks``/``vs``, (P, page, Hkv)): every write quantizes its rows and stores
 them in their slots in one launch per layer (``ops.kv_write_int8``), every
-read dequantizes to the model dtype in the kernel."""
+read dequantizes to the model dtype in the kernel.
+
+The serving paths (``prefill_attend``, ``decode_attend_paged``,
+``decode_attend``) are tensor-parallel under an active tensor axis
+(``models/sharding.py``): the projections, rope, the cache write and the
+attention kernel run per shard on its head slice (``map_shards``), then
+``gather_heads`` joins the slices and the replicated ``wo`` runs once."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gather_pages_ref, page_slots
+from repro_torch.kernels.ref import gather_pages_ref, kv_dequant_ref, kv_quant_ref, page_slots
 from repro_torch.models.common import NEG_INF, default_q_chunk
 from repro_torch.models.layers import apply_rope
+from repro_torch.models.sharding import gather_heads, map_shards, replica
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
@@ -45,20 +52,6 @@ def compute_kv_for_prefill(
     k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
     v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
     return apply_rope(k, positions, cfg.rope_theta), v
-
-
-def attend_full(
-    params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
-    window: int = 0, kv: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> torch.Tensor:
-    """Causal self-attention of a prompt at dense positions 0..S-1 (cold
-    prefill) through the flash-prefill kernel. x: (B, S, D). ``kv`` passes
-    this prompt's own (k, v) when the caller already computed them with
-    ``compute_kv_for_prefill`` for the cache write."""
-    b, s, _ = x.shape
-    k, v = kv if kv is not None else compute_kv_for_prefill(params, x, positions, cfg)
-    out = ops.flash_prefill_attention(_queries(params, x, positions, cfg), k, v, window=window)
-    return out.reshape(b, s, -1) @ params["wo"]
 
 
 def attend_causal(
@@ -89,22 +82,64 @@ def attend_causal(
     return out.to(x.dtype) @ params["wo"]
 
 
-def attend_suffix(
-    params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
-    kv: tuple[torch.Tensor, torch.Tensor], pool: dict,
-    table_rows: torch.Tensor, starts: torch.Tensor, prefix_width: int,
+def int8_roundtrip_kv(x: torch.Tensor) -> torch.Tensor:
+    """k or v as an int8 pool holds it and the decode kernels read it back:
+    quantized per kv head (``kv_write_int8``'s scheme, the quotient divided
+    IEEE-exact) and dequantized to x's dtype (f32 product, then rounded to
+    the dtype, as ``paged_decode_int8`` does)."""
+    return kv_dequant_ref(*kv_quant_ref(x), x.dtype)
+
+
+def _prefill_heads(
+    params: dict, cache: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
+    slots: torch.Tensor, lengths: torch.Tensor, write_starts: torch.Tensor,
+    table_rows: torch.Tensor | None, starts: torch.Tensor | None, prefix_width: int | None,
+    window: int, roundtrip_kv: bool,
 ) -> torch.Tensor:
-    """Suffix prefill: row r's tokens sit at absolute positions
-    starts[r] + i and attend over the first starts[r] cached tokens of its
-    pages (through ``table_rows``; ``pool`` holds one layer's ``k``/``v``
-    and, int8, ``ks``/``vs``) and, causally, over their own fp k/v."""
+    """One shard's prefill attention (every head with no active axis): the
+    pre-``wo`` output (n, S, H·hd) of the prompt rows x (n, S, D), and the
+    rows' k/v written into one layer's ``cache`` (the pool through
+    ``table_rows`` from ``write_starts``, or the rows' rings). Cold rows
+    (``starts`` None) attend causally over their own k/v through the
+    flash-prefill kernel; suffix rows attend over the first starts[r]
+    cached tokens of their pages and, causally, over their own k/v (through
+    the int8 round trip with ``roundtrip_kv``) through the suffix-prefill
+    kernel. The write touches only this round's slots, after the read."""
     n, s, _ = x.shape
-    out = ops.suffix_prefill_attention(
-        _queries(params, x, positions, cfg), kv[0], kv[1], pool["k"], pool["v"],
-        table_rows, starts, prefix_width=prefix_width,
-        pool_k_scale=pool.get("ks"), pool_v_scale=pool.get("vs"),
-    )
-    return out.reshape(n, s, -1) @ params["wo"]
+    k, v = compute_kv_for_prefill(params, x, positions, cfg)
+    q = _queries(params, x, positions, cfg)
+    if starts is None:
+        out = ops.flash_prefill_attention(q, k, v, window=window)
+    else:
+        ka, va = (int8_roundtrip_kv(k), int8_roundtrip_kv(v)) if roundtrip_kv else (k, v)
+        out = ops.suffix_prefill_attention(
+            q, ka, va, cache["k"], cache["v"], table_rows, starts, prefix_width=prefix_width,
+            pool_k_scale=cache.get("ks"), pool_v_scale=cache.get("vs"),
+        )
+    if "table" in cache:
+        fill_pages_rows(cache, k, v, table_rows, write_starts, lengths)
+    else:
+        rows_k, rows_v = fill_cache_rows(cache["k"][slots], cache["v"][slots], k, v, lengths)
+        cache["k"][slots] = rows_k
+        cache["v"][slots] = rows_v
+    return out.reshape(n, s, -1)
+
+
+def prefill_attend(
+    params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, cache, *,
+    slots: torch.Tensor, lengths: torch.Tensor, write_starts: torch.Tensor,
+    table_rows: torch.Tensor | None = None, starts: torch.Tensor | None = None,
+    prefix_width: int | None = None, window: int = 0, roundtrip_kv: bool = False,
+) -> torch.Tensor:
+    """Attention of one layer of a batched prefill round, x (n, S, D) at
+    ``positions``, with the rows' k/v written into the layer's ``cache``
+    (``_prefill_heads``, per shard under a tensor axis), then the gathered
+    heads through ``wo``."""
+    out = map_shards(_prefill_heads, params, cache, x, positions, cfg, slots=slots,
+                     lengths=lengths, write_starts=write_starts, table_rows=table_rows,
+                     starts=starts, prefix_width=prefix_width, window=window,
+                     roundtrip_kv=roundtrip_kv)
+    return gather_heads(out) @ replica(params)["wo"]
 
 
 def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -141,10 +176,10 @@ def fill_pages_rows(
     pool["v"].index_put_(idx, v.reshape(-1, *v.shape[2:]))
 
 
-def decode_attend_paged(
-    params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, *, window: int = 0,
-) -> torch.Tensor:
-    """One decode step over one layer of the shared pool. x: (B, 1, D);
+def _decode_paged_heads(params: dict, cache: dict, x: torch.Tensor, cfg: ModelConfig,
+                        window: int) -> torch.Tensor:
+    """One decode step over one layer of the shared pool, one shard's heads
+    (every head with no active axis): the pre-``wo`` output. x: (B, 1, D);
     cache: {"k"/"v": (P, page, Hkv, hd), "pos": (B,), "table": (B, T)} and,
     for an int8 pool, "ks"/"vs" (P, page, Hkv). Row b's token is written
     first, at logical ring slot pos[b] mod T·page through its table (in
@@ -168,7 +203,16 @@ def decode_attend_paged(
         cache["v"][phys, off] = v[:, 0]
     out = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"], pos, table, window,
                                      k_scale=cache.get("ks"), v_scale=cache.get("vs"))
-    return out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]
+    return out.reshape(b, 1, cfg.n_heads * hd)
+
+
+def decode_attend_paged(params, x: torch.Tensor, cache, cfg: ModelConfig, *,
+                        window: int = 0) -> torch.Tensor:
+    """One decode step over one layer of the shared pool
+    (``_decode_paged_heads``, per shard under a tensor axis), then the
+    gathered heads through ``wo``."""
+    out = map_shards(_decode_paged_heads, params, cache, x, cfg, window)
+    return gather_heads(out) @ replica(params)["wo"]
 
 
 # ------------------------------------------------------------ ring caches
@@ -205,11 +249,10 @@ def fill_cache_rows(
             torch.where(keep, v.gather(1, idx), cache_v))
 
 
-def decode_attend(
-    params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, *, window: int = 0,
-    paged: bool = True,
-) -> torch.Tensor:
-    """One decode step over one layer's ring cache. x: (B, 1, D); cache:
+def _decode_ring_heads(params: dict, cache: dict, x: torch.Tensor, cfg: ModelConfig,
+                       window: int, paged: bool) -> torch.Tensor:
+    """One decode step over one layer's ring cache, one shard's heads (every
+    head with no active axis): the pre-``wo`` output. x: (B, 1, D); cache:
     {"k"/"v": (B, C, Hkv, hd), "pos": () or (B,)}. Row b's token (position
     pos[b]) is written first, in place at slot pos[b] mod C, then attends
     over its ring through ``ops.swa_decode_attention`` (``paged``: the
@@ -230,4 +273,13 @@ def decode_attend(
         cache["k"].index_copy_(1, slot.reshape(1), k)
         cache["v"].index_copy_(1, slot.reshape(1), v)
     out = ops.swa_decode_attention(q[:, 0], cache["k"], cache["v"], pos, window, paged=paged)
-    return out.reshape(b, 1, cfg.n_heads * hd) @ params["wo"]
+    return out.reshape(b, 1, cfg.n_heads * hd)
+
+
+def decode_attend(params, x: torch.Tensor, cache, cfg: ModelConfig, *, window: int = 0,
+                  paged: bool = True) -> torch.Tensor:
+    """One decode step over one layer's ring cache (``_decode_ring_heads``,
+    per shard under a tensor axis), then the gathered heads through
+    ``wo``."""
+    out = map_shards(_decode_ring_heads, params, cache, x, cfg, window, paged)
+    return gather_heads(out) @ replica(params)["wo"]

@@ -1,6 +1,7 @@
 """Model API of the port: ``build_model(cfg)`` returns a ``ModelAPI`` whose
 members close over the config — the dense-transformer part of the
-reference's ``ModelAPI`` that the trainer and the serving engine use."""
+reference's ``ModelAPI`` that the trainer and the serving engine use — and
+``localize_config``, the per-shard config of tensor-parallel serving."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,6 +34,27 @@ class ModelAPI:
     init_cache: Callable[..., dict]
     # init_slot_cache(num_slots, max_seq, window=, device=) -> per-slot rings (pos (B,))
     init_slot_cache: Callable[..., dict]
+
+
+def localize_config(cfg: ModelConfig, shards: int) -> ModelConfig:
+    """Per-shard view of a tensor-parallel-served config: each shard sees
+    its slice of the attention heads and of the KV pages, so the head
+    counts divide (and head_dim is pinned, which would otherwise re-derive
+    from the unchanged d_model); the shard's attention is then the
+    unsharded math on that slice."""
+    if shards == 1:
+        return cfg
+    if cfg.n_heads % shards or cfg.n_kv_heads % shards:
+        raise ValueError(
+            f"{cfg.name}: n_heads={cfg.n_heads} / n_kv_heads={cfg.n_kv_heads}"
+            f" must both divide by the model-axis size {shards}"
+        )
+    return dataclasses.replace(
+        cfg,
+        n_heads=cfg.n_heads // shards,
+        n_kv_heads=cfg.n_kv_heads // shards,
+        head_dim=cfg.resolved_head_dim,
+    )
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:

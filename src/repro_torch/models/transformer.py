@@ -6,19 +6,25 @@ step.
 Parameters are the reference package's pytree as a dict of tensors with the
 same leaf paths, per-layer leaves stacked on a leading L axis; the layer
 scan becomes a loop over that axis. The cache is updated in place (the
-reference donated it through ``jit``) and returned."""
+reference donated it through ``jit``) and returned.
+
+``decode_step`` and ``prefill_slots`` also run tensor-parallel: under an
+active tensor axis (``models/sharding.py``) ``params`` and ``cache`` are
+``Sharded`` trees (the config is the per-shard one,
+``model.localize_config``); attention runs per shard and everything else
+once, on the replicated leaves."""
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ref import kv_dequant_ref, kv_quant_ref
 from repro_torch.models import attention as attn
 from repro_torch.models.common import embed_tokens, lm_logits, padded_vocab, positions_for
 from repro_torch.models.layers import (
     apply_mlp, cross_entropy_loss, embed_init, he_init, rms_norm,
 )
+from repro_torch.models.sharding import replica, tensor_axis
 
 LAYER_LEAVES = ("ln1", "attn", "ln2", "ffn")
 
@@ -63,8 +69,14 @@ def layer_params(params: dict, i: int) -> dict:
     """Layer i's slice of the stacked per-layer leaves (views)."""
     return {
         name: {leaf: t[i] for leaf, t in params["layers"][name].items()}
-        for name in LAYER_LEAVES
+        for name in LAYER_LEAVES if name in params["layers"]
     }
+
+
+def _per_shard(fn, tree, *args):
+    """``fn(tree, *args)``, on the replicated tree and every shard's under
+    an active tensor axis."""
+    return fn(tree, *args) if tensor_axis() is None else tree.map(fn, *args)
 
 
 def _train_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor,
@@ -159,11 +171,11 @@ KV_PLANES = ("k", "v", "ks", "vs")
 def layer_cache(cache: dict, i: int) -> dict:
     """Layer i's views of the cache planes (``k``/``v`` and, for an int8
     pool, ``ks``/``vs``) with the shared ``pos`` and, for the paged pool,
-    ``table``."""
+    ``table``: those of them the tree holds (a shard's tree of a
+    ``Sharded`` cache holds only its planes, the replicated tree only
+    ``pos`` and ``table``)."""
     out = {name: cache[name][i] for name in KV_PLANES if name in cache}
-    out["pos"] = cache["pos"]
-    if "table" in cache:
-        out["table"] = cache["table"]
+    out.update({name: cache[name] for name in ("pos", "table") if name in cache})
     return out
 
 
@@ -180,27 +192,21 @@ def decode_step(
     Works over both layouts: the shared paged pool (a ``table`` key) and
     ring caches, whose decode attention skips dead pages when ``paged``
     (else streams every slot; the same output)."""
-    h = embed_tokens(params["embed"], tokens)
+    p0 = replica(params)
+    h = embed_tokens(p0["embed"], tokens)
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
-        lc = layer_cache(cache, i)
-        if "table" in cache:
-            h = h + attn.decode_attend_paged(lp["attn"], a, lc, cfg, window=window)
+        lp = _per_shard(layer_params, params, i)
+        lc = _per_shard(layer_cache, cache, i)
+        ap = _per_shard(lambda t: t["attn"], lp)
+        a = rms_norm(h, replica(lp)["ln1"]["scale"], cfg.norm_eps)
+        if "table" in replica(cache):
+            h = h + attn.decode_attend_paged(ap, a, lc, cfg, window=window)
         else:
-            h = h + attn.decode_attend(lp["attn"], a, lc, cfg, window=window, paged=paged)
-        h = _mlp_residual(cfg, lp, h)
-    h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
-    cache["pos"] += 1
-    return cache, lm_logits(params["embed"], h, cfg)[:, 0]
-
-
-def int8_roundtrip_kv(x: torch.Tensor) -> torch.Tensor:
-    """k or v as an int8 pool holds it and the decode kernels read it back:
-    quantized per kv head (``kv_write_int8``'s scheme, the quotient divided
-    IEEE-exact) and dequantized to x's dtype (f32 product, then rounded to
-    the dtype, as ``paged_decode_int8`` does)."""
-    return kv_dequant_ref(*kv_quant_ref(x), x.dtype)
+            h = h + attn.decode_attend(ap, a, lc, cfg, window=window, paged=paged)
+        h = _mlp_residual(cfg, replica(lp), h)
+    h = rms_norm(h, p0["ln_f"]["scale"], cfg.norm_eps)
+    replica(cache)["pos"] += 1
+    return cache, lm_logits(p0["embed"], h, cfg)[:, 0]
 
 
 def prefill_slots(
@@ -244,12 +250,13 @@ def prefill_slots(
     device = tokens.device
     slots = slots.long()
     lengths = lengths.to(torch.int32)
-    ring = "table" not in cache
-    if ring:
+    c0, p0 = replica(cache), replica(params)
+    table_rows = w_pfx = None
+    if "table" not in c0:
         if starts is not None:
             raise ValueError("suffix prefill needs the paged pool")
     else:
-        table_rows = cache["table"][slots].contiguous()
+        table_rows = c0["table"][slots].contiguous()
         t_w = table_rows.shape[1]
     if starts is None:
         pos = positions_for(tokens)
@@ -261,38 +268,24 @@ def prefill_slots(
         pos = starts[:, None] + positions_for(tokens)
         w_pfx = t_w if prefix_pages is None else max(1, min(prefix_pages, t_w))
         write_starts = starts
-    h = embed_tokens(params["embed"], tokens)
+    roundtrip_kv = starts is not None and return_all_logits and "ks" in c0
+    h = embed_tokens(p0["embed"], tokens)
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        lc = layer_cache(cache, i)
-        a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
-        k, v = attn.compute_kv_for_prefill(lp["attn"], a, pos, cfg)
-        if starts is None:
-            a = attn.attend_full(lp["attn"], a, pos, cfg, window=window, kv=(k, v))
-        else:
-            kv_att = (k, v)
-            if return_all_logits and "ks" in lc:
-                kv_att = (int8_roundtrip_kv(k), int8_roundtrip_kv(v))
-            a = attn.attend_suffix(
-                lp["attn"], a, pos, cfg, kv=kv_att, pool=lc,
-                table_rows=table_rows, starts=starts, prefix_width=w_pfx,
-            )
-        h = _mlp_residual(cfg, lp, h + a)
-        if ring:
-            rows_k, rows_v = attn.fill_cache_rows(lc["k"][slots], lc["v"][slots], k, v,
-                                                  lengths)
-            lc["k"][slots] = rows_k
-            lc["v"][slots] = rows_v
-        else:
-            # the prefix lanes were read above; the write touches only this
-            # round's own slots
-            attn.fill_pages_rows(lc, k, v, table_rows, write_starts, lengths)
-    h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
+        lp = _per_shard(layer_params, params, i)
+        lc = _per_shard(layer_cache, cache, i)
+        a = rms_norm(h, replica(lp)["ln1"]["scale"], cfg.norm_eps)
+        a = attn.prefill_attend(
+            _per_shard(lambda t: t["attn"], lp), a, pos, cfg, lc, slots=slots,
+            lengths=lengths, write_starts=write_starts, table_rows=table_rows, starts=starts,
+            prefix_width=w_pfx, window=window, roundtrip_kv=roundtrip_kv,
+        )
+        h = _mlp_residual(cfg, replica(lp), h + a)
+    h = rms_norm(h, p0["ln_f"]["scale"], cfg.norm_eps)
     if return_all_logits:
-        logits = lm_logits(params["embed"], h, cfg)
+        logits = lm_logits(p0["embed"], h, cfg)
     else:
         last = h[torch.arange(n, device=device), (lengths.long() - 1).clamp(min=0)]
-        logits = lm_logits(params["embed"], last[:, None], cfg)[:, 0]
+        logits = lm_logits(p0["embed"], last[:, None], cfg)[:, 0]
     end = lengths + write_starts
-    cache["pos"][slots] = torch.where(lengths > 0, end, cache["pos"][slots])
+    c0["pos"][slots] = torch.where(lengths > 0, end, c0["pos"][slots])
     return cache, logits

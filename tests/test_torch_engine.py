@@ -28,6 +28,7 @@ from repro.models import build_model as ref_build_model
 from repro_torch.bridge import numpy_params, params_from_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import engine as port_engine
+from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.prefix_cache import PrefixCache
 from repro_torch.models.model import build_model
 
@@ -194,11 +195,13 @@ def test_submit_rejects_what_the_pool_can_never_hold():
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(spec_tokens=2, paged_cache=True), ValueError, "draft_model and draft_params"),
-    (dict(mesh=object()), NotImplementedError, "later slice"),
+    (dict(mesh=Mesh((torch.device("cpu"),), ("data",))), ValueError, "'model' axis"),
 ])
 def test_settings_outside_the_slice_raise(kw, err, match):
-    """A mesh is a later slice; speculative decoding without a draft is a
-    configuration error (the gating of tests/test_torch_spec_decode.py)."""
+    """Configuration errors: a mesh without a ``model`` axis (the reference's
+    check; tensor-parallel serving itself is tests/test_torch_sharded_engine.py)
+    and speculative decoding without a draft (the gating of
+    tests/test_torch_spec_decode.py)."""
     cfg, _ = _f32_configs()
     with pytest.raises(err, match=match):
         port_engine.ServeEngine(build_model(cfg), {}, device="cpu", **kw)

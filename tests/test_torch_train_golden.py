@@ -8,9 +8,12 @@ batch 2 x 16 per cloud, ``int8`` compression with error feedback, DP clip
 0.5 and no noise (the two packages' noise streams differ by design), under
 fedavg, dynamic, gradient, async (the scheduler's masks of
 ``tests/test_torch_train.py``), fedavg with the nesterov outer optimizer and
-fedavg with 2 microbatches. The file holds the batches and masks, each
-step's per-cloud losses and the final global params' per-leaf sum and sum
-of squares in float64.
+fedavg with 2 microbatches; and the pod case: the reference's pod-mode step
+(``launch/steps.make_federated_step`` on a 2-device pod mesh, run in a
+subprocess with 2 forced host devices) with ``topk+int8`` through the SPMD
+codecs and ``wire_int8``, fedavg, the first 4 steps. The file holds the
+batches and masks, each step's per-cloud losses and the final global
+params' per-leaf sum and sum of squares in float64.
 
 Tolerances, as ``tests/test_torch_train.py`` sets them: losses rtol 1e-4
 (the same math summed in another order, carried through Adam); the
@@ -19,13 +22,18 @@ checksums (``golden_train.golden_train_errors``: a leaf's |ΔΣx| over √n and
 the port read at most 1.0e-3 here and the planted fault at least 0.88. The
 planted fault, the sample counts ignored (uniform weights for 0.75/0.25),
 must land outside them in the cases that read the counts (fedavg and
-gradient). Regenerate the file with
+gradient; in the pod case's 4 steps, whose one sync moves only the last two
+losses, outside the checksum gate: 1.75 there, the losses 5.1e-5).
+Regenerate the file with
 
     PYTHONPATH=src:. python tests/test_torch_train_golden.py
 """
+import contextlib
 import dataclasses
 import json
+import os
 import pathlib
+import subprocess
 import sys
 
 import jax
@@ -60,6 +68,8 @@ CASES = {
     "async": dict(aggregation="async", outer_optimizer="none", microbatches=1),
     "nesterov": dict(aggregation="fedavg", outer_optimizer="nesterov", microbatches=1),
     "microbatches2": dict(aggregation="fedavg", outer_optimizer="none", microbatches=2),
+    "pod": dict(aggregation="fedavg", outer_optimizer="none", microbatches=1, pod=True,
+                compression="topk+int8", wire_int8=True, steps=4),
 }
 LOSS_RTOL = golden_train.GOLDEN_TRAIN_RTOL
 SUM_TOL = golden_train.GOLDEN_TRAIN_SUM_TOL
@@ -100,25 +110,42 @@ def reference_case(g: dict, name: str) -> dict:
     the final global params' per-leaf float64 sums."""
     case = CASES[name]
     cfg = dataclasses.replace(ref_smoke_config(ARCH), dtype="float32")
-    fed = dict(g["fed"], aggregation=case["aggregation"],
-               outer_optimizer=case["outer_optimizer"],
-               cloud_sample_counts=tuple(g["fed"]["cloud_sample_counts"]))
+    fed = golden_train.case_fed(g, case)
+    tokens = g["tokens"][: case.get("steps", len(g["tokens"]))]
+    train = RefTrain(**dict(g["train"], steps=len(tokens)))
     # the model's init returns the bridged weights: init_state then lays out
     # the clouds, optimizer and error feedback itself, without the seconds
     # its random init takes
     params = jax.tree_util.tree_map(jnp.asarray, numpy_params(cfg, g["seed"]))
     model = dataclasses.replace(ref_build_model(cfg), init=lambda key: params)
-    trainer = RefTrainer(model, RefFed(**fed), RefTrain(**g["train"]),
-                         microbatches=case["microbatches"])
-    state = trainer.init_state(jax.random.PRNGKey(0))
-    step = jax.jit(trainer.train_step)
+    if case.get("pod"):
+        from jax.sharding import NamedSharding, PartitionSpec
+
+        from repro.launch.mesh import make_sim_mesh
+        from repro.launch.steps import make_federated_step
+
+        mesh = make_sim_mesh(g["fed"]["n_clouds"])
+        # replicated intra-pod specs: the int8-wire sync reads them
+        specs = jax.tree_util.tree_map(lambda _: NamedSharding(mesh, PartitionSpec()), params)
+        trainer, fed_step = make_federated_step(model, RefFed(**fed), train,
+                                                microbatches=case["microbatches"],
+                                                grad_shardings=specs, mesh=mesh)
+        jstep = jax.jit(fed_step)
+        step = lambda st, b, a, al: jstep(st, b)  # noqa: E731
+    else:
+        mesh = None
+        trainer = RefTrainer(model, RefFed(**fed), train, microbatches=case["microbatches"])
+        step = jax.jit(trainer.train_step)
     losses = []
-    for i, toks in enumerate(g["tokens"]):
-        t = jnp.asarray(np.asarray(toks, np.int32))
-        r = i // g["fed"]["local_steps"]
-        state, m = step(state, {"tokens": t[..., :-1], "labels": t[..., 1:]},
-                        jnp.asarray(g["arrived"][r]), jnp.asarray(g["alphas"][r], jnp.float32))
-        losses.append(np.asarray(m["per_cloud_loss"]).tolist())
+    with mesh if mesh is not None else contextlib.nullcontext():
+        state = trainer.init_state(jax.random.PRNGKey(0))
+        for i, toks in enumerate(tokens):
+            t = jnp.asarray(np.asarray(toks, np.int32))
+            r = i // g["fed"]["local_steps"]
+            state, m = step(state, {"tokens": t[..., :-1], "labels": t[..., 1:]},
+                            jnp.asarray(g["arrived"][r]),
+                            jnp.asarray(g["alphas"][r], jnp.float32))
+            losses.append(np.asarray(m["per_cloud_loss"]).tolist())
     flat = {"/".join(str(p.key) for p in path): np.asarray(x, np.float64)
             for path, x in jax.tree_util.tree_flatten_with_path(state["global"]["params"])[0]}
     return {"losses": losses,
@@ -126,9 +153,34 @@ def reference_case(g: dict, name: str) -> dict:
             "numel": {k: int(x.size) for k, x in flat.items()}}
 
 
+# the reference's pod case on 2 forced host devices (the suite's process
+# holds one; jax fixes its device count at its first use)
+POD_SCRIPT = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+sys.path[:0] = ["src", ".", "tests"]
+import test_torch_train_golden as t
+print(json.dumps(t.reference_case(json.loads(sys.stdin.read()), "pod")))
+"""
+
+
+def reference_pod_case(g: dict) -> dict:
+    r = subprocess.run(
+        [sys.executable, "-c", POD_SCRIPT], input=json.dumps(g), capture_output=True,
+        text=True, timeout=600, cwd=ROOT,
+        env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin", "HOME": os.environ.get("HOME", "/tmp"),
+             # pin the CPU: with libtpu installed jax otherwise probes for a TPU
+             "JAX_PLATFORMS": "cpu"},
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
 def make_golden_train() -> dict:
     g = golden_inputs()
-    g["cases"] = {name: dict(CASES[name], **reference_case(g, name)) for name in CASES}
+    g["cases"] = {name: dict(CASES[name], **(reference_pod_case(g) if CASES[name].get("pod")
+                                             else reference_case(g, name)))
+                  for name in CASES}
     return g
 
 
@@ -156,6 +208,15 @@ def test_golden_file_is_the_reference_output(golden):
     assert want["numel"] == golden["cases"]["gradient"]["numel"]
 
 
+def test_golden_pod_case_is_the_reference_output(golden):
+    """The reference's pod-mode step, run again on 2 forced host devices,
+    gives the pod case's numbers (to the last bits)."""
+    want = reference_pod_case(golden)
+    loss, sums = golden_train.golden_train_errors(golden["cases"]["pod"], want)
+    assert loss <= 1e-6 and sums <= 1e-5, (loss, sums)
+    assert len(want["losses"]) == CASES["pod"]["steps"]
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_port_replays_golden_training_on_cpu(golden, name):
     got = golden_train.golden_train_replay(golden, name, "cpu")
@@ -171,17 +232,29 @@ def test_sample_counts_ignored_is_caught(golden, name):
     assert loss > LOSS_RTOL and sums > SUM_TOL, (name, loss, sums)
 
 
+def test_pod_sample_counts_ignored_is_caught_by_the_checksums(golden):
+    """The planted fault in the pod case: its one sync (step 2) moves the
+    final params beyond the checksum gate; the losses of steps 3-4 move
+    less than their gate (5.1e-5 on the CPU)."""
+    bad = golden_train.golden_train_replay(golden, "pod", "cpu", uniform_weights=True)
+    _, sums = golden_train.golden_train_errors(golden["cases"]["pod"], bad)
+    assert sums > SUM_TOL, sums
+
+
 def test_config_fields_match_reference():
-    """Field names and defaults of the port's federated and training configs
-    equal the reference's; ``wire_int8`` is the one field left out."""
+    """Field names and defaults of the port's federated, training and mesh
+    configs equal the reference's."""
+    from repro.configs.base import MeshConfig as RefMesh
+
+    from repro_torch.configs.base import MeshConfig
+
     def fields(cls):
         return {f.name: f.default for f in dataclasses.fields(cls)}
 
-    ref_fed, port_fed = fields(RefFed), fields(FederatedConfig)
-    assert set(ref_fed) - set(port_fed) == {"wire_int8"}
-    assert set(port_fed) <= set(ref_fed)
-    assert all(port_fed[k] == ref_fed[k] for k in port_fed)
+    assert fields(FederatedConfig) == fields(RefFed)
     assert fields(TrainConfig) == fields(RefTrain)
+    assert fields(MeshConfig) == fields(RefMesh)
+    assert MeshConfig(data=2, model=4, pods=3).devices == RefMesh(data=2, model=4, pods=3).devices
     assert FederatedConfig().secure_agg is False and TrainConfig().checkpoint_dir == ""
 
 
