@@ -98,6 +98,21 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    8) on the main path's inputs of 3: each shard against its plain version
    and BITWISE equal to its heads of the Hkv-32 launch; device times at
    Hkv 32, 16 and 8;
+3f. the other configs' shapes ([shapes]): every attention kernel
+   (``paged_decode``, ``paged_decode_int8``, ``paged_decode_ring``,
+   ``swa_decode``, ``flash_prefill``, ``suffix_prefill``,
+   ``suffix_prefill_int8``, ``kv_write_int8``) at hd 160 / G 4 / Hkv 8
+   (stablelm-12b), hd 128 / G 3 / Hkv 8 (phi4-mini), G 2 at hd 32 and the
+   padded hd 30 (phi4-mini's smoke layer, at the kernels' 32 with the scale
+   30**-0.5, held against the plain version unpadded), bf16 and float32:
+   within ``RTOL`` of the plain versions (planted faults outside), the int8
+   kernels bitwise the fp kernels over the dequantized pool, the table,
+   ring and ``swa_decode`` kernels bitwise equal over the same keys, each
+   decode row alone bitwise its row in the batch, ``kv_write_int8`` bitwise
+   its plain version outside scratch page 0; at hd 160 and at G 3 in bf16,
+   at the main path's shapes, each kernel's device time beside its bound,
+   its plain version's and SDPA's (``enable_gqa``) where one call computes
+   the same function;
 4. golden: the port's engine replays the reference engine's float32 greedy
    trace (``src/repro_torch/testdata/golden_stablelm_smoke.json``) and must
    reproduce its tokens exactly;
@@ -140,6 +155,11 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
 4g. golden tensor-parallel ([tp-golden]): the reference engine's float32
    traces of 4 and 4c's four engine runs served on meshes of 2 and 4 shards
    on the card (graphed): every token, every kernel of the paths launched;
+4h. golden configs ([golden-configs]): the reference engine's float32
+   traces of stablelm-12b, mistral-nemo-12b, phi4-mini-3.8b (head dim 30,
+   padded) and olmoe-1b-7b (MoE, a padded width bucket) at their smoke
+   configs, replayed through CUDA graphs: tokens and pool counters
+   identical, every serving kernel launched;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -205,6 +225,21 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    preempts, without the host tier, at 2 shards against the unsharded
    engine: counters equal, tokens as in 5k, every int8 kernel launched, 48
    ``kv_write_int8`` launches per decode step;
+5m. the other configs at their published widths ([configs-main]), one
+   model on the card at a time (bf16, random weights from a seeded
+   generator, nothing cut): stablelm-12b (hd 160, G 4) on fp and on int8
+   pages, phi4-mini-3.8b (G 3, tied, vocab 200,064), mistral-nemo-12b
+   (rope theta 1e6, vocab 131,072) and olmoe-1b-7b (64 experts, top 8):
+   the cold round, a decode step and the suffix round against the plain
+   versions in bf16 (logits within 0.1 x scale, 0.03 for an MoE model,
+   planted faults outside)
+   and in float32 (1e-3 x scale; the 12 B configs over their first 8 of 40
+   layers, printed as a cut: a float32 copy of every layer would not fit
+   beside the bf16 weights), an MoE model's plain runs on the kernel run's
+   routing, then
+   phase 5's trace through CUDA graphs: budgets, finite logits, every
+   serving kernel launched; tok/s, TTFT p50, the decode step's profile, the
+   pool's bytes per token, peak memory;
 5b. int8 main path: the same model over an int8 pool with a host tier; 8
    cold prompts of 256-384 tokens x 64 tokens in a pool tight enough that
    slots are preempted and swapped out, then 8 shared-prefix prompts x 32
@@ -315,7 +350,7 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    its paged-decode-off run, at the shape 3c times), the speculative traces
    of 5e (the verify's suffix prefills, the draft's ring decode and re-sync
    prefills, the int8 verify's pool writes), the tensor-parallel traces of
-   5k-5l and the training run),
+   5k-5l, the other configs' traces of 5m and the training run),
    then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -349,6 +384,11 @@ RTOL = {"bfloat16": 0.05, "float32": 1e-4}
 # grows through 24 random-weight layers: on an H100 the sound readings were
 # <= 0.040 x scale and the planted faults >= 0.226 x scale; 0.1 lies between.
 LOGIT_RTOL = {"float32": 1e-3, "bfloat16": 0.1}
+# An MoE model's bf16 logits, routing pinned (``_logit_parity``): at
+# olmoe-1b-7b's width the sound readings were 0.011-0.013 x scale and one
+# dropped prefix key read 0.059 x scale (NVIDIA H100 80GB HBM3, 700.00 W),
+# inside 0.1; 0.03 lies between.
+LOGIT_RTOL_MOE_BF16 = 0.03
 REPLACES = {
     "paged_decode": "src/repro/kernels/paged_decode.py:208",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:106",
@@ -517,24 +557,24 @@ def timed_ms(fn, iters: int = 20, bound_ms: float = 0.0) -> tuple[float, float]:
 
 
 # The plain versions behind the ops entry points, fp or int8 pools by
-# whether scales are given.
-def _plain_decode(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None):
+# whether scales are given (``scale``: the softmax scale, as the ops pass it).
+def _plain_decode(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None, scale=None):
     from repro_torch.kernels import ref
 
     if k_scale is None:
-        return ref.paged_decode_ref(q, kp, vp, pos, table, window)
-    return ref.paged_decode_int8_ref(q, kp, vp, k_scale, v_scale, pos, table, window)
+        return ref.paged_decode_ref(q, kp, vp, pos, table, window, scale)
+    return ref.paged_decode_int8_ref(q, kp, vp, k_scale, v_scale, pos, table, window, scale)
 
 
 def _plain_suffix(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_scale=None,
-                  pool_v_scale=None):
+                  pool_v_scale=None, scale=None):
     from repro_torch.kernels import ref
 
     if pool_k_scale is None:
         return ref.suffix_prefill_ref(q, ks, vs, pk, pv, table, starts,
-                                      prefix_width=prefix_width)
+                                      prefix_width=prefix_width, scale=scale)
     return ref.suffix_prefill_int8_ref(q, ks, vs, pk, pv, pool_k_scale, pool_v_scale, table,
-                                       starts, prefix_width=prefix_width)
+                                       starts, prefix_width=prefix_width, scale=scale)
 
 
 # Planted faults: the plain versions with one deliberate error each, which
@@ -550,36 +590,39 @@ def _decode_drop_page(q, kp, vp, pos, table, window=0, **scales):
     return _plain_decode(q, kp, vp, pos // page * page - 1, table, window, **scales)
 
 
-def _decode_scale_slot(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None):
+def _decode_scale_slot(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None,
+                       scale=None):
     """int8: every key's scale read from the next token slot of its page."""
     return _plain_decode(q, kp, vp, pos, table, window, k_scale.roll(1, dims=1),
-                         v_scale.roll(1, dims=1))
+                         v_scale.roll(1, dims=1), scale)
 
 
-def _decode_scale_head(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None):
+def _decode_scale_head(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None,
+                       scale=None):
     """int8: every key's scale read from the next kv head."""
     return _plain_decode(q, kp, vp, pos, table, window, k_scale.roll(1, dims=2),
-                         v_scale.roll(1, dims=2))
+                         v_scale.roll(1, dims=2), scale)
 
 
-def _decode_no_round(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None):
+def _decode_no_round(q, kp, vp, pos, table, window=0, k_scale=None, v_scale=None,
+                     scale=None):
     """int8: the pool dequantized in f32 and not rounded to q's dtype."""
     from repro_torch.kernels import ref
 
     out = ref.paged_decode_ref(q.float(), ref.dequant_pool_ref(kp, k_scale),
-                               ref.dequant_pool_ref(vp, v_scale), pos, table, window)
+                               ref.dequant_pool_ref(vp, v_scale), pos, table, window, scale)
     return out.to(q.dtype)
 
 
-def _prefill_shift(q, k, v, *, window=0):
+def _prefill_shift(q, k, v, *, window=0, scale=None):
     """Causal mask shifted by one: query i sees keys 0..i-1 (query 0 keeps
     key 0)."""
     import torch
 
     from repro_torch.kernels import ref
 
-    head = ref.flash_prefill_ref(q[:, :1], k[:, :1], v[:, :1], window=window)
-    rest = ref.flash_prefill_ref(q[:, 1:], k[:, :-1], v[:, :-1], window=window)
+    head = ref.flash_prefill_ref(q[:, :1], k[:, :1], v[:, :1], window=window, scale=scale)
+    rest = ref.flash_prefill_ref(q[:, 1:], k[:, :-1], v[:, :-1], window=window, scale=scale)
     return torch.cat([head, rest], 1)
 
 
@@ -597,23 +640,23 @@ def _suffix_drop_page(q, ks, vs, pk, pv, table, starts, *, prefix_width, **scale
 
 
 def _suffix_scale_slot(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_scale,
-                       pool_v_scale):
+                       pool_v_scale, scale=None):
     """int8: every prefix key's scale read from the next token slot."""
     return _plain_suffix(q, ks, vs, pk, pv, table, starts, prefix_width=prefix_width,
                          pool_k_scale=pool_k_scale.roll(1, dims=1),
-                         pool_v_scale=pool_v_scale.roll(1, dims=1))
+                         pool_v_scale=pool_v_scale.roll(1, dims=1), scale=scale)
 
 
 def _suffix_scale_head(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_scale,
-                       pool_v_scale):
+                       pool_v_scale, scale=None):
     """int8: every prefix key's scale read from the next kv head."""
     return _plain_suffix(q, ks, vs, pk, pv, table, starts, prefix_width=prefix_width,
                          pool_k_scale=pool_k_scale.roll(1, dims=2),
-                         pool_v_scale=pool_v_scale.roll(1, dims=2))
+                         pool_v_scale=pool_v_scale.roll(1, dims=2), scale=scale)
 
 
 def _suffix_no_round(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_scale,
-                     pool_v_scale):
+                     pool_v_scale, scale=None):
     """int8: the prefix pool dequantized in f32 and not rounded to q's
     dtype."""
     from repro_torch.kernels import ref
@@ -621,7 +664,7 @@ def _suffix_no_round(q, ks, vs, pk, pv, table, starts, *, prefix_width, pool_k_s
     out = ref.suffix_prefill_ref(q.float(), ks.float(), vs.float(),
                                  ref.dequant_pool_ref(pk, pool_k_scale),
                                  ref.dequant_pool_ref(pv, pool_v_scale), table, starts,
-                                 prefix_width=prefix_width)
+                                 prefix_width=prefix_width, scale=scale)
     return out.to(q.dtype)
 
 
@@ -1423,7 +1466,7 @@ def phase_kernels_int8(smi):
 
 
 # ----------------------------------------------------------------- phase 3c
-def _ring_plain(q, k, v, pos, window=0, fault=None):
+def _ring_plain(q, k, v, pos, window=0, fault=None, scale=None):
     """The plain ring decode (``ref.swa_decode_ref``'s mask and softmax),
     optionally with one planted fault in its mask: "newest" leaves out the
     key at slot pos mod C (a mask shifted by one key); "nowrap" reconstructs
@@ -1447,17 +1490,17 @@ def _ring_plain(q, k, v, pos, window=0, fault=None):
     elif fault == "lastpage":
         page = ring_page(cap)
         valid &= slots // page != newest // page
-    return ref._attend(q[:, None], k, v, valid[:, None, None, None, :])[:, 0]
+    return ref._attend(q[:, None], k, v, valid[:, None, None, None, :], scale)[:, 0]
 
 
-def _plain_ring(q, k, v, pos, window=0, *, paged=True):
+def _plain_ring(q, k, v, pos, window=0, *, paged=True, scale=None):
     """ops.swa_decode_attention's plain route on any device."""
-    return _ring_plain(q, k, v, pos, window)
+    return _ring_plain(q, k, v, pos, window, scale=scale)
 
 
 def _ring_fault(kind):
-    def fn(q, k, v, pos, window=0, *, paged=True):
-        return _ring_plain(q, k, v, pos, window, fault=kind)
+    def fn(q, k, v, pos, window=0, *, paged=True, scale=None):
+        return _ring_plain(q, k, v, pos, window, fault=kind, scale=scale)
     return fn
 
 
@@ -1778,12 +1821,48 @@ def _parity_rounds(cold, hits):
                 slots=torch.arange(n, device=DEVICE))
 
 
+@contextlib.contextmanager
+def _moe_routes(record: list | None = None, replay: list | None = None):
+    """Record every MoE layer's routing (``models/moe.route``: slots, kept
+    choices, weights) in call order, or replay a record in its place,
+    counting the (token, expert) choices the replaying run's own routing
+    would have kept otherwise (yielded: a list, one count per layer)."""
+    from repro_torch.models import moe
+
+    route, calls, moved = moe.route, iter(replay or ()), []
+
+    def pinned(params, xf, cfg, aux=True):
+        own = route(params, xf, cfg, aux)
+        if replay is None:
+            record.append(own)
+            return own
+        slot, kept, weight, _ = next(calls)
+        moved.append(int((own[1] != kept).sum()))
+        return slot, kept, weight, own[3]
+
+    moe.route = pinned
+    try:
+        yield moved
+    finally:
+        moe.route = route
+
+
 def _logit_parity(model, params, cfg, cold, hits, kv_dtype="fp"):
     """A cold round over the 8 cold prompts, one decode step and a suffix
     round over the 8 shared-prefix prompts, on the card, over an fp or an
     int8 pool. Each stage runs through the kernels, then from a copy of the
     same cache through the plain versions and through each planted fault of
-    its kernel."""
+    its kernel.
+
+    An MoE model's plain and faulted runs take the kernel run's routing
+    (``_moe_routes``): a router's top-k is a step function of its input, so
+    a one-ulp difference in an attention output moves a near-tied token to
+    another expert and its logits by O(1) (olmoe-1b-7b's cold round read
+    0.26 x scale with each run routing itself; NVIDIA H100 80GB HBM3,
+    700.00 W). Pinned, the comparison reads the kernels; the choices each
+    plain run would have moved are printed. An MoE model in bf16 is held to
+    ``LOGIT_RTOL_MOE_BF16``, which its one-dropped-prefix-key fault
+    passes."""
     import torch
 
     page, n = 16, 8
@@ -1791,32 +1870,42 @@ def _logit_parity(model, params, cfg, cold, hits, kv_dtype="fp"):
     r = _parity_rounds(cold, hits)
     cache["table"].copy_(torch.from_numpy(r["table"]))
 
+    moe = cfg.arch_type == "moe"
+
     def stage(what, run, faults):
         snap = {k: v.clone() for k, v in cache.items()}
-        _, lk = run(cache)
+        routes = []
+        with _moe_routes(record=routes) if moe else contextlib.nullcontext():
+            _, lk = run(cache)
         lk = lk[:, : cfg.vocab_size]
         check(bool(torch.isfinite(lk).all()), f"{what}: non-finite logits")
-        got = {}
+        got, moved = {}, []
         for fname, swap in [("plain", {}), *faults]:
             twin = {k: v.clone() for k, v in snap.items()}
-            with plain_kernels(**swap):
+            with plain_kernels(**swap), (_moe_routes(replay=routes) if moe
+                                         else contextlib.nullcontext([])) as m:
                 _, lp = run(twin)
+            if fname == "plain":
+                moved = m
             got[fname] = lp[:, : cfg.vocab_size]
             del twin
-        del snap
-        tol = LOGIT_RTOL[cfg.dtype]
+        del snap, routes
+        tol = LOGIT_RTOL_MOE_BF16 if moe and cfg.dtype == "bfloat16" else LOGIT_RTOL[cfg.dtype]
         scale = max(got["plain"].abs().max().item(), 1.0)
         d = (lk - got["plain"]).abs().max().item()
         agree = (lk.argmax(-1) == got["plain"].argmax(-1)).float().mean().item()
-        msg = (f"[main] {cfg.dtype} {kv_dtype} {what}: kernel vs plain max |dlogit| {d:.3e} = "
+        msg = (f"[main] {cfg.name} {cfg.dtype} {kv_dtype} {what}: kernel vs plain max |dlogit| "
+               f"{d:.3e} = "
                f"{d / scale:.3e} x logit scale {scale:.2f} (tol {tol:g} x scale), argmax "
-               f"agreement {agree:.2f}")
-        expect(d <= tol * scale, f"{cfg.dtype} {what}: logit diff {d} too large")
+               f"agreement {agree:.2f}"
+               + (f"; routing pinned to the kernel run's, the plain run's own would have moved "
+                  f"{sum(moved)} (token, expert) choices over {len(moved)} layers" if moe else ""))
+        expect(d <= tol * scale, f"{cfg.name} {cfg.dtype} {what}: logit diff {d} too large")
         for fname, _ in faults:
             fd = (lk - got[fname]).abs().max().item()
             msg += f"; planted fault '{fname}' {fd:.3e} = {fd / scale:.3e} x scale"
-            expect(fd > tol * scale, f"{cfg.dtype} {what}: planted fault '{fname}' within "
-                                     "tolerance")
+            expect(fd > tol * scale, f"{cfg.name} {cfg.dtype} {what}: planted fault '{fname}' "
+                                     "within tolerance")
         log(msg)
         return lk
 
@@ -3116,11 +3205,12 @@ def _int8_path_requests(vocab):
     return cold, hits
 
 
-def _serve_trace(model, params, cold, hits, smi, label, **engine_kw):
+def _serve_trace(model, params, cold, hits, smi, label, tag="int8-main", **engine_kw):
     """One engine over the trace (cold group, then the shared-prefix group
     once the first retired): tokens, pool stats, launches, the engine and
     the trace's record for ``_twin_gate``. Gates finite logits, one decode
-    specialization and no new prefill_slots one after ``warm()``."""
+    specialization and no new prefill_slots one after ``warm()``; logs
+    under ``tag``."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3163,7 +3253,7 @@ def _serve_trace(model, params, cold, hits, smi, label, **engine_kw):
     tokens = sum(len(o.tokens) for o in outs)
     ttft = float(np.percentile([o.ttft for o in outs], 50))
     lat = float(np.percentile([o.latency for o in outs], 50))
-    log(f"[int8-main] {label} ({smi}): {len(outs)} requests, {tokens} tokens in {wall:.3f} s: "
+    log(f"[{tag}] {label} ({smi}): {len(outs)} requests, {tokens} tokens in {wall:.3f} s: "
         f"{tokens / wall:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, latency p50 "
         f"{lat * 1e3:.1f} ms; {eng.steps} decode steps, {ps['cold_dispatches']} cold + "
         f"{ps['suffix_dispatches']} suffix dispatches; {ps['allocatable_pages']} pages, "
@@ -4832,6 +4922,423 @@ def phase_pod_train(smi):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 3f
+# The attention kernels at the head dims and groups of the other configs
+# ([shapes]): (label, dtype, Hkv, G, model head dim, timed). hd 160 at G 4
+# over 8 kv heads is stablelm-12b's layer, hd 128 at G 3 over 8 phi4-mini's,
+# G 2 at hd 32 the smoke configs' (stablelm-12b, mistral-nemo, qwen3-moe),
+# and hd 30 phi4-mini's smoke layer, whose operands the kernels take padded
+# to 32 with the softmax scale 30**-0.5 (``kernel_head_dim``): its plain
+# version runs unpadded at 30. The timed rows are at the main path's shapes
+# (8 slots at depths 100..380, page 16, scattered tables with 6 shared pages;
+# the cold round 8 x 512; the hit round 8 x 64 behind a 256-token prefix;
+# a decode step's and the hit round's int8 pool writes).
+NEW_SHAPES = (
+    ("hd160 G4 Hkv8", "bfloat16", 8, 4, 160, True),
+    ("hd160 G4 Hkv8", "float32", 8, 4, 160, False),
+    ("hd128 G3 Hkv8", "bfloat16", 8, 3, 128, True),
+    ("hd128 G3 Hkv8", "float32", 8, 3, 128, False),
+    ("hd32 G2 Hkv2", "bfloat16", 2, 2, 32, False),
+    ("hd32 G2 Hkv2", "float32", 2, 2, 32, False),
+    ("hd30->32 G2 Hkv2", "bfloat16", 2, 2, 30, False),
+    ("hd30->32 G2 Hkv2", "float32", 2, 2, 30, False),
+)
+
+
+def _shape_case(smi, gen, label, dname, hkv, g, hd, timed) -> list[dict]:
+    """Every attention kernel at one shape against its plain version
+    (within ``RTOL`` of the plain output's RMS; the padded head dims zero),
+    the bitwise contracts of the split-KV and int8 kernels, and, for a timed
+    shape, each kernel's device time, wrapper wall, plain and library times
+    and bound. Returns the timed rows.
+
+    The plain versions run in float32 on the same operands (bf16 ones
+    upcast, exactly), so a bf16 kernel is held to its own rounding, half an
+    ulp. Both sides rounding to bf16 differ by a whole ulp wherever the two
+    sums straddle a rounding boundary: over the 21 M outputs of
+    ``flash_prefill`` at hd 160 / G 4 such a flip on an element several
+    times the RMS read err/RMS 0.048 against the gate of 0.05 (NVIDIA H100
+    80GB HBM3, 700.00 W)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_decode import kernel_head_dim
+
+    dt = getattr(torch, dname)
+    khd = kernel_head_dim(hd)
+    scale = hd**-0.5
+    elem = dt.itemsize
+    tol = RTOL[dname]
+    tag = f"{label} {dname}"
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(DEVICE, dt)
+
+    def pad(x):
+        return x if khd == hd else F.pad(x, (0, khd - hd))
+
+    def up(*xs):
+        """Plain-version operands: exact float32 upcasts (see the docstring)."""
+        return [x.float() for x in xs]
+
+    def held(name, out, plain, faults=()):
+        """Kernel output (cut to the model's head dim) vs the plain one."""
+        cut = out[..., :hd]
+        if khd != hd:
+            expect(not out[..., hd:].any(), f"{name} {tag}: padded head dims not zero")
+        rms = plain.float().pow(2).mean().sqrt().item()
+        e = (cut.float() - plain.float()).abs().max().item()
+        msg = f"[shapes] {name} {tag}: err/RMS {e / rms:.3e} (tol {tol:g})"
+        expect(e <= tol * rms, f"{name} {tag}: err/RMS {e / rms} > {tol}")
+        for fname, fout in faults:
+            fe = (cut.float() - fout.float()).abs().max().item()
+            msg += f"; planted fault '{fname}' err/RMS {fe / rms:.3e}"
+            expect(fe > tol * rms, f"{name} {tag}: planted fault '{fname}' within tolerance")
+        log(msg)
+        return e
+
+    # decode over the pool: 8 slots at depths 100..380, 6 shared pages
+    b, page, t_w, num_pages = 8, 16, 208, 209
+    pos_list = [100 + 40 * r for r in range(b)]
+    q, kp, vp, pos, table = _decode_case(gen, dt, b, hkv, g, hd, page, t_w, num_pages,
+                                         pos_list, shared=6)
+    dec = (pad(q), pad(kp), pad(vp), pos, table)
+    out = ops.paged_decode_attention(*dec, scale=scale)
+    e_dec = held("paged_decode", out, ref.paged_decode_ref(*up(q, kp, vp), pos, table),
+                 [("mask shifted by one", _decode_shift(*up(q, kp, vp), pos, table))])
+    (kq, ks), (vq, vs) = ref.kv_quant_ref(dec[1]), ref.kv_quant_ref(dec[2])
+    dec8 = (dec[0], kq, vq, pos, table)
+    out8 = ops.paged_decode_attention(*dec8, k_scale=ks, v_scale=vs, scale=scale)
+    kd, vd = ref.dequant_pool_ref(kq, ks, dt), ref.dequant_pool_ref(vq, vs, dt)
+    same8 = torch.equal(out8, ops.paged_decode_attention(dec[0], kd, vd, pos, table,
+                                                         scale=scale))
+    expect(same8, f"paged_decode_int8 {tag}: not bitwise paged_decode over the dequantized pool")
+    e_dec8 = held("paged_decode_int8", out8,
+                  ref.paged_decode_ref(*up(q, kd[..., :hd], vd[..., :hd]), pos, table))
+    alone = _rows_alone(lambda r: ops.paged_decode_attention(
+        dec[0][r].contiguous(), dec[1], dec[2], pos[r].contiguous(), table[r].contiguous(),
+        scale=scale), b)
+    expect(alone, f"paged_decode {tag}: a row alone differs from the row in the batch")
+    # the same keys as per-row rings: the ring kernels and the table kernel agree bitwise
+    rk, rv = ref.gather_pages_ref(dec[1], table), ref.gather_pages_ref(dec[2], table)
+    ring = ops.swa_decode_attention(dec[0], rk, rv, pos, paged=True, scale=scale)
+    swa = ops.swa_decode_attention(dec[0], rk, rv, pos, paged=False, scale=scale)
+    e_ring = held("paged_decode_ring", ring, ref.ring_paged_decode_ref(
+        *up(q, rk[..., :hd], rv[..., :hd]), pos))
+    e_swa = held("swa_decode", swa, ref.swa_decode_ref(*up(q, rk[..., :hd], rv[..., :hd]), pos))
+    rings_same = torch.equal(ring, swa) and torch.equal(ring, out)
+    expect(rings_same, f"{tag}: paged_decode_ring, swa_decode and paged_decode differ")
+    live = [-(-(p + 1) // page) for p in pos_list]
+    log(f"[shapes] decode {tag}: int8 == fp over the dequantized pool {same8}; each row alone "
+        f"== its row in the batch {alone}; table == ring == swa over the same keys "
+        f"{rings_same}; {_split_plan(t_w * page, dec[0].shape, [m * page for m in live])}")
+
+    # cold prefill: 8 x 512 (timed) or a ragged 3 x 300
+    n, s = (8, 512) if timed else (3, 300)
+    q5, k4, v4 = rnd(n, s, hkv, g, hd), rnd(n, s, hkv, hd), rnd(n, s, hkv, hd)
+    fp = (pad(q5), pad(k4), pad(v4))
+    e_fp = held("flash_prefill", ops.flash_prefill_attention(*fp, scale=scale),
+                ref.flash_prefill_ref(*up(q5, k4, v4)),
+                [("mask shifted by one", _prefill_shift(*up(q5, k4, v4)))])
+    if not timed:
+        held("flash_prefill", ops.flash_prefill_attention(*fp, window=40, scale=scale),
+             ref.flash_prefill_ref(*up(q5, k4, v4), window=40))
+
+    # suffix prefill: 8 x 64 behind a 256-token prefix the rows share (W 16)
+    s_suf, start, w_pfx = 64, 256, 16
+    qs, ksf, vsf = rnd(b, s_suf, hkv, g, hd), rnd(b, s_suf, hkv, hd), rnd(b, s_suf, hkv, hd)
+    stable = _table(gen, [(start + s_suf) // page] * b, t_w, num_pages, shared=w_pfx).to(DEVICE)
+    starts = torch.full((b,), start, dtype=torch.int32, device=DEVICE)
+    sp = (pad(qs), pad(ksf), pad(vsf))
+    suf = ops.suffix_prefill_attention(*sp, dec[1], dec[2], stable, starts, prefix_width=w_pfx,
+                                       scale=scale)
+    e_suf = held("suffix_prefill", suf, ref.suffix_prefill_ref(
+        *up(qs, ksf, vsf, kp, vp), stable, starts, prefix_width=w_pfx),
+        [("last prefix key dropped", _suffix_shift(*up(qs, ksf, vsf, kp, vp), stable, starts,
+                                                   prefix_width=w_pfx))])
+    suf8 = ops.suffix_prefill_attention(*sp, kq, vq, stable, starts, prefix_width=w_pfx,
+                                        pool_k_scale=ks, pool_v_scale=vs, scale=scale)
+    suf_same = torch.equal(suf8, ops.suffix_prefill_attention(
+        *sp, kd, vd, stable, starts, prefix_width=w_pfx, scale=scale))
+    expect(suf_same, f"suffix_prefill_int8 {tag}: not bitwise suffix_prefill over the "
+                     "dequantized pool")
+    e_suf8 = held("suffix_prefill_int8", suf8, ref.suffix_prefill_ref(
+        *up(qs, ksf, vsf, kd[..., :hd], vd[..., :hd]), stable, starts, prefix_width=w_pfx))
+    log(f"[shapes] suffix {tag}: int8 == fp over the dequantized pool {suf_same}")
+
+    # the int8 pool's writes: a decode step's (one token per row at pos) and
+    # the hit round's, bitwise the plain write outside scratch page 0
+    writes = [("decode step", pad(rnd(b, 1, hkv, hd)), pad(rnd(b, 1, hkv, hd)), table, pos,
+               None),
+              ("hit round", sp[1], sp[2], stable, starts,
+               torch.full((b,), s_suf, dtype=torch.int32, device=DEVICE))]
+    for what, wk, wv, wt, wst, wl in writes:
+        pool = {"k": kq.clone(), "v": vq.clone(), "ks": ks.clone(), "vs": vs.clone()}
+        want = {key: x.clone() for key, x in pool.items()}
+        ops.kv_write_int8(pool, wk, wv, wt, wst, wl)
+        ref.kv_write_int8_ref(want, wk, wv, wt, wst, wl)
+        same = all(torch.equal(pool[key][1:], want[key][1:]) for key in pool)
+        expect(same, f"kv_write_int8 {tag} {what}: differs from its plain version outside "
+                     "page 0")
+        log(f"[shapes] kv_write_int8 {tag} {what}: bitwise its plain version outside scratch "
+            f"page 0: {same}")
+    if not timed:
+        return []
+
+    # --- times (bf16, the main path's shapes), each beside its bound and a
+    # library call computing the same function where one does
+    h = hkv * g
+    peak = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
+    spans = [p + 1 for p in pos_list]
+    uniq = _unique_tokens(table, spans, page)
+    kg = ref.gather_pages_ref(kp, table[:, : max(live)]).transpose(1, 2)
+    vg = ref.gather_pages_ref(vp, table[:, : max(live)]).transpose(1, 2)
+    dmask = (torch.arange(max(live) * page, device=DEVICE)[None, :]
+             <= pos[:, None].long())[:, None, None, :]
+    qd = q.reshape(b, h, 1, hd)
+    # the rings hold the table's keys in position order (no wrap at this
+    # capacity): the library call reads their live span in place
+    rkl = rk[:, : max(live) * page].transpose(1, 2)
+    rvl = rv[:, : max(live) * page].transpose(1, 2)
+    kdg = ref.gather_pages_ref(kd[..., :hd], table[:, : max(live)]).transpose(1, 2)
+    vdg = ref.gather_pages_ref(vd[..., :hd], table[:, : max(live)]).transpose(1, 2)
+    dec_bytes = 2 * b * h * hd * elem + 4 * (b + sum(live))
+    dec_flops = 4 * sum(spans) * h * hd
+    qf = q5.reshape(n, s, h, hd).transpose(1, 2)
+    kf, vf = k4.transpose(1, 2), v4.transpose(1, 2)
+    pp = start // page
+    suniq = _unique_tokens(stable, [start] * b, page)
+    kc = torch.cat([ref.gather_pages_ref(kp, stable[:, :w_pfx]), ksf], 1).transpose(1, 2)
+    vc = torch.cat([ref.gather_pages_ref(vp, stable[:, :w_pfx]), vsf], 1).transpose(1, 2)
+    kc8 = torch.cat([ref.gather_pages_ref(kd, stable[:, :w_pfx]), ksf], 1).transpose(1, 2)
+    vc8 = torch.cat([ref.gather_pages_ref(vd, stable[:, :w_pfx]), vsf], 1).transpose(1, 2)
+    smask = (torch.arange(start + s_suf, device=DEVICE)[None, :]
+             <= start + torch.arange(s_suf, device=DEVICE)[:, None])
+    qst = qs.reshape(b, s_suf, h, hd).transpose(1, 2)
+    # q and out, the suffix k/v, starts and the prefix table entries
+    suf_bytes = 2 * b * s_suf * (h + hkv) * hd * elem + 4 * b * (1 + pp)
+    suf_flops = 4 * b * h * hd * (s_suf * start + s_suf * (s_suf + 1) // 2)
+    wk, wv, wt, wst, _ = writes[0][1:]
+    wpool = {"k": kq.clone(), "v": vq.clone(), "ks": ks.clone(), "vs": vs.clone()}
+
+    def sdpa(qq, kk, vv, **kw):
+        return F.scaled_dot_product_attention(qq, kk, vv, enable_gqa=True, **kw)
+
+    cases = [
+        ("paged_decode", e_dec, lambda: ops.paged_decode_attention(*dec, scale=scale),
+         lambda: ref.paged_decode_ref(*dec), lambda: sdpa(qd, kg, vg, attn_mask=dmask),
+         dec_bytes + 2 * uniq * hkv * hd * elem, dec_flops),
+        ("paged_decode_int8", e_dec8,
+         lambda: ops.paged_decode_attention(*dec8, k_scale=ks, v_scale=vs, scale=scale),
+         lambda: ref.paged_decode_int8_ref(dec[0], kq, vq, ks, vs, pos, table),
+         lambda: sdpa(qd, kdg, vdg, attn_mask=dmask),
+         dec_bytes + 2 * uniq * hkv * (hd + 4), dec_flops),
+        ("paged_decode_ring", e_ring,
+         lambda: ops.swa_decode_attention(dec[0], rk, rv, pos, paged=True, scale=scale),
+         lambda: ref.ring_paged_decode_ref(dec[0], rk, rv, pos),
+         lambda: sdpa(qd, rkl, rvl, attn_mask=dmask),
+         2 * b * h * hd * elem + 2 * sum(spans) * hkv * hd * elem + 4 * b, dec_flops),
+        ("swa_decode", e_swa,
+         lambda: ops.swa_decode_attention(dec[0], rk, rv, pos, paged=False, scale=scale),
+         lambda: ref.swa_decode_ref(dec[0], rk, rv, pos),
+         lambda: sdpa(qd, rkl, rvl, attn_mask=dmask),
+         2 * b * h * hd * elem + 2 * sum(spans) * hkv * hd * elem + 4 * b, dec_flops),
+        ("flash_prefill", e_fp, lambda: ops.flash_prefill_attention(*fp, scale=scale),
+         lambda: ref.flash_prefill_ref(*fp), lambda: sdpa(qf, kf, vf, is_causal=True),
+         (2 * n * s * h * hd + 2 * n * s * hkv * hd) * elem,
+         4 * n * h * hd * s * (s + 1) // 2),
+        ("suffix_prefill", e_suf,
+         lambda: ops.suffix_prefill_attention(*sp, dec[1], dec[2], stable, starts,
+                                              prefix_width=w_pfx, scale=scale),
+         lambda: ref.suffix_prefill_ref(*sp, dec[1], dec[2], stable, starts,
+                                        prefix_width=w_pfx),
+         lambda: sdpa(qst, kc, vc, attn_mask=smask),
+         suf_bytes + 2 * suniq * hkv * hd * elem, suf_flops),
+        ("suffix_prefill_int8", e_suf8,
+         lambda: ops.suffix_prefill_attention(*sp, kq, vq, stable, starts, prefix_width=w_pfx,
+                                              pool_k_scale=ks, pool_v_scale=vs, scale=scale),
+         lambda: ref.suffix_prefill_int8_ref(*sp, kq, vq, ks, vs, stable, starts,
+                                             prefix_width=w_pfx),
+         lambda: sdpa(qst, kc8, vc8, attn_mask=smask),
+         suf_bytes + 2 * suniq * hkv * (hd + 4), suf_flops),
+        ("kv_write_int8", 0.0, lambda: ops.kv_write_int8(wpool, wk, wv, wt, wst),
+         lambda: ref.kv_write_int8_ref(wpool, wk, wv, wt, wst), None,
+         2 * b * hkv * hd * elem + 2 * b * hkv * (hd + 4) + 4 * b * 2, 0),
+    ]
+    rows = []
+    for name, err, kern, plain, lib, nbytes, flops in cases:
+        ms, wall = timed_ms(kern)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        row = dict(name=name, shape=tag, max_abs_err=err, ms=ms, wrapper_ms=wall,
+                   plain_ms=timed_ms(plain, iters=5)[0],
+                   library_ms=None if lib is None else timed_ms(lib)[0],
+                   bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+        rows.append(row)
+        lib_s = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        log(f"[shapes] {name} {tag} ({smi}): kernel device ms {ms:.4f} (wrapper wall "
+            f"{wall:.4f}) plain_ms {row['plain_ms']:.4f} library_ms {lib_s} bound_ms "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)")
+    return rows
+
+
+def phase_kernels_shapes(smi) -> list[dict]:
+    """3f: ``NEW_SHAPES``, every attention kernel (``_shape_case``)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(27)
+    rows = []
+    for case in NEW_SHAPES:
+        rows += _shape_case(smi, gen, *case)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------------------------------------- phase 4h
+# The reference engine's float32 traces of the other configs (written by
+# tests/test_torch_dense_configs.py and tests/test_torch_moe.py).
+CONFIG_GOLDENS = (("stablelm-12b", "golden_stablelm12b_smoke.json"),
+                  ("mistral-nemo-12b", "golden_mistral_nemo_smoke.json"),
+                  ("phi4-mini-3.8b", "golden_phi4_mini_smoke.json"),
+                  ("olmoe-1b-7b", "golden_olmoe_smoke.json"))
+
+
+def phase_golden_configs():
+    """4h: each golden trace replayed on the card through CUDA graphs in
+    float32: greedy tokens and pool counters identical, every serving
+    kernel launched."""
+    import torch
+
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models.model import build_model
+
+    for arch, fname in CONFIG_GOLDENS:
+        g = json.loads((ROOT / "src/repro_torch/testdata" / fname).read_text())
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        params = params_from_numpy(numpy_params(cfg, g["seed"]), cfg, DEVICE)
+        eng = ServeEngine(build_model(cfg), params, device=DEVICE, **g["engine"])
+        ops.reset_launches()
+        outs = eng.run([Request(uid=u, prompt=np.asarray(p, np.int32),
+                                max_new_tokens=g["max_new_tokens"])
+                        for u, p in enumerate(g["prompts"])])
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] for k in SERVING}
+        got = [o.tokens for o in outs]
+        counters = {k: eng.pool_stats[k] for k in g["counters"]}
+        check(got == g["tokens"], f"golden {arch}: fp32 tokens differ from the reference:\n"
+                                  f"{got}\n{g['tokens']}")
+        check(counters == g["counters"], f"golden {arch}: counters {counters} vs "
+                                         f"{g['counters']}")
+        check(all(v > 0 for v in launched.values()), f"golden {arch} missed a kernel: {launched}")
+        log(f"[golden-configs] {arch} (hd {cfg.resolved_head_dim}, kernel hd "
+            f"{eng.cache['k'].shape[-1]}, G {cfg.n_heads // cfg.n_kv_heads}, {cfg.arch_type}): "
+            f"{len(got)} requests, fp32 greedy tokens and counters identical to the reference "
+            f"engine's {counters}; kernel launches {launched}")
+        del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 5m
+# The other configs at their published widths, one model on the card at a
+# time, bf16, random weights from a torch.Generator: (arch, kv dtypes).
+CONFIG_MAINS = (("stablelm-12b", ("fp", "int8")), ("phi4-mini-3.8b", ("fp",)),
+                ("mistral-nemo-12b", ("fp",)), ("olmoe-1b-7b", ("fp",)))
+# The float32 logit parity's weights: a copy of every layer where bf16 + fp32
+# (6 bytes a parameter) stay under FP32_COPY_BYTES, else of the first
+# FP32_LAYERS layers (the 12 B configs: 73 GB at full depth).
+FP32_COPY_BYTES = 50e9
+FP32_LAYERS = 8
+
+
+def _first_layers(params: dict, depth: int) -> dict:
+    """``params`` with the stacked per-layer leaves cut to their first
+    ``depth`` layers (views)."""
+    return {**params, "layers": {name: {leaf: t[:depth] for leaf, t in group.items()}
+                                 for name, group in params["layers"].items()}}
+
+
+def phase_configs_main(smi) -> dict:
+    """5m ([configs-main]): each of ``CONFIG_MAINS`` at its published widths
+    (nothing cut): the cold round, a decode step and the suffix round
+    through the kernels against the plain versions (bf16 logits within
+    0.1 x scale, 0.03 for an MoE model, planted faults outside; on int8
+    pages too where listed;
+    float32 within 1e-3 x scale, over ``FP32_LAYERS`` layers where a
+    float32 copy of every layer would not fit),
+    then phase 5's trace (8 slots, page 16, 8 cold prompts, then 8 sharing a
+    256-token prefix, 32 greedy tokens each) through CUDA graphs: every
+    request's budget, finite logits, every serving kernel launched; tok/s,
+    TTFT p50, the decode step's device time and launches, the pool's bytes
+    per token. Returns the kernels' launches over the traces."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    total = {k: 0 for k in ops.LAUNCHES}
+    for arch, kv_dtypes in CONFIG_MAINS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        log(f"[configs-main] {arch}: {cfg.arch_type}, {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads (G {cfg.n_heads // cfg.n_kv_heads}), hd "
+            f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, rope theta {cfg.rope_theta:g}"
+            + (f", {cfg.n_experts} experts top {cfg.experts_per_token}" if cfg.n_experts else "")
+            + f", tied {cfg.tie_embeddings}, {cfg.dtype}: {_numel(params) / 1e9:.2f} B "
+            f"parameters, {_nbytes(params) / 1e9:.1f} GB")
+        cold, hits = _main_path_requests(cfg.vocab_size)
+        # float32 parity from a copy of the weights: every layer where the
+        # copy fits beside the bf16 weights, else the first FP32_LAYERS
+        depth = cfg.n_layers if 6 * _numel(params) < FP32_COPY_BYTES else FP32_LAYERS
+        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=depth)
+        params32 = _cast(_first_layers(params, depth), torch.float32)
+        log(f"[configs-main] {arch}: float32 parity over {depth} of {cfg.n_layers} layers"
+            + ("" if depth == cfg.n_layers else
+               f" (cut: a float32 copy of every layer, {4 * _numel(params) / 1e9:.1f} GB, "
+               f"beside the {_nbytes(params) / 1e9:.1f} GB of bf16 weights passes "
+               f"{FP32_COPY_BYTES / 1e9:.0f} GB)"))
+        _logit_parity(build_model(cfg32), params32, cfg32, cold, hits)
+        del params32
+        torch.cuda.empty_cache()
+        for kv in kv_dtypes:
+            _logit_parity(model, params, cfg, cold, hits, kv_dtype=kv)
+            serving = SERVING if kv == "fp" else SERVING_INT8
+            _, ps, launches, eng, rec = _serve_trace(model, params, cold, hits, smi,
+                                                     f"{arch} {kv} pages", tag="configs-main",
+                                                     kv_dtype=kv)
+            check(all(len(t) == 32 for t in rec["tokens"].values()) and len(rec["tokens"]) == 16,
+                  f"{arch} {kv}: not every request finished with 32 tokens")
+            check(ps["suffix_dispatches"] > 0 and ps["cold_dispatches"] > 0,
+                  f"{arch} {kv}: dispatch split not exercised: {ps}")
+            check(all(launches[k] > 0 for k in serving),
+                  f"{arch} {kv}: a serving kernel never launched: {launches}")
+            for k in total:
+                total[k] += launches[k]
+            per_step = _profile_decode(eng, smi, label=f"configs-main profile {arch} {kv}")
+            log(f"[configs-main] {arch} {kv} pages ({smi}): tok/s {rec['tok_s']:.1f}, TTFT "
+                f"p50 {rec['ttft'] * 1e3:.1f} ms, pool {ps['kv_bytes_per_token']} bytes per "
+                f"token (kernel hd {eng.cache['k'].shape[-1]}), launches "
+                f"{ {k: launches[k] for k in serving} }, per decode step {per_step}")
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"[configs-main] {arch}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; wall "
+            f"{time.perf_counter() - t0:.1f} s")
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     t_script = time.perf_counter()
     smi = phase_device()
@@ -4847,6 +5354,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels_tp(smi)
     log(f"[tp-kernels] phase 3e wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_kernels_shapes(smi)
+    log(f"[shapes] phase 3f wall {time.perf_counter() - t0:.1f} s")
     phase_golden()
     phase_golden_int8()
     phase_golden_ring()
@@ -4862,6 +5372,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_golden_tp()
     log(f"[tp-golden] phase 4g wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_golden_configs()
+    log(f"[golden-configs] phase 4h wall {time.perf_counter() - t0:.1f} s")
     launches, main_trace = phase_main_path(smi)
     t0 = time.perf_counter()
     phase_eos(smi, main_trace)
@@ -4881,6 +5394,9 @@ def main() -> int:
     del main_trace, spec
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    config_launches = phase_configs_main(smi)
+    log(f"[configs-main] phase 5m wall {time.perf_counter() - t0:.1f} s")
     launches.update(phase_main_path_int8(smi))
     ring_launches, model, params = phase_main_path_ring(smi)
     launches.update(ring_launches)
@@ -4915,8 +5431,10 @@ def main() -> int:
     for k, c in spec_launches.items():
         if k in launches:
             launches[k] += c
-    # the tensor-parallel traces' (5k-5l)
+    # the tensor-parallel traces' (5k-5l) and the other configs' (5m)
     for k, c in tp_launches.items():
+        launches[k] += c
+    for k, c in config_launches.items():
         launches[k] += c
     kernels = []
     for name, r in rows.items():

@@ -4,10 +4,12 @@ and the port.
 Both packages use one parameter tree: ``embed/tok`` (Vp, D),
 ``embed/unembed`` (D, Vp), per-layer leaves stacked on a leading L axis —
 ``layers/{ln1,ln2}/scale`` (L, D), ``layers/attn/{wq,wk,wv,wo}``,
-``layers/ffn/{w_gate,w_up,w_down}`` — and ``ln_f/scale`` (D,), every matrix
-laid out for ``x @ W``. ``numpy_params`` draws such a tree with numpy, so the
+``layers/ffn/{w_gate,w_up,w_down}`` (the MoE family: ``layers/ffn/router``
+(L, D, E), ``w_gate``/``w_up`` (L, E, D, F), ``w_down`` (L, E, F, D)) — and
+``ln_f/scale`` (D,), every matrix laid out for ``x @ W``; a tied config has
+no ``unembed``. ``numpy_params`` draws such a tree with numpy, so the
 reference (through ``jnp.asarray``) and the port can load the same weights
-on a machine without JAX."""
+on a machine without JAX. The router stays float32 in both packages."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,8 +30,8 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     def normal(shape, std):
         return (rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
 
-    def he(rows, cols):
-        return normal((L, rows, cols), (2.0 / rows) ** 0.5)
+    def he(rows, cols, experts=()):
+        return normal((L, *experts, rows, cols), (2.0 / rows) ** 0.5)
 
     embed = {"tok": normal((vp, d), 0.02)}
     if not cfg.tie_embeddings:
@@ -45,27 +47,34 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
                 "wo": he(cfg.n_heads * hd, d),
             },
             "ln2": {"scale": np.zeros((L, d), np.float32)},
-            "ffn": {
-                "w_gate": he(d, cfg.d_ff),
-                "w_up": he(d, cfg.d_ff),
-                "w_down": he(cfg.d_ff, d),
-            },
+            "ffn": _numpy_ffn(cfg, he),
         },
         "ln_f": {"scale": np.zeros((d,), np.float32)},
     }
 
 
+def _numpy_ffn(cfg: ModelConfig, he) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.arch_type != "moe":
+        return {"w_gate": he(d, f), "w_up": he(d, f), "w_down": he(f, d)}
+    e = (cfg.n_experts,)
+    return {"router": he(d, cfg.n_experts), "w_gate": he(d, f, e), "w_up": he(d, f, e),
+            "w_down": he(f, d, e)}
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device, dtype=None) -> dict:
     """The port's parameters from a tree of numpy arrays (same leaf paths),
-    cast to ``dtype`` (default: the config's) on ``device``."""
+    cast to ``dtype`` (default: the config's) on ``device``; a MoE
+    ``router`` leaf stays float32."""
     dtype = dtype or getattr(torch, cfg.dtype)
 
-    def conv(node):
+    def conv(node, key=""):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, k) for k, v in node.items()}
         # a copy: the port updates tensors in place, and must never write
         # into the caller's arrays
-        return torch.from_numpy(np.array(node, np.float32)).to(device=device, dtype=dtype)
+        return torch.from_numpy(np.array(node, np.float32)).to(
+            device=device, dtype=torch.float32 if key == "router" else dtype)
 
     return conv(tree)
 

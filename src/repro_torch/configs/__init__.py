@@ -1,7 +1,9 @@
 """Architecture config registry of the port: ``get_config("<arch-id>")``.
 
-Only the architectures the port serves are registered; the others arrive
-with the slices that port their model families."""
+Only the architectures the port serves are registered: the dense decoders
+and the MoE family (``qwen3-moe-235b-a22b`` at its smoke config only: its
+full config, 470 GB of bf16 weights, does not fit on one card). The
+others arrive with the slices that port their model families."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +12,11 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

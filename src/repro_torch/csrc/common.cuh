@@ -139,7 +139,7 @@ struct PoolRow {  // kv head h's row of pool slot slots(c), or nullptr
 // (float)q * s rounded to the query type T, then widened: the value set of
 // the fp pool dequantized to T (the reference's kv_dequant(q, s, T)), so the
 // int8 kernels compute bitwise what the fp kernels compute over that pool.
-// A 16-byte vector holds 16 int8 elements; hd in {32, 64, 128} keeps every
+// A 16-byte vector holds 16 int8 elements; hd in {32, 64, 128, 160} keeps every
 // row (h * hd bytes into its slot) 16-byte aligned.
 template <typename T, typename TP, int HD, typename Slots>
 __device__ __forceinline__ void load_pool_rows(const TP* pool, const float* scale,

@@ -37,8 +37,9 @@
 //    states are merged in warp order.
 //
 // Why the three entry points are bitwise equal over the same keys. Every
-// reduction has an order fixed by the code: a dot product is 8 FMAs per
-// lane and then a butterfly over the key's lanes; a tile's max and sum are a
+// reduction has an order fixed by the code: a dot product is E FMAs per
+// lane (DecodeLanes: 8, or 20 at hd 160) and then a butterfly over the
+// key's lanes; a tile's max and sum are a
 // local pass and a butterfly over the warp's key groups; the warps merge in
 // order 0..3 and the ranges in order 0, 1, 2, ... (each xor-butterfly step
 // adds two values that both partners add in either order, so every lane
@@ -174,11 +175,26 @@ constexpr size_t split_smem_bytes() {
          (size_t)DECODE_WARPS * RG * (HD + 2) * sizeof(float);
 }
 
+// How a warp spreads a key over its lanes: LPK lanes per key (a power of
+// two: the dot product's butterfly), E = HD / LPK dims each, KPP = 32 / LPK
+// keys per pass. 8 dims a lane (one 16-byte bf16 load) where HD / 8 is a
+// power of two; at hd 160 (HD / 8 = 20) 8 lanes of 20 dims, read as five
+// 4-element pieces (8 bytes of bf16, 16 of fp32, 4 of int8: each piece
+// aligned, since a lane's first dim is a multiple of 20).
+template <int HD>
+struct DecodeLanes {
+  static constexpr int LPK = HD == 160 ? 8 : HD / 8;
+  static constexpr int E = HD / LPK;
+  static_assert((LPK & (LPK - 1)) == 0 && LPK >= 4 && LPK <= 16 && E * LPK == HD &&
+                    E % 4 == 0,
+                "a key is a power-of-two group of lanes, 4-element pieces each");
+};
+
 // 8 consecutive elements of a key row (storage type TP) as fp32: an fp row
 // as it is, an int8 row dequantized exactly as repro::load_pool_rows does
 // (float(q) * s rounded to the query type T, then widened).
 template <typename T, typename TP>
-__device__ __forceinline__ void load8(const TP* src, float sc, float (&out)[8]) {
+__device__ __forceinline__ void load8(const TP* src, float sc, float* out) {
   if constexpr (std::is_same<TP, int8_t>::value) {
     const int2 raw = *reinterpret_cast<const int2*>(src);
     const int8_t* vals = reinterpret_cast<const int8_t*>(&raw);
@@ -194,6 +210,37 @@ __device__ __forceinline__ void load8(const TP* src, float sc, float (&out)[8]) 
     const TP* vals = reinterpret_cast<const TP*>(&raw);
 #pragma unroll
     for (int e = 0; e < 8; ++e) out[e] = to_f(vals[e]);
+  }
+}
+
+// 4 consecutive elements, as load8 (8 bytes of bf16, 16 of fp32, 4 of int8).
+template <typename T, typename TP>
+__device__ __forceinline__ void load4(const TP* src, float sc, float* out) {
+  if constexpr (std::is_same<TP, int8_t>::value) {
+    const int raw = *reinterpret_cast<const int*>(src);
+    const int8_t* vals = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = to_f(from_f<T>(__fmul_rn((float)vals[e], sc)));
+  } else if constexpr (std::is_same<TP, float>::value) {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  } else {
+    const int2 raw = *reinterpret_cast<const int2*>(src);
+    const TP* vals = reinterpret_cast<const TP*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = to_f(vals[e]);
+  }
+}
+
+// A lane's E dims of a key row: 8-element pieces where E allows, else 4.
+template <typename T, typename TP, int E>
+__device__ __forceinline__ void load_dims(const TP* src, float sc, float (&out)[E]) {
+  if constexpr (E % 8 == 0) {
+#pragma unroll
+    for (int c = 0; c < E; c += 8) load8<T, TP>(src + c, sc, out + c);
+  } else {
+#pragma unroll
+    for (int c = 0; c < E; c += 4) load4<T, TP>(src + c, sc, out + c);
   }
 }
 
@@ -246,9 +293,9 @@ __device__ __forceinline__ void issue_keys(unsigned char* stage, const TP* k, co
 // range), 128 threads; the range varies slowest, so the blocks of the first
 // ranges, which hold the live keys of most rows, are dispatched first and
 // the dead ranges' blocks (which only write their identity partial) fill in
-// behind them. Lane mapping within a warp: a key's HD dims are
-// spread over LPK = HD / 8 lanes, 8 dims each; KPP = 32 / LPK keys per
-// pass, NP passes over the warp's 16 keys. T is q's / out's type, TP the
+// behind them. Lane mapping within a warp (DecodeLanes): a key's HD dims are
+// spread over LPK lanes, E dims each; KPP = 32 / LPK keys per pass, NP
+// passes over the warp's 16 keys. T is q's / out's type, TP the
 // K/V storage type (T, or int8_t for the table layout with k_scale/v_scale
 // (P, page, Hkv) f32; unread for fp).
 //
@@ -262,8 +309,8 @@ __global__ void __launch_bounds__(DECODE_WARPS * 32)
                         Layout layout, float* __restrict__ part, int Hkv, int G, int window,
                         float scale, int split) {
   using W = WarpStage<TP, HD>;
-  constexpr int E = 8;
-  constexpr int LPK = HD / E;
+  constexpr int E = DecodeLanes<HD>::E;
+  constexpr int LPK = DecodeLanes<HD>::LPK;
   constexpr int KPP = 32 / LPK;
   constexpr int NP = WARP_KEYS / KPP;
   constexpr int PS = HD + 2;  // floats per partial
@@ -281,7 +328,7 @@ __global__ void __launch_bounds__(DECODE_WARPS * 32)
   const int grp = lane / LPK;   // the lane's key within a pass
   const int dim = (lane % LPK) * E;  // the lane's first dim
 
-  // q rows g0..g0+RG-1 of (b, h), this lane's 8 dims (a row past G repeats
+  // q rows g0..g0+RG-1 of (b, h), this lane's E dims (a row past G repeats
   // row G - 1 and is never written); loaded while pos is read
   float qr[RG][E];
 #pragma unroll
@@ -346,7 +393,7 @@ __global__ void __launch_bounds__(DECODE_WARPS * 32)
     for (int p = 0; p < NP; ++p) {
       const int kk = p * KPP + grp;
       float kf[E];
-      load8<T, TP>(sk + kk * HD + dim, W::INT8 ? sks[kk] : 0.0f, kf);
+      load_dims<T, TP, E>(sk + kk * HD + dim, W::INT8 ? sks[kk] : 0.0f, kf);
       const bool lv = live(s0 + kk);
 #pragma unroll
       for (int r = 0; r < RG; ++r) {
@@ -387,7 +434,7 @@ __global__ void __launch_bounds__(DECODE_WARPS * 32)
     for (int p = 0; p < NP; ++p) {
       const int kk = p * KPP + grp;
       float vf[E];
-      load8<T, TP>(sv + kk * HD + dim, W::INT8 ? sks[WARP_KEYS + kk] : 0.0f, vf);
+      load_dims<T, TP, E>(sv + kk * HD + dim, W::INT8 ? sks[WARP_KEYS + kk] : 0.0f, vf);
 #pragma unroll
       for (int r = 0; r < RG; ++r)
 #pragma unroll
@@ -519,7 +566,7 @@ int launch_rows(const void* q, const void* k, const void* v, const void* ks, con
                                     window, split, scale, stream);
 }
 
-// Dispatch on head dim (32, 64, 128); -1 for another head dim, a G below 1
+// Dispatch on head dim (32, 64, 128, 160); -1 for another head dim, a G below 1
 // or a split that is not a positive multiple of RING_TILE.
 template <typename T, typename TP, typename Layout>
 int decode_by_hd(int hd, const void* q, const void* k, const void* v, const void* ks,
@@ -535,6 +582,9 @@ int decode_by_hd(int hd, const void* q, const void* k, const void* v, const void
                                     window, split, scale, stream);
     case 128:
       return launch_rows<T, TP, 128>(q, k, v, ks, vs, pos, layout, part, out, B, Hkv, G,
+                                     window, split, scale, stream);
+    case 160:
+      return launch_rows<T, TP, 160>(q, k, v, ks, vs, pos, layout, part, out, B, Hkv, G,
                                      window, split, scale, stream);
   }
   return -1;

@@ -126,6 +126,8 @@ int by_hd(int hd, const void* q, const void* k, const void* v, void* out, int B,
       return launch<T, 64>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+    case 160:
+      return launch<T, 160>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
   }
   return -1;
 }
@@ -228,6 +230,8 @@ int by_hd_tc(int hd, const void* q, const void* k, const void* v, void* out, int
       return launch_tc<64>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
     case 128:
       return launch_tc<128>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+    case 160:
+      return launch_tc<160>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
   }
   return -1;
 }

@@ -21,7 +21,7 @@
 // bfloat16: the tensor-core body of prefill_tc.cuh with one consumer
 // warpgroup (64 query rows: hit rounds are short, S 64 at the main path,
 // where a 128-row tile would leave half its rows idle) and two blocks per SM
-// where their shared memory fits (hd 32 and 64), so one block's loads run
+// where their shared memory fits (hd 32 and 64; one at hd 128 and 160), so one block's loads run
 // under the other's MMAs. Phase 1's tiles are
 // written by the producer warpgroup itself, one key row per thread, through
 // the row's page table into the swizzled layout the TMA boxes have: a page
@@ -175,6 +175,9 @@ int by_hd(int hd, const void* q, const void* ks, const void* vs, const void* pk,
                                page, T_w, W, scale, stream);
     case 128:
       return launch<T, TP, 128>(q, ks, vs, pk, pv, pks, pvs, table, starts, out, n, S, Hkv, G,
+                                page, T_w, W, scale, stream);
+    case 160:
+      return launch<T, TP, 160>(q, ks, vs, pk, pv, pks, pvs, table, starts, out, n, S, Hkv, G,
                                 page, T_w, W, scale, stream);
   }
   return -1;
@@ -361,6 +364,9 @@ int by_hd_tc(int hd, const void* q, const void* ks, const void* vs, const void* 
                                page, T_w, W, scale, stream);
     case 128:
       return launch_tc<128, TP>(q, ks, vs, pk, pv, pks, pvs, table, starts, out, n, S, Hkv, G,
+                                page, T_w, W, scale, stream);
+    case 160:
+      return launch_tc<160, TP>(q, ks, vs, pk, pv, pks, pvs, table, starts, out, n, S, Hkv, G,
                                 page, T_w, W, scale, stream);
   }
   return -1;

@@ -36,8 +36,19 @@
 // Shared-memory layout: every tile (Q: R rows, K and V: BK rows) is rows of
 // HD bf16 in the swizzle TMA and wgmma agree on: 128-byte atom rows for hd
 // 64 and 128 (two atoms side by side, each its own region, for 128), 64-byte
-// rows for hd 32; regions 1024-byte aligned. Layout<HD>::off is that swizzle,
-// used by the producer's own writes and the epilogue.
+// rows (the 64-byte swizzle) for the head dims 64 does not divide: one
+// region for hd 32, five for hd 160; regions 1024-byte aligned.
+// Layout<HD>::off is that swizzle, used by the producer's own writes and the
+// epilogue. At hd 160 P.V is one wgmma m64n160k16 per k-step and term (V an
+// MN-major operand five 64-byte atoms wide, its leading byte offset the
+// region stride, as the two 128-byte atoms of hd 128), and the block's
+// shared memory is 201 KB with two consumer warpgroups, 181 KB with one.
+//
+// G that does not divide 64 (G 3: BQ = 64 * W / 3 positions, 63 or 126 rows)
+// leaves the tile's last rows outside the Q box: TMA writes G * BQ rows, the
+// rest hold whatever shared memory held. A row of a wgmma product and of the
+// softmax depends on its own Q row only, and out_row() stores no row past
+// G * BQ, so those rows are computed and dropped.
 //
 // Numerics against the plain version (fp32 softmax, fp32 P.V): scores from
 // bf16 products summed in fp32 by the tensor cores; fp32 accumulation;
@@ -86,8 +97,9 @@ struct Regs {
 
 template <int HD>
 struct Layout {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "head dims 32, 64, 128");
-  static constexpr int AW = HD < 64 ? HD : 64;   // elements per swizzle-atom row
+  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 160,
+                "head dims 32, 64, 128, 160");
+  static constexpr int AW = HD % 64 == 0 ? 64 : 32;   // elements per swizzle-atom row
   static constexpr int AB = AW * 2;              // its bytes: 128 or 64
   static constexpr int CPA = AB / 16;            // 16-byte chunks per atom row
   static constexpr int CH = HD / 8;              // 16-byte chunks per row
@@ -285,6 +297,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (64 x 160) += A (64 x 16, registers) . B (16 x 160, smem, MN-major: imm-trans-b 1).
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : TC_D64(0), TC_D16(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int HD>
 __device__ __forceinline__ void wgmma_rs(float (&o)[HD / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -292,8 +320,10 @@ __device__ __forceinline__ void wgmma_rs(float (&o)[HD / 2], const uint32_t (&a)
     wgmma_rs_n32(o, a, db);
   } else if constexpr (HD == 64) {
     wgmma_rs_n64(o, a, db);
-  } else {
+  } else if constexpr (HD == 128) {
     wgmma_rs_n128(o, a, db);
+  } else {
+    wgmma_rs_n160(o, a, db);
   }
 }
 
@@ -406,6 +436,7 @@ constexpr size_t smem_bytes() {
   return 1024 + (size_t)64 * W * HD * 2 + (size_t)STAGES * 2 * BK * HD * 2 +
          8 * (1 + 2 * STAGES);
 }
+static_assert(smem_bytes<160, 2>() <= 232448, "hd 160 fits the 227 KB opt-in");
 
 // The block body. Plan (device methods, see flash_prefill.cu):
 //   count()                      K/V tiles the block walks

@@ -122,13 +122,17 @@ int encode(const void* x, void* q, void* scale, long long rows, long long n,
 // What bounds it on an H100: the launch. A decode step writes 8 x 32 head
 // rows of K and of V (65,536 B read, 34,816 B written: ~0.00003 ms at the
 // HBM rate), so the design is one launch per layer for both planes with no
-// index tensors made on the host. One group of LANES = HD * sizeof(T) / 16
-// lanes per head row (8 for a bf16 row of 64): each lane makes one 16-byte
-// load and one store of its int8 values; the row max is a xor butterfly over
-// the magnitudes' uint32 bits inside the group (exact in any order, as in
-// channel_block.cuh), and lane 0 of the group writes the scale. No shared
-// memory and no barrier; a group leaves as a whole (its row is out of range
-// or its token dead), so each shuffle names only its own group's lanes.
+// index tensors made on the host. One group of LANES lanes per head row
+// (WriteLanes: 8 for a bf16 row of 64): each lane makes one 16-byte load
+// (two for an fp32 row of 160) and one store of its int8 values; the row
+// max is a xor butterfly over the magnitudes' uint32 bits inside the group
+// (exact in any order, as in channel_block.cuh), and lane 0 of the group
+// writes the scale. Where a row's pieces are not a power of two (20 at hd
+// 160) the group is the next power of two, 32, and its lanes past the row
+// load nothing, add 0 to the max and store nothing: the scale stays one per
+// (token, kv head). No shared memory and no barrier; a group leaves as a
+// whole (its row is out of range or its token dead), so each shuffle names
+// only its own group's lanes.
 struct KvWrite {
   const void* k;        // (n, S, Hkv, HD) elements, token rows contiguous
   const void* v;
@@ -145,11 +149,19 @@ struct KvWrite {
 };
 
 template <typename T, int HD>
+struct WriteLanes {
+  static constexpr int VEC = 16 / (int)sizeof(T);    // elements per 16-byte load
+  static constexpr int NV = HD / VEC > 32 ? 2 : 1;   // loads per lane
+  static constexpr int EPL = VEC * NV;               // elements per lane
+  static constexpr int USED = HD / EPL;              // lanes holding the row
+  static constexpr int LANES = USED <= 4 ? 4 : USED <= 8 ? 8 : USED <= 16 ? 16 : 32;
+  static_assert(USED * EPL == HD && USED <= 32, "a head row in whole pieces, within a warp");
+};
+
+template <typename T, int HD>
 __global__ void __launch_bounds__(BLOCK) kv_write_int8_kernel(const KvWrite a) {
-  constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte load
-  constexpr int LANES = HD / VEC;           // lanes per head row
-  static_assert(LANES >= 4 && LANES <= 32 && (LANES & (LANES - 1)) == 0,
-                "a head row is a power-of-two group of lanes within a warp");
+  using WL = WriteLanes<T, HD>;
+  constexpr int VEC = WL::VEC, NV = WL::NV, EPL = WL::EPL, LANES = WL::LANES;
   const long long item = ((long long)blockIdx.x * BLOCK + threadIdx.x) / LANES;
   if (item >= a.items) return;  // the whole group leaves together
   // item = ((r * S + j) * 2 + plane) * Hkv + h: a token's heads, K then V,
@@ -167,15 +179,19 @@ __global__ void __launch_bounds__(BLOCK) kv_write_int8_kernel(const KvWrite a) {
   const long long phys = a.table[r * a.t + slot / a.page];
   const long long row = (phys * a.page + slot % a.page) * a.hkv + h;  // in the planes
   const int sub = threadIdx.x & (LANES - 1);
+  const bool holds = sub < WL::USED;  // else a lane past the row: no load, no store
   const T* src = static_cast<const T*>(plane ? a.v : a.k) +
                  r * (plane ? a.v_row : a.k_row) + j * (plane ? a.v_tok : a.k_tok) +
-                 h * HD + sub * VEC;
-  alignas(16) T raw[VEC];
-  *reinterpret_cast<uint4*>(raw) = *reinterpret_cast<const uint4*>(src);
-  float x[VEC];
+                 h * HD + sub * EPL;
+  alignas(16) T raw[EPL];
+#pragma unroll
+  for (int u = 0; u < NV; ++u)
+    *reinterpret_cast<uint4*>(raw + u * VEC) =
+        holds ? *reinterpret_cast<const uint4*>(src + u * VEC) : make_uint4(0, 0, 0, 0);
+  float x[EPL];
   unsigned mx = 0;
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) {
+  for (int e = 0; e < EPL; ++e) {
     x[e] = repro::to_f(raw[e]);
     mx = max(mx, __float_as_uint(fabsf(x[e])));
   }
@@ -186,14 +202,15 @@ __global__ void __launch_bounds__(BLOCK) kv_write_int8_kernel(const KvWrite a) {
   for (int off = LANES / 2; off > 0; off >>= 1)
     mx = max(mx, __shfl_xor_sync(group, mx, off));
   const float s = fmaxf(__fdiv_rn(__uint_as_float(mx), 127.0f), 1e-12f);
-  unsigned w[VEC / 4] = {};
+  unsigned w[EPL / 4] = {};
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) {
+  for (int e = 0; e < EPL; ++e) {
     const int q = (int)fminf(fmaxf(rintf(__fdiv_rn(x[e], s)), -127.0f), 127.0f);
     w[e / 4] |= (unsigned)(q & 0xff) << (8 * (e & 3));
   }
-  int8_t* dst = (plane ? a.vq : a.kq) + row * HD + sub * VEC;
-  if constexpr (VEC == 8) {
+  if (!holds) return;
+  int8_t* dst = (plane ? a.vq : a.kq) + row * HD + sub * EPL;
+  if constexpr (EPL == 8) {
     *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
   } else {
     *reinterpret_cast<unsigned*>(dst) = w[0];
@@ -203,8 +220,7 @@ __global__ void __launch_bounds__(BLOCK) kv_write_int8_kernel(const KvWrite a) {
 
 template <typename T, int HD>
 int launch_write(const KvWrite& a, cudaStream_t stream) {
-  constexpr int LANES = HD * (int)sizeof(T) / 16;
-  const long long threads = a.items * LANES;
+  const long long threads = a.items * WriteLanes<T, HD>::LANES;
   kv_write_int8_kernel<T, HD>
       <<<(unsigned)((threads + BLOCK - 1) / BLOCK), BLOCK, 0, stream>>>(a);
   return (int)cudaGetLastError();
@@ -216,6 +232,7 @@ int write(const KvWrite& a, int hd, cudaStream_t stream) {
     case 32: return launch_write<T, 32>(a, stream);
     case 64: return launch_write<T, 64>(a, stream);
     case 128: return launch_write<T, 128>(a, stream);
+    case 160: return launch_write<T, 160>(a, stream);
     default: return -1;
   }
 }
@@ -266,7 +283,7 @@ extern "C" int kv_write_int8(const void* k, const void* v, const void* table,
             k_row, k_tok, v_row, v_tok, (long long)n * s * 2 * hkv, s, hkv, t, page};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype != 0 && dtype != 1) return -1;
-  if (hd != 32 && hd != 64 && hd != 128) return -1;
+  if (hd != 32 && hd != 64 && hd != 128 && hd != 160) return -1;
   if (a.items <= 0) return (int)cudaGetLastError();
   return dtype == 0 ? write<float>(a, hd, st) : write<__nv_bfloat16>(a, hd, st);
 }

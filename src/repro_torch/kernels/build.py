@@ -180,7 +180,8 @@ def check_tma(name: str, **tensors: torch.Tensor) -> None:
     """Operands of the tensor-core kernels (read through TMA tensor maps or
     with 16-byte loads) start at 16-byte aligned addresses; raise otherwise.
     Their strides need no check: ``check_cuda`` takes contiguous tensors
-    only, whose rows of ``HEAD_DIMS`` bf16 are multiples of 16 bytes."""
+    only, whose rows of ``HEAD_DIMS`` bf16 (64 to 320 bytes) are multiples of
+    16 bytes."""
     for key, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must start at a 16-byte aligned address")

@@ -40,6 +40,7 @@ def flash_prefill(
     v: torch.Tensor,
     *,
     window: int = 0,
+    scale: float | None = None,  # None: hd**-0.5
 ) -> torch.Tensor:
     build.check_cuda("flash_prefill", q=q, k=k, v=v)
     b, s, hkv, g, hd = q.shape
@@ -55,6 +56,7 @@ def flash_prefill(
         build.check_tma("flash_prefill", q=q, k=k, v=v, out=out)
     build.launch(
         "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        build.dtype_code(q), b, s, t, hkv, g, hd, window, hd**-0.5,
+        build.dtype_code(q), b, s, t, hkv, g, hd, window,
+        hd**-0.5 if scale is None else scale,
     )
     return out

@@ -62,6 +62,7 @@ def suffix_prefill(
     starts: torch.Tensor,  # (n,) int32
     *,
     prefix_width: int,
+    scale: float | None = None,  # None: hd**-0.5
 ) -> torch.Tensor:
     dims = _check("suffix_prefill", q, k_suf, v_suf, pool_k, pool_v, None, None, table,
                   starts, prefix_width)
@@ -69,7 +70,8 @@ def suffix_prefill(
     build.launch(
         "suffix_prefill", q.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),
         pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(), starts.data_ptr(),
-        out.data_ptr(), build.dtype_code(q), *dims, q.shape[-1] ** -0.5,
+        out.data_ptr(), build.dtype_code(q), *dims,
+        q.shape[-1] ** -0.5 if scale is None else scale,
     )
     return out
 
@@ -86,6 +88,7 @@ def suffix_prefill_int8(
     starts: torch.Tensor,        # (n,) int32
     *,
     prefix_width: int,
+    scale: float | None = None,
 ) -> torch.Tensor:
     dims = _check("suffix_prefill_int8", q, k_suf, v_suf, pool_k, pool_v, pool_k_scale,
                   pool_v_scale, table, starts, prefix_width)
@@ -94,6 +97,6 @@ def suffix_prefill_int8(
         "suffix_prefill_int8", q.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),
         pool_k.data_ptr(), pool_v.data_ptr(), pool_k_scale.data_ptr(), pool_v_scale.data_ptr(),
         table.data_ptr(), starts.data_ptr(), out.data_ptr(), build.dtype_code(q), *dims,
-        q.shape[-1] ** -0.5,
+        q.shape[-1] ** -0.5 if scale is None else scale,
     )
     return out

@@ -3,7 +3,10 @@
 A CUDA tensor goes to the hand-written kernel (which raises on what it
 cannot take); a CPU tensor goes to the plain PyTorch version. There is no
 other route: nothing here falls back from the kernel to the plain version.
-``LAUNCHES`` counts kernel launches per entry point."""
+``LAUNCHES`` counts kernel launches per entry point. The attention entry
+points take the softmax ``scale`` (None: hd**-0.5 of the operands' head
+dim): a model whose head dim the kernels take only padded
+(``paged_decode.kernel_head_dim``) passes its own."""
 from __future__ import annotations
 
 import torch
@@ -21,6 +24,7 @@ def paged_decode_attention(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     pos: torch.Tensor, table: torch.Tensor, window: int = 0,
     k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """(B, Hkv, G, hd) queries over the shared pool (P, page, Hkv, hd)
     through the (B, T) page table → (B, Hkv, G, hd). With ``k_scale``/
@@ -28,17 +32,18 @@ def paged_decode_attention(
     kernel to q's dtype."""
     if k_scale is not None:
         if q.is_cuda:
-            return paged_decode_int8(q, k_pool, v_pool, k_scale, v_scale, pos, table, window)
+            return paged_decode_int8(q, k_pool, v_pool, k_scale, v_scale, pos, table, window,
+                                     scale)
         return ref.paged_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, pos, table,
-                                         window)
+                                         window, scale)
     if q.is_cuda:
-        return paged_decode(q, k_pool, v_pool, pos, table, window)
-    return ref.paged_decode_ref(q, k_pool, v_pool, pos, table, window)
+        return paged_decode(q, k_pool, v_pool, pos, table, window, scale)
+    return ref.paged_decode_ref(q, k_pool, v_pool, pos, table, window, scale)
 
 
 def swa_decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, window: int = 0, *,
-    paged: bool,
+    paged: bool, scale: float | None = None,
 ) -> torch.Tensor:
     """(B, Hkv, G, hd) queries over per-row contiguous rings (B, C, Hkv, hd)
     → (B, Hkv, G, hd). ``pos`` is () for a lockstep batch or (B,) for
@@ -52,17 +57,19 @@ def swa_decode_attention(
     else:
         pos = torch.full((b,), int(pos), dtype=torch.int32, device=q.device)
     if q.is_cuda:
-        return (paged_decode_ring if paged else swa_decode)(q, k, v, pos, window)
-    return (ref.ring_paged_decode_ref if paged else ref.swa_decode_ref)(q, k, v, pos, window)
+        return (paged_decode_ring if paged else swa_decode)(q, k, v, pos, window, scale=scale)
+    return (ref.ring_paged_decode_ref if paged else ref.swa_decode_ref)(q, k, v, pos, window,
+                                                                        scale)
 
 
 def flash_prefill_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Causal GQA attention. q (B, S, Hkv, G, hd); k/v (B, T, Hkv, hd)."""
     if q.is_cuda:
-        return flash_prefill(q, k, v, window=window)
-    return ref.flash_prefill_ref(q, k, v, window=window)
+        return flash_prefill(q, k, v, window=window, scale=scale)
+    return ref.flash_prefill_ref(q, k, v, window=window, scale=scale)
 
 
 def suffix_prefill_attention(
@@ -70,6 +77,7 @@ def suffix_prefill_attention(
     pool_k: torch.Tensor, pool_v: torch.Tensor, table: torch.Tensor,
     starts: torch.Tensor, *, prefix_width: int,
     pool_k_scale: torch.Tensor | None = None, pool_v_scale: torch.Tensor | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Suffix prefill over a cached prefix in the shared pool. q
     (n, S, Hkv, G, hd) roped at starts[r] + i; table (n, T); starts (n,).
@@ -78,14 +86,16 @@ def suffix_prefill_attention(
     if pool_k_scale is not None:
         args = (q, k_suf, v_suf, pool_k, pool_v, pool_k_scale, pool_v_scale, table, starts)
         if q.is_cuda:
-            return suffix_prefill_int8(*args, prefix_width=prefix_width)
-        return ref.suffix_prefill_int8_ref(*args, prefix_width=prefix_width)
+            return suffix_prefill_int8(*args, prefix_width=prefix_width, scale=scale)
+        return ref.suffix_prefill_int8_ref(*args, prefix_width=prefix_width, scale=scale)
     if q.is_cuda:
         return suffix_prefill(
             q, k_suf, v_suf, pool_k, pool_v, table, starts, prefix_width=prefix_width,
+            scale=scale,
         )
     return ref.suffix_prefill_ref(
         q, k_suf, v_suf, pool_k, pool_v, table, starts, prefix_width=prefix_width,
+        scale=scale,
     )
 
 

@@ -24,10 +24,26 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)
+# Head dims the attention kernels are built for (every body: decode,
+# tensor-core and SIMT prefill, the int8 pool write).
+HEAD_DIMS = (32, 64, 128, 160)
 RING_TILE = 64       # keys per tile of the decode body; ranges start at multiples of it
 MAX_RANGES = 16      # ranges per row at most (csrc/decode.cuh holds the same bound)
 RANGE_ELEMS = 16384  # K elements a range holds at least (256 keys at hd 64)
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head dim of the KV caches and of the kernels' operands for a
+    model head dim ``hd``: hd itself where a kernel takes it; 32 for 30
+    (phi4-mini's smoke config, whose rows of 30 elements the kernels cannot
+    read 16 bytes at a time), the extra dims zero and the softmax scale
+    still 30**-0.5; any other hd raises."""
+    if hd in HEAD_DIMS:
+        return hd
+    if hd == 30:
+        return 32
+    raise ValueError(f"head dim {hd}: the attention kernels take {HEAD_DIMS} (and 30, "
+                     "padded to 32)")
 
 
 def split_len(cap: int, hd: int) -> int:
@@ -35,12 +51,14 @@ def split_len(cap: int, hd: int) -> int:
     logical slots (``C`` for the rings, ``T * page`` for the table) at head
     dim ``hd``: the smallest multiple of RING_TILE that cuts the ring into
     at most MAX_RANGES ranges, and at least RANGE_ELEMS / hd keys, so a
-    range moves tens of KB. A function of the capacity and the head dim
+    range moves tens of KB (rounded up to a multiple of RING_TILE: 128 keys
+    at hd 160). A function of the capacity and the head dim
     alone: never of the batch, the positions or the card, so a row's output
     does not depend on the rows beside it, and every entry point walks the
     same ranges at equal capacity (what makes them bitwise equal)."""
     per_range = -(-cap // MAX_RANGES)
-    return max(-(-per_range // RING_TILE) * RING_TILE, RANGE_ELEMS // hd)
+    least = -(-(RANGE_ELEMS // hd) // RING_TILE) * RING_TILE
+    return max(-(-per_range // RING_TILE) * RING_TILE, least)
 
 
 def launch_plan(cap: int, q_shape) -> dict:
@@ -92,6 +110,7 @@ def paged_decode(
     pos: torch.Tensor,     # (B,) int32
     table: torch.Tensor,   # (B, T) int32
     window: int = 0,
+    scale: float | None = None,  # None: hd**-0.5
 ) -> torch.Tensor:
     b, hkv, g, hd, page = _check("paged_decode", q, k_pool, v_pool, None, None, pos, table)
     t_w = table.shape[1]
@@ -100,7 +119,8 @@ def paged_decode(
     build.launch(
         "paged_decode", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pos.data_ptr(), table.data_ptr(), part.data_ptr(), out.data_ptr(),
-        build.dtype_code(q), b, hkv, g, hd, page, t_w, window, split, hd**-0.5,
+        build.dtype_code(q), b, hkv, g, hd, page, t_w, window, split,
+        hd**-0.5 if scale is None else scale,
     )
     return out
 
@@ -114,6 +134,7 @@ def paged_decode_int8(
     pos: torch.Tensor,      # (B,) int32
     table: torch.Tensor,    # (B, T) int32
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     b, hkv, g, hd, page = _check("paged_decode_int8", q, k_pool, v_pool, k_scale, v_scale,
                                  pos, table)
@@ -124,7 +145,7 @@ def paged_decode_int8(
         "paged_decode_int8", q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr(), table.data_ptr(),
         part.data_ptr(), out.data_ptr(), build.dtype_code(q), b, hkv, g, hd, page, t_w,
-        window, split, hd**-0.5,
+        window, split, hd**-0.5 if scale is None else scale,
     )
     return out
 
@@ -165,6 +186,7 @@ def paged_decode_ring(
     window: int = 0,
     *,
     page: int = 0,      # 0 = ring_page(C)
+    scale: float | None = None,
 ) -> torch.Tensor:
     b, cap, hkv, g, hd = check_ring("paged_decode_ring", q, k, v, pos)
     page = page or ring_page(cap)
@@ -175,6 +197,6 @@ def paged_decode_ring(
     build.launch(
         "paged_decode_ring", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         part.data_ptr(), out.data_ptr(), build.dtype_code(q), b, cap, hkv, g, hd, page,
-        window, split, hd**-0.5,
+        window, split, hd**-0.5 if scale is None else scale,
     )
     return out

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_decode import HEAD_DIMS
 
 
 def int8_roundtrip(x: torch.Tensor) -> torch.Tensor:
@@ -48,9 +49,6 @@ def int8_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     build.launch("int8_encode", x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, n,
                  build.dtype_code(x))
     return q, scale
-
-
-HEAD_DIMS = (32, 64, 128)
 
 
 def _token_strides(key: str, t: torch.Tensor, hd: int, device: torch.device) -> tuple[int, int]:

@@ -24,11 +24,13 @@ def gather_pages_ref(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return pool[table.long()].reshape(b, t_w * page, hkv, hd)
 
 
-def _attend(q, k, v, mask):
+def _attend(q, k, v, mask, scale=None):
     """q (B, Sq, Hkv, G, hd), k/v (B, Sk, Hkv, hd), mask broadcastable to
-    (B, Hkv, G, Sq, Sk) → (B, Sq, Hkv, G, hd) in q's dtype; fp32 softmax."""
-    hd = q.shape[-1]
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * (hd**-0.5)
+    (B, Hkv, G, Sq, Sk) → (B, Sq, Hkv, G, hd) in q's dtype; fp32 softmax.
+    ``scale`` multiplies the scores (None: hd**-0.5 of the operands; a
+    model whose head dim the kernels take padded passes its own)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
     scores = torch.where(mask, scores, torch.full_like(scores, NEG))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
@@ -58,16 +60,18 @@ def swa_decode_ref(
     v: torch.Tensor,
     pos,              # () or (B,) — tokens already cached per row
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """One query per row over its ring's slots whose reconstructed global
     position lies in [max(pos-window+1, 0), pos]. Mirrors
     ``swa_decode_ref``."""
     pos = _row_pos(pos, k.shape[0], q.device)
     valid = _ring_valid(pos, k.shape[1], window)                      # (B, C)
-    return _attend(q[:, None], k, v, valid[:, None, None, None, :])[:, 0]
+    return _attend(q[:, None], k, v, valid[:, None, None, None, :], scale)[:, 0]
 
 
-def ring_paged_decode_ref(q, k, v, pos, window: int = 0) -> torch.Tensor:
+def ring_paged_decode_ref(q, k, v, pos, window: int = 0,
+                          scale: float | None = None) -> torch.Tensor:
     """``swa_decode_ref`` with the live-span mask ``slot < min(pos + 1, C)``
     intersected in: slots past the live span are already invalid under the
     ring mask, so the output is bitwise ``swa_decode_ref``'s. The plain
@@ -77,7 +81,7 @@ def ring_paged_decode_ref(q, k, v, pos, window: int = 0) -> torch.Tensor:
     pos = _row_pos(pos, b, q.device)
     valid = _ring_valid(pos, cap, window)
     valid &= torch.arange(cap, device=q.device)[None, :] < (pos + 1).clamp(max=cap)[:, None]
-    return _attend(q[:, None], k, v, valid[:, None, None, None, :])[:, 0]
+    return _attend(q[:, None], k, v, valid[:, None, None, None, :], scale)[:, 0]
 
 
 def paged_decode_ref(
@@ -87,13 +91,14 @@ def paged_decode_ref(
     pos: torch.Tensor,     # (B,) int32 — tokens already cached per row
     table: torch.Tensor,   # (B, T) int32
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Page-table decode: gather each row's pages into a contiguous ring of
     capacity C = T·page, then ``swa_decode_ref``. Mirrors the reference's
     ``paged_table_decode_ref`` (the port's ``ring_paged_decode_ref`` is the
     reference's contiguous ``paged_decode_ref``)."""
     return swa_decode_ref(q, gather_pages_ref(k_pool, table), gather_pages_ref(v_pool, table),
-                          pos, window)
+                          pos, window, scale)
 
 
 def flash_prefill_ref(
@@ -102,6 +107,7 @@ def flash_prefill_ref(
     v: torch.Tensor,
     *,
     window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Causal GQA attention over dense positions 0..S-1 / 0..T-1, optional
     sliding window. Mirrors ``flash_prefill_ref`` (causal=True)."""
@@ -111,7 +117,7 @@ def flash_prefill_ref(
     mask = qpos >= kpos
     if window > 0:
         mask &= (qpos - kpos) < window
-    return _attend(q, k, v, mask)
+    return _attend(q, k, v, mask, scale)
 
 
 def suffix_prefill_ref(
@@ -124,6 +130,7 @@ def suffix_prefill_ref(
     starts: torch.Tensor,  # (n,) int32 — cached prefix tokens per row
     *,
     prefix_width: int,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Gather-concat suffix prefill: the first ``prefix_width`` table pages
     of each row become prefix lanes (lanes at or after starts[r] pushed to
@@ -143,7 +150,7 @@ def suffix_prefill_ref(
     v = torch.cat([gv, v_suf], dim=1)
     kv_pos = torch.cat([prefix_pos, qpos], dim=1)
     mask = qpos[:, None, None, :, None] >= kv_pos[:, None, None, None, :]
-    return _attend(q, k, v, mask)
+    return _attend(q, k, v, mask, scale)
 
 
 # ------------------------------------------------------------- int8 KV pages
@@ -229,21 +236,23 @@ def dequant_pool_ref(pool_q: torch.Tensor, scales: torch.Tensor,
     return kv_dequant_ref(pool_q, scales, dtype)
 
 
-def paged_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, pos, table, window=0):
+def paged_decode_int8_ref(q, k_pool, v_pool, k_scale, v_scale, pos, table, window=0,
+                          scale=None):
     """int8-pool page-table decode: the pool dequantized to q's dtype, then
     ``paged_decode_ref``. Mirrors ``paged_table_decode_int8_ref``."""
     return paged_decode_ref(q, dequant_pool_ref(k_pool, k_scale, q.dtype),
-                            dequant_pool_ref(v_pool, v_scale, q.dtype), pos, table, window)
+                            dequant_pool_ref(v_pool, v_scale, q.dtype), pos, table, window,
+                            scale)
 
 
 def suffix_prefill_int8_ref(q, k_suf, v_suf, pool_k, pool_v, k_scale, v_scale, table,
-                            starts, *, prefix_width):
+                            starts, *, prefix_width, scale=None):
     """int8-pool suffix prefill: the prefix pool dequantized to q's dtype,
     the suffix's own k/v as given, then ``suffix_prefill_ref``. Mirrors
     ``suffix_prefill_int8_ref``."""
     return suffix_prefill_ref(q, k_suf, v_suf, dequant_pool_ref(pool_k, k_scale, q.dtype),
                               dequant_pool_ref(pool_v, v_scale, q.dtype), table, starts,
-                              prefix_width=prefix_width)
+                              prefix_width=prefix_width, scale=scale)
 
 
 # ------------------------------------------------- federated uplink channel

@@ -21,6 +21,7 @@ def swa_decode(
     v: torch.Tensor,
     pos: torch.Tensor,  # (B,) int32
     window: int = 0,
+    scale: float | None = None,  # None: hd**-0.5
 ) -> torch.Tensor:
     b, cap, hkv, g, hd = check_ring("swa_decode", q, k, v, pos)
     part, split = partials(q, cap)
@@ -28,6 +29,6 @@ def swa_decode(
     build.launch(
         "swa_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         part.data_ptr(), out.data_ptr(), build.dtype_code(q), b, cap, hkv, g, hd, window,
-        split, hd**-0.5,
+        split, hd**-0.5 if scale is None else scale,
     )
     return out

@@ -105,6 +105,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import SyntheticCorpus
+from repro_torch.kernels.paged_decode import kernel_head_dim
 from repro_torch.launch.graphs import GraphCache
 from repro_torch.launch.mesh import (
     MODEL_AXIS, axis_size, make_serve_mesh, shard_cache, shard_params,
@@ -754,6 +755,13 @@ class ServeEngine:
         c = self.graphs.counts
         return c["prefill_slots"] + c["prefill_suffix"] + c["prefill"]
 
+    def _kv_bytes_per_token(self) -> int:
+        """Every layer's K and V of one token slot at the kernels' head dim
+        (32 for a head dim of 30), with its f32 scales on int8 pages."""
+        hd = kernel_head_dim(self.cfg.resolved_head_dim)
+        row = hd + 4 if self.kv_dtype == "int8" else hd * getattr(torch, self.cfg.dtype).itemsize
+        return self.cfg.n_layers * self.cfg.n_kv_heads * 2 * row
+
     @property
     def pool_stats(self) -> dict | None:
         """Pool occupancy and the page, prefix and tier counters (None for
@@ -794,6 +802,7 @@ class ServeEngine:
             "prefix_pages_cached": self.prefix.size if self.prefix is not None else 0,
             "prefix_evicted_pages": self.prefix.evicted_pages if self.prefix is not None else 0,
             "kv_dtype": self.kv_dtype,
+            "kv_bytes_per_token": self._kv_bytes_per_token(),
             "swap_enabled": self.swap,
             "host_capacity_pages": self.host.capacity_pages if self.host is not None else 0,
             "host_tier_pages": self.host.pages if self.host is not None else 0,

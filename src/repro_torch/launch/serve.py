@@ -56,7 +56,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.launch.graphs import GraphCache
 from repro_torch.launch.mesh import visible_devices
 from repro_torch.models.model import build_model
@@ -143,7 +143,7 @@ def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4, prompt_len: in
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--arch", default="stablelm-1.6b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="published widths instead of the smoke config")

@@ -19,13 +19,21 @@ The serving paths (``prefill_attend``, ``decode_attend_paged``,
 ``decode_attend``) are tensor-parallel under an active tensor axis
 (``models/sharding.py``): the projections, rope, the cache write and the
 attention kernel run per shard on its head slice (``map_shards``), then
-``gather_heads`` joins the slices and the replicated ``wo`` runs once."""
+``gather_heads`` joins the slices and the replicated ``wo`` runs once.
+
+The caches and the kernels hold k/v at ``kernel_head_dim(hd)``: the model's
+head dim, or 32 for a head dim of 30 (phi4-mini's smoke config), whose rows
+the kernels' 16-byte loads cannot read. There q, k and v are rotated at 30,
+zero-filled to 32 on every device (the plain versions see the same pool),
+the scores scaled by 30**-0.5, and the output cut back to 30."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.paged_decode import kernel_head_dim
 from repro_torch.kernels.ref import gather_pages_ref, kv_dequant_ref, kv_quant_ref, page_slots
 from repro_torch.models.common import NEG_INF, default_q_chunk
 from repro_torch.models.layers import apply_rope
@@ -34,6 +42,25 @@ from repro_torch.models.sharding import gather_heads, map_shards, replica
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+def _kernel_heads(cfg: ModelConfig, *xs: torch.Tensor) -> list[torch.Tensor]:
+    """xs (..., hd) zero-filled to the kernels' head dim."""
+    pad = kernel_head_dim(cfg.resolved_head_dim) - cfg.resolved_head_dim
+    return [F.pad(x, (0, pad)) if pad else x for x in xs]
+
+
+def _kernel_scale(cfg: ModelConfig) -> float | None:
+    """The softmax scale for the kernels: their default (hd**-0.5 of the
+    operands) unless the heads were zero-filled, then the model's."""
+    hd = cfg.resolved_head_dim
+    return None if kernel_head_dim(hd) == hd else hd**-0.5
+
+
+def _model_heads(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
+    """A kernel output (..., kernel hd) cut back to the model's head dim."""
+    hd = cfg.resolved_head_dim
+    return out if out.shape[-1] == hd else out[..., :hd]
 
 
 def _queries(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -106,16 +133,18 @@ def _prefill_heads(
     the int8 round trip with ``roundtrip_kv``) through the suffix-prefill
     kernel. The write touches only this round's slots, after the read."""
     n, s, _ = x.shape
+    scale = _kernel_scale(cfg)
     k, v = compute_kv_for_prefill(params, x, positions, cfg)
-    q = _queries(params, x, positions, cfg)
+    q, k, v = _kernel_heads(cfg, _queries(params, x, positions, cfg), k, v)
     if starts is None:
-        out = ops.flash_prefill_attention(q, k, v, window=window)
+        out = ops.flash_prefill_attention(q, k, v, window=window, scale=scale)
     else:
         ka, va = (int8_roundtrip_kv(k), int8_roundtrip_kv(v)) if roundtrip_kv else (k, v)
         out = ops.suffix_prefill_attention(
             q, ka, va, cache["k"], cache["v"], table_rows, starts, prefix_width=prefix_width,
-            pool_k_scale=cache.get("ks"), pool_v_scale=cache.get("vs"),
+            pool_k_scale=cache.get("ks"), pool_v_scale=cache.get("vs"), scale=scale,
         )
+    out = _model_heads(cfg, out)
     if "table" in cache:
         fill_pages_rows(cache, k, v, table_rows, write_starts, lengths)
     else:
@@ -192,6 +221,7 @@ def _decode_paged_heads(params: dict, cache: dict, x: torch.Tensor, cfg: ModelCo
     pos, table = cache["pos"], cache["table"]
     q = _queries(params, x, pos[:, None], cfg)                     # (B, 1, Hkv, G, hd)
     k, v = compute_kv_for_prefill(params, x, pos[:, None], cfg)    # (B, 1, Hkv, hd)
+    q, k, v = _kernel_heads(cfg, q, k, v)
     if "ks" in cache:
         ops.kv_write_int8(cache, k, v, table, pos)
     else:
@@ -202,8 +232,9 @@ def _decode_paged_heads(params: dict, cache: dict, x: torch.Tensor, cfg: ModelCo
         cache["k"][phys, off] = k[:, 0]
         cache["v"][phys, off] = v[:, 0]
     out = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"], pos, table, window,
-                                     k_scale=cache.get("ks"), v_scale=cache.get("vs"))
-    return out.reshape(b, 1, cfg.n_heads * hd)
+                                     k_scale=cache.get("ks"), v_scale=cache.get("vs"),
+                                     scale=_kernel_scale(cfg))
+    return _model_heads(cfg, out).reshape(b, 1, cfg.n_heads * hd)
 
 
 def decode_attend_paged(params, x: torch.Tensor, cache, cfg: ModelConfig, *,
@@ -264,6 +295,7 @@ def _decode_ring_heads(params: dict, cache: dict, x: torch.Tensor, cfg: ModelCon
     pos_b = pos[:, None] if pos.dim() == 1 else pos.reshape(1, 1).expand(b, 1)
     q = _queries(params, x, pos_b, cfg)                            # (B, 1, Hkv, G, hd)
     k, v = compute_kv_for_prefill(params, x, pos_b, cfg)           # (B, 1, Hkv, hd)
+    q, k, v = _kernel_heads(cfg, q, k, v)
     slot = pos.long() % cap
     if pos.dim() == 1:
         rows = torch.arange(b, device=x.device)
@@ -272,8 +304,9 @@ def _decode_ring_heads(params: dict, cache: dict, x: torch.Tensor, cfg: ModelCon
     else:
         cache["k"].index_copy_(1, slot.reshape(1), k)
         cache["v"].index_copy_(1, slot.reshape(1), v)
-    out = ops.swa_decode_attention(q[:, 0], cache["k"], cache["v"], pos, window, paged=paged)
-    return out.reshape(b, 1, cfg.n_heads * hd)
+    out = ops.swa_decode_attention(q[:, 0], cache["k"], cache["v"], pos, window, paged=paged,
+                                   scale=_kernel_scale(cfg))
+    return _model_heads(cfg, out).reshape(b, 1, cfg.n_heads * hd)
 
 
 def decode_attend(params, x: torch.Tensor, cache, cfg: ModelConfig, *, window: int = 0,

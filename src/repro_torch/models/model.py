@@ -1,6 +1,7 @@
 """Model API of the port: ``build_model(cfg)`` returns a ``ModelAPI`` whose
-members close over the config — the dense-transformer part of the
-reference's ``ModelAPI`` that the trainer and the serving engine use — and
+members close over the config — the transformer part of the reference's
+``ModelAPI`` that the trainer and the serving engine use, with the dense
+SwiGLU FFN or, for ``arch_type == "moe"``, the MoE layer — and
 ``localize_config``, the per-shard config of tensor-parallel serving."""
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+from repro_torch.models.moe import MOE_FFN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +43,8 @@ def localize_config(cfg: ModelConfig, shards: int) -> ModelConfig:
     its slice of the attention heads and of the KV pages, so the head
     counts divide (and head_dim is pinned, which would otherwise re-derive
     from the unchanged d_model); the shard's attention is then the
-    unsharded math on that slice."""
+    unsharded math on that slice. The FFN (dense or MoE: router and
+    experts alike) is replicated, as in the reference."""
     if shards == 1:
         return cfg
     if cfg.n_heads % shards or cfg.n_kv_heads % shards:
@@ -58,31 +61,35 @@ def localize_config(cfg: ModelConfig, shards: int) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in ("dense", "moe"):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: the port serves the dense transformer; the "
-            "moe, vlm, hybrid, ssm and audio families are a later slice"
+            f"arch_type {cfg.arch_type!r}: the port serves the dense and MoE transformers; "
+            "the vlm, hybrid, ssm and audio families are a later slice"
         )
     if cfg.act != "silu":
-        raise NotImplementedError(f"act {cfg.act!r}: the port's MLP is SwiGLU")
+        raise NotImplementedError(f"act {cfg.act!r}: the port's FFNs are SwiGLU")
+    ffn = MOE_FFN if cfg.arch_type == "moe" else transformer.DENSE_FFN
 
     def init(generator, device):
-        return transformer.init_params(cfg, generator, device)
+        return transformer.init_params(cfg, generator, device, ffn)
 
     def loss(params, batch):
-        return transformer.loss_fn(cfg, params, batch, window=cfg.window)
+        return transformer.loss_fn(cfg, params, batch, ffn=ffn, window=cfg.window)
 
     def forward(params, batch):
-        return transformer.forward(cfg, params, batch["tokens"], window=cfg.window)[0]
+        return transformer.forward(cfg, params, batch["tokens"], ffn=ffn,
+                                   window=cfg.window)[0]
 
     def decode(params, cache, tokens, *, window=0, paged=True):
-        return transformer.decode_step(cfg, params, cache, tokens, window=window, paged=paged)
+        return transformer.decode_step(cfg, params, cache, tokens, ffn=ffn, window=window,
+                                       paged=paged)
 
     def prefill_slots(params, cache, tokens, lengths, slots, *, starts=None,
                       prefix_pages=None, window=0, return_all_logits=False):
         return transformer.prefill_slots(
             cfg, params, cache, tokens, lengths, slots, starts=starts,
-            prefix_pages=prefix_pages, window=window, return_all_logits=return_all_logits,
+            prefix_pages=prefix_pages, ffn=ffn, window=window,
+            return_all_logits=return_all_logits,
         )
 
     def init_paged_cache(num_slots, num_pages, page_size, table_width, *, device,

@@ -8,6 +8,11 @@ same leaf paths, per-layer leaves stacked on a leading L axis; the layer
 scan becomes a loop over that axis. The cache is updated in place (the
 reference donated it through ``jit``) and returned.
 
+The feed-forward block is a hook (``FFNHooks``, as in the reference): the
+dense SwiGLU MLP here (``DENSE_FFN``) or the MoE layer (``models/moe.py``'s
+``MOE_FFN``); its ``apply`` returns (out, aux loss), the aux summed over
+layers into the training loss and dropped by the serving paths.
+
 ``decode_step`` and ``prefill_slots`` also run tensor-parallel: under an
 active tensor axis (``models/sharding.py``) ``params`` and ``cache`` are
 ``Sharded`` trees (the config is the per-shard one,
@@ -15,10 +20,13 @@ active tensor axis (``models/sharding.py``) ``params`` and ``cache`` are
 once, on the replicated leaves."""
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_decode import kernel_head_dim
 from repro_torch.models import attention as attn
 from repro_torch.models.common import embed_tokens, lm_logits, padded_vocab, positions_for
 from repro_torch.models.layers import (
@@ -29,7 +37,33 @@ from repro_torch.models.sharding import replica, tensor_axis
 LAYER_LEAVES = ("ln1", "attn", "ln2", "ffn")
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+class FFNHooks(NamedTuple):
+    """Pluggable feed-forward: ``init(cfg, generator, device)`` → the
+    stacked (L, ...) ``ffn`` leaves; ``apply(params, x, cfg, aux=True)`` →
+    (out, aux loss ()). The serving paths pass ``aux=False`` and drop the
+    aux, which the hook then need not compute."""
+    init: Callable[..., dict]
+    apply: Callable[..., tuple[torch.Tensor, torch.Tensor]]
+
+
+def _dense_ffn_init(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    dt, d, L = getattr(torch, cfg.dtype), cfg.d_model, cfg.n_layers
+    return {
+        "w_gate": he_init((L, d, cfg.d_ff), dt, generator, device),
+        "w_up": he_init((L, d, cfg.d_ff), dt, generator, device),
+        "w_down": he_init((L, cfg.d_ff, d), dt, generator, device),
+    }
+
+
+def _dense_ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, aux: bool = True):
+    return apply_mlp(params, x), 0.0
+
+
+DENSE_FFN = FFNHooks(_dense_ffn_init, _dense_ffn_apply)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                ffn: FFNHooks = DENSE_FFN) -> dict:
     """Random weights with the reference's init scales (He for matrices,
     0.02 for embeddings, zero RMS scales), drawn from ``generator`` on
     ``device``."""
@@ -55,11 +89,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
                 "wo": he(cfg.n_heads * hd, d),
             },
             "ln2": {"scale": zeros()},
-            "ffn": {
-                "w_gate": he(d, cfg.d_ff),
-                "w_up": he(d, cfg.d_ff),
-                "w_down": he(cfg.d_ff, d),
-            },
+            "ffn": ffn.init(cfg, generator, device),
         },
         "ln_f": {"scale": torch.zeros((d,), dtype=dt, device=device)},
     }
@@ -80,35 +110,39 @@ def _per_shard(fn, tree, *args):
 
 
 def _train_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor,
-                 window: int) -> torch.Tensor:
+                 window: int, ffn: FFNHooks) -> tuple[torch.Tensor, torch.Tensor]:
     a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
     h = h + attn.attend_causal(lp["attn"], a, positions, cfg, window=window)
-    return _mlp_residual(cfg, lp, h)
+    f, aux = ffn.apply(lp["ffn"], rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps), cfg)
+    return h + f, aux
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+            ffn: FFNHooks = DENSE_FFN, window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward: tokens (B, S) → (logits fp32 (B, S, Vp), aux loss
-    (0 for the dense FFN)). With ``cfg.remat`` each layer is recomputed in
-    the backward pass (``torch.utils.checkpoint``), as the reference's
-    ``scan_layers`` does with ``jax.checkpoint``."""
+    summed over layers (0 for the dense FFN)). With ``cfg.remat`` each
+    layer is recomputed in the backward pass (``torch.utils.checkpoint``),
+    as the reference's ``scan_layers`` does with ``jax.checkpoint``."""
     h = embed_tokens(params["embed"], tokens)
     pos = positions_for(tokens)
+    aux = torch.zeros((), device=tokens.device)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if cfg.remat and torch.is_grad_enabled():
-            h = checkpoint(_train_layer, cfg, lp, h, pos, window, use_reentrant=False)
+            h, a = checkpoint(_train_layer, cfg, lp, h, pos, window, ffn, use_reentrant=False)
         else:
-            h = _train_layer(cfg, lp, h, pos, window)
+            h, a = _train_layer(cfg, lp, h, pos, window, ffn)
+        aux = aux + a
     h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
-    return lm_logits(params["embed"], h, cfg), torch.zeros((), device=tokens.device)
+    return lm_logits(params["embed"], h, cfg), aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
-            window: int = 0) -> tuple[torch.Tensor, dict]:
+            ffn: FFNHooks = DENSE_FFN, window: int = 0) -> tuple[torch.Tensor, dict]:
     """(total loss, {"loss", "accuracy", "aux_loss"}) of a batch
-    {"tokens", "labels"[, "mask"]} (B, S)."""
-    logits, aux = forward(cfg, params, batch["tokens"], window=window)
+    {"tokens", "labels"[, "mask"]} (B, S): the cross entropy plus
+    ``cfg.router_aux_weight`` times the aux loss."""
+    logits, aux = forward(cfg, params, batch["tokens"], ffn=ffn, window=window)
     loss, acc = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     total = loss + cfg.router_aux_weight * aux
     return total, {"loss": loss, "accuracy": acc, "aux_loss": aux}
@@ -117,10 +151,11 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *, window: int = 0,
                       per_slot: bool = False, device) -> dict:
     """Stacked (L, B, C, Hkv, hd) ring caches, C = window if 0 < window <
-    max_seq else max_seq. ``per_slot`` gives each row its own position
-    ((B,) instead of ()), so rows act as recyclable request slots."""
+    max_seq else max_seq, hd the kernels' (``kernel_head_dim``). ``per_slot``
+    gives each row its own position ((B,) instead of ()), so rows act as
+    recyclable request slots."""
     shape = (cfg.n_layers, batch, attn.ring_capacity(max_seq, window), cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+             kernel_head_dim(cfg.resolved_head_dim))
     dt = getattr(torch, cfg.dtype)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
@@ -142,7 +177,8 @@ def init_paged_cache(
     cfg: ModelConfig, num_slots: int, num_pages: int, page_size: int, table_width: int,
     *, device, kv_dtype: str = "fp",
 ) -> dict:
-    """Stacked shared pool (L, P, page, Hkv, hd) for k and v, per-slot write
+    """Stacked shared pool (L, P, page, Hkv, hd) for k and v (hd the
+    kernels', ``kernel_head_dim``), per-slot write
     positions and one (num_slots, T) page table shared by every layer. Page
     0 is the reserved scratch page.
 
@@ -151,7 +187,8 @@ def init_paged_cache(
     slot per kv head, shape ``k.shape[:-1]`` (1/hd of the page bytes)."""
     if kv_dtype not in ("fp", "int8"):
         raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
-    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
+             kernel_head_dim(cfg.resolved_head_dim))
     dt = torch.int8 if kv_dtype == "int8" else getattr(torch, cfg.dtype)
     cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
@@ -179,13 +216,15 @@ def layer_cache(cache: dict, i: int) -> dict:
     return out
 
 
-def _mlp_residual(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
-    return h + apply_mlp(lp["ffn"], rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps))
+def _ffn_residual(cfg: ModelConfig, lp: dict, h: torch.Tensor, ffn: FFNHooks) -> torch.Tensor:
+    """h + the FFN of its norm; the aux loss is dropped (serving)."""
+    return h + ffn.apply(lp["ffn"], rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps), cfg,
+                         aux=False)[0]
 
 
 def decode_step(
-    cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor, *, window: int = 0,
-    paged: bool = True,
+    cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor, *,
+    ffn: FFNHooks = DENSE_FFN, window: int = 0, paged: bool = True,
 ) -> tuple[dict, torch.Tensor]:
     """One token for every row. tokens (B, 1) → (cache, logits (B, Vp)).
     Every row writes its token at its own position, then ``pos`` advances.
@@ -203,7 +242,7 @@ def decode_step(
             h = h + attn.decode_attend_paged(ap, a, lc, cfg, window=window)
         else:
             h = h + attn.decode_attend(ap, a, lc, cfg, window=window, paged=paged)
-        h = _mlp_residual(cfg, replica(lp), h)
+        h = _ffn_residual(cfg, replica(lp), h, ffn)
     h = rms_norm(h, p0["ln_f"]["scale"], cfg.norm_eps)
     replica(cache)["pos"] += 1
     return cache, lm_logits(p0["embed"], h, cfg)[:, 0]
@@ -213,7 +252,7 @@ def prefill_slots(
     cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
     lengths: torch.Tensor, slots: torch.Tensor, *,
     starts: torch.Tensor | None = None, prefix_pages: int | None = None,
-    window: int = 0, return_all_logits: bool = False,
+    ffn: FFNHooks = DENSE_FFN, window: int = 0, return_all_logits: bool = False,
 ) -> tuple[dict, torch.Tensor]:
     """Batched prefill of n newly admitted rows in one forward.
 
@@ -279,7 +318,7 @@ def prefill_slots(
             lengths=lengths, write_starts=write_starts, table_rows=table_rows, starts=starts,
             prefix_width=w_pfx, window=window, roundtrip_kv=roundtrip_kv,
         )
-        h = _mlp_residual(cfg, replica(lp), h + a)
+        h = _ffn_residual(cfg, replica(lp), h + a, ffn)
     h = rms_norm(h, p0["ln_f"]["scale"], cfg.norm_eps)
     if return_all_logits:
         logits = lm_logits(p0["embed"], h, cfg)

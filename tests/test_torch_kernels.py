@@ -364,7 +364,7 @@ def jnp_f32(v):
 
 # ---------------------------------------------------------------- card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32)])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32), (4, 160), (3, 128)])
 def test_kernels_match_plain_versions_cuda(sm90, dtype, g, hd):
     """Each kernel against its plain version on the card: fp32 within 1e-5,
     bf16 within 2e-2 (bf16 outputs of O(1) values, one rounding apart)."""
@@ -478,7 +478,7 @@ def test_channel_launch_counters_cuda(sm90):
 
 # ------------------------------------------------------- int8 KV pages
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32)])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32), (4, 160), (3, 128)])
 def test_int8_kernels_match_plain_and_fp_kernels_cuda(sm90, dtype, g, hd):
     """The int8-pool decode and suffix kernels against their plain versions
     (fp32 within 1e-5, bf16 within 2e-2) and BITWISE against the fp kernels
@@ -565,7 +565,7 @@ def test_int8_launch_counters_cuda(sm90):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32)])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32), (4, 160), (3, 128)])
 def test_ring_kernels_match_plain_and_each_other_cuda(sm90, dtype, g, hd):
     """``paged_decode_ring`` and ``swa_decode`` against their plain versions
     (tolerances as above), over rings of 256 (pages of 256, or 64 and 128
@@ -640,7 +640,7 @@ def _ring_as_pool(k, v, page):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32)])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (2, 32), (4, 160), (3, 128)])
 def test_decode_rows_are_batch_invariant_cuda(sm90, dtype, g, hd):
     """A row's output from a B 4 call is bitwise that row run alone (B 1),
     for the ring, swa and table entries over fp and int8 pools: the split
@@ -830,8 +830,8 @@ def _suffix_tables(gen, page, n_pages, t_w=6):
     return table.cuda(), starts.cuda()
 
 
-@pytest.mark.parametrize("g", [1, 4, 8])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128, 160])
 def test_bf16_prefill_tensor_core_kernels_match_plain_cuda(sm90, hd, g):
     """The bf16 tensor-core flash and suffix prefill against their plain
     versions within RTOL["bfloat16"] of the plain output's RMS: ragged S
@@ -872,7 +872,7 @@ def test_bf16_prefill_tensor_core_kernels_match_plain_cuda(sm90, hd, g):
                 assert _err_rms(out8, want8) <= tol, (page, s, width)
 
 
-@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (8, 32)])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 128), (8, 32), (4, 160), (3, 128)])
 def test_fp32_prefill_stays_on_the_simt_body_cuda(sm90, g, hd):
     """float32 runs the SIMT body in fp32 FMAs: within RTOL["float32"] =
     1e-4 of the plain version's RMS, which TF32 (~3 digits) would miss."""

@@ -46,7 +46,7 @@ from repro_torch.kernels import build, ops, ref
 
 PAGE, T_W, P, HKV = 8, 4, 24, 2
 CAP = PAGE * T_W
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160)
 DTYPES = ("float32", "bfloat16")
 
 

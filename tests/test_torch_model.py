@@ -216,9 +216,10 @@ def test_batched_prefill_matches_own_looped_prefill():
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(get_smoke_config(ARCH), arch_type="moe")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(cfg)
+    for family in ("vlm", "hybrid", "ssm", "audio"):
+        cfg = dataclasses.replace(get_smoke_config(ARCH), arch_type=family)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            build_model(cfg)
 
 
 # ---------------------------------------------------------- import isolation
