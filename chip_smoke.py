@@ -113,6 +113,14 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    at the main path's shapes, each kernel's device time beside its bound,
    its plain version's and SDPA's (``enable_gqa``) where one call computes
    the same function;
+3g. recurrentgemma-2b's local attention ([hd256]): ``flash_prefill`` (B 4,
+   S 4096, window 2048), ``paged_decode_ring`` and ``swa_decode`` (B 8, C
+   2048, rows short of the ring and wrapped) at hd 256, G 10, Hkv 1, bf16
+   and float32, within ``RTOL`` of the plain versions (bf16 prefill:
+   one-ulp flips of the outputs left out), the ring kernels bitwise equal,
+   planted faults outside; bf16 timed (device and wrapper ms, the plain
+   version's, SDPA's with ``enable_gqa``, the bound); phase 2 prints the
+   hd-256 instantiations' registers and spills;
 4. golden: the port's engine replays the reference engine's float32 greedy
    trace (``src/repro_torch/testdata/golden_stablelm_smoke.json``) and must
    reproduce its tokens exactly;
@@ -160,6 +168,12 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    padded) and olmoe-1b-7b (MoE, a padded width bucket) at their smoke
    configs, replayed through CUDA graphs: tokens and pool counters
    identical, every serving kernel launched;
+4i. golden recurrent ([golden-recurrent]): the reference's float32 traces
+   of the recurrent families: the single batch of xlstm-125m and of
+   recurrentgemma-2b (window 8, wrapped) through ``generate_batch``'s
+   decode graph, the engine trace of the stablelm-1.6b smoke target with an
+   xlstm-125m draft (tokens and counters identical), both families' FedAvg
+   training (losses within ``GOLDEN_TRAIN_RTOL``);
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -240,6 +254,14 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    phase 5's trace through CUDA graphs: budgets, finite logits, every
    serving kernel launched; tok/s, TTFT p50, the decode step's profile, the
    pool's bytes per token, peak memory;
+5n. the recurrent families at their published widths ([recurrent-main]):
+   recurrentgemma-2b (26 layers, hd 256, G 10, vocab 256,000; bf16, seeded
+   random weights): the single batch 4 x 64 + 64 at window 96, a 4 x 4096
+   prefill (the rings of 2048 wrap) and 32 decode steps through the kernels
+   against the plain versions (bf16 logits within 0.1 x scale, planted
+   faults outside; float32 over every layer within 1e-3 x scale); xlstm-125m
+   (12 layers): the single batch and a prefill with decode steps, finite
+   logits;
 5b. int8 main path: the same model over an int8 pool with a host tier; 8
    cold prompts of 256-384 tokens x 64 tokens in a pool tight enough that
    slots are preempted and swapped out, then 8 shared-prefix prompts x 32
@@ -345,12 +367,18 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    int8-wire aggregate within 0.03 of each leaf's max magnitude of the
    dense average of the same updates, the DP kernels launched and the
    block channel kernels not; losses, walls, peak memory, payload bytes;
+7g. recurrent training ([train-recurrent]; run right after 2, in a process
+   of its own, on a card nothing else has used yet): phase 7's load on
+   recurrentgemma-2b (published widths, 3 of 26 layers) and xlstm-125m
+   (published widths): finite losses, the channel kernels launched, a
+   kernel sync equal to the plain sync; local-step walls, peak memory;
 8. a ``{"kernels": [...]}`` line (thirteen kernels: launches from the fp
    main path, the int8 main path, the ring main path (``swa_decode``'s from
    its paged-decode-off run, at the shape 3c times), the speculative traces
    of 5e (the verify's suffix prefills, the draft's ring decode and re-sync
    prefills, the int8 verify's pool writes), the tensor-parallel traces of
-   5k-5l, the other configs' traces of 5m and the training run),
+   5k-5l, the other configs' traces of 5m, the recurrent families' runs of
+   5n, the training run and 7g),
    then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -626,6 +654,13 @@ def _prefill_shift(q, k, v, *, window=0, scale=None):
     return torch.cat([head, rest], 1)
 
 
+def _prefill_no_window(q, k, v, *, window=0, scale=None):
+    """The sliding window dropped: every query sees every earlier key."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_prefill_ref(q, k, v, window=0, scale=scale)
+
+
 def _suffix_shift(q, ks, vs, pk, pv, table, starts, *, prefix_width, **scales):
     """The last cached prefix key is left out."""
     return _plain_suffix(q, ks, vs, pk, pv, table, (starts - 1).clamp(min=0),
@@ -824,6 +859,10 @@ def phase_build():
                   for line in out.splitlines() if " bytes spill stores" in line]
         log(f"[build] {name}: {'; '.join(regs)}; largest spill stores of its "
             f"{len(spills)} kernels: {max(spills, default=0)} bytes")
+        if name in ("paged_decode", "swa_decode"):   # the hd-256 ring instantiations
+            for row in _ptxas_by_kernel(out):
+                if ", 256," in row.split(": ")[0] or ", 256>" in row.split(": ")[0]:
+                    log(f"[build] {name}: {row}")
     for name in TC_SOURCES:
         ops = build.sass_opcodes(name)
         has = {op: op in ops for op in TC_OPCODES}
@@ -1929,21 +1968,21 @@ def _logit_parity(model, params, cfg, cold, hits, kv_dtype="fp"):
 
 
 def _numel(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_numel(v) for v in tree.values())
-    return tree.numel()
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(x.numel() for x in tree_leaves(tree))
 
 
 def _nbytes(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_nbytes(v) for v in tree.values())
-    return tree.numel() * tree.element_size()
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
 def _cast(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _cast(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.to(dtype), tree)
 
 
 def _kernel_rows(prof):
@@ -5195,6 +5234,165 @@ def phase_kernels_shapes(smi) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------- phase 3g
+# recurrentgemma-2b's local attention: hd 256, 10 query heads over 1 kv head,
+# window 2048. The cold prefill at a 4 x 4096 prompt (the ring wraps at
+# 2048), the decode kernels over 8 rings of 2048 slots, rows at depths short
+# of the ring and wrapped up to four times.
+HD256 = dict(hkv=1, g=10, hd=256, window=2048)
+HD256_PREFILL = dict(b=4, s=4096)
+HD256_RING = dict(b=8, cap=2048, pos=(100, 1000, 2047, 2048, 3000, 4095, 5000, 8500))
+
+
+def _flip_gated(out, exact, dt):
+    """(err/RMS beyond one-ulp flips, raw err/RMS, raw max abs err) of a
+    kernel output against the exact float32 plain output: in bf16 an
+    element where the kernel's output and the plain output rounded to bf16
+    are adjacent bf16 numbers is a rounding flip (two roundings of nearly
+    equal fp32 values) and is left out of the gated error, as in phase 3's
+    ring cold round; in float32 every element counts."""
+    import torch
+
+    rms = exact.pow(2).mean().sqrt().item()
+    diff = (out.float() - exact).abs()
+    raw = diff.max().item()
+    if dt != torch.bfloat16:
+        return raw / rms, raw / rms, raw
+    plain = exact.to(torch.bfloat16)
+    ulps = (out.view(torch.int16).int() - plain.view(torch.int16).int()).abs()
+    beyond = diff[ulps > 1]
+    return (beyond.max().item() / rms if beyond.numel() else 0.0), raw / rms, raw
+
+
+def phase_kernels_hd256(smi) -> list[dict]:
+    """3g ([hd256]): ``flash_prefill`` (B 4, S 4096, window 2048),
+    ``paged_decode_ring`` and ``swa_decode`` (B 8, C 2048, window 2048, rows
+    short of the ring and wrapped) at hd 256, G 10, Hkv 1, in bf16 and
+    float32, each against its plain version within ``RTOL`` (bf16 prefill:
+    one-ulp flips left out, ``_flip_gated``), the two ring kernels bitwise
+    equal; planted faults (the prefill's mask shifted by one, the decode
+    mask shifted by one key, without the mod wrap, the last live page
+    dropped) outside it. bf16 is timed: device ms, wrapper wall, the plain
+    version's ms, SDPA with ``enable_gqa`` over the same keys, and the
+    bound (live (query, key) pairs; live keys read once). Returns the
+    timed rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    c, cp, cr = HD256, HD256_PREFILL, HD256_RING
+    hkv, g, hd, w = c["hkv"], c["g"], c["hd"], c["window"]
+    h = hkv * g
+    gen = torch.Generator().manual_seed(28)
+    rows, timed = [], []
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        tol = RTOL[dname]
+        tag = f"hd{hd} G{g} Hkv{hkv} {dname}"
+        elem = dt.itemsize
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen).to(DEVICE, dt)
+
+        # --- cold prefill
+        b, s = cp["b"], cp["s"]
+        q5, k4, v4 = rnd(b, s, hkv, g, hd), rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
+        out = ops.flash_prefill_attention(q5, k4, v4, window=w)
+        torch.cuda.synchronize()
+        exact = ref.flash_prefill_ref(q5.float(), k4.float(), v4.float(), window=w)
+        e_fp, raw, e_abs = _flip_gated(out, exact, dt)
+        expect(e_fp <= tol, f"flash_prefill {tag}: err/RMS {e_fp} > {tol}")
+        rms = exact.pow(2).mean().sqrt().item()
+        fault = _prefill_shift(q5.float(), k4.float(), v4.float(), window=w)
+        fe = (out.float() - fault).abs().max().item() / rms
+        expect(fe > tol, f"flash_prefill {tag}: planted fault 'mask shifted by one' within "
+                         "tolerance")
+        log(f"[hd256] flash_prefill {tag} B{b} S{s} window {w}: err/RMS {e_fp:.3e}"
+            + (f" beyond one-ulp flips ({raw:.3e} with them)" if dt == torch.bfloat16 else "")
+            + f" (tol {tol:g}); planted fault 'mask shifted by one' err/RMS {fe:.3e}")
+        del exact, fault
+        torch.cuda.empty_cache()
+        if dt == torch.bfloat16:
+            pairs = sum(min(i + 1, w) for i in range(s))
+            qt = q5.reshape(b, s, h, hd).transpose(1, 2)
+            kt, vt = k4.transpose(1, 2), v4.transpose(1, 2)
+            pp = torch.arange(s, device=DEVICE)
+            wmask = (pp[None, :] <= pp[:, None]) & (pp[:, None] - pp[None, :] < w)
+            rows.append(dict(
+                name="flash_prefill", max_abs_err=e_abs, err=e_fp,
+                kern=lambda: ops.flash_prefill_attention(q5, k4, v4, window=w),
+                plain=lambda: ref.flash_prefill_ref(q5, k4, v4, window=w),
+                lib=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=wmask,
+                                                          enable_gqa=True),
+                nbytes=(2 * b * s * h * hd + 2 * b * s * hkv * hd) * elem,
+                flops=4 * b * h * hd * pairs, shape=f"{tag} B{b} S{s} window {w}"))
+
+        # --- ring decode
+        b, cap = cr["b"], cr["cap"]
+        q = rnd(b, hkv, g, hd)
+        rk, rv = rnd(b, cap, hkv, hd), rnd(b, cap, hkv, hd)
+        pos = torch.tensor(cr["pos"], dtype=torch.int32, device=DEVICE)
+        ring = ops.swa_decode_attention(q, rk, rv, pos, w, paged=True)
+        swa = ops.swa_decode_attention(q, rk, rv, pos, w, paged=False)
+        same = torch.equal(ring, swa)
+        expect(same, f"{tag}: paged_decode_ring and swa_decode differ")
+        exact = _ring_plain(q.float(), rk.float(), rv.float(), pos, w).float()
+        rms = exact.pow(2).mean().sqrt().item()
+        msg = f"[hd256] ring decode {tag} B{b} C{cap} window {w} pos {list(cr['pos'])}: " \
+              f"paged_decode_ring == swa_decode bitwise {same}"
+        for name, o in (("paged_decode_ring", ring), ("swa_decode", swa)):
+            e = (o.float() - exact).abs().max().item()
+            expect(e <= tol * rms, f"{name} {tag}: err/RMS {e / rms} > {tol}")
+            msg += f"; {name} err/RMS {e / rms:.3e}"
+        for fname, kind in RING_FAULTS:
+            fault = _ring_plain(q.float(), rk.float(), rv.float(), pos, w, fault=kind)
+            fe = (ring.float() - fault.float()).abs().max().item() / rms
+            expect(fe > tol, f"paged_decode_ring {tag}: planted fault '{fname}' within "
+                             "tolerance")
+            msg += f"; planted fault '{fname}' err/RMS {fe:.3e}"
+        log(msg + f" (tol {tol:g}); {_split_plan(cap, q.shape, [cap] * b)}")
+        if dt == torch.bfloat16:
+            ku, vu, kmask, spans = _unrolled(rk, rv, pos, w)
+            qd = q.reshape(b, h, 1, hd)
+            nbytes = 2 * b * h * hd * elem + 2 * sum(spans) * hkv * hd * elem + 4 * b
+            for name, paged in (("paged_decode_ring", True), ("swa_decode", False)):
+                e = (ring if paged else swa).float().sub(exact).abs().max().item()
+                rows.append(dict(
+                    name=name, max_abs_err=e, err=e / rms,
+                    kern=lambda paged=paged: ops.swa_decode_attention(q, rk, rv, pos, w,
+                                                                       paged=paged),
+                    plain=lambda paged=paged: (ref.ring_paged_decode_ref if paged else
+                                               ref.swa_decode_ref)(q, rk, rv, pos, w),
+                    lib=lambda: F.scaled_dot_product_attention(
+                        qd, ku, vu, attn_mask=kmask[:, None, None, :], enable_gqa=True),
+                    nbytes=nbytes, flops=4 * sum(spans) * h * hd,
+                    shape=f"{tag} B{b} C{cap} window {w}"))
+            # timed now, while the closures' operands are this dtype's
+            timed += [_hd256_timed(smi, r) for r in rows]
+            rows.clear()
+        del q, rk, rv, ring, swa, exact, q5, k4, v4, out
+        torch.cuda.empty_cache()
+    return timed
+
+
+def _hd256_timed(smi, r: dict) -> dict:
+    """One timed row of phase 3g: device and wrapper ms of the kernel, the
+    plain version's and SDPA's device ms, the bound."""
+    ms, wall = timed_ms(r["kern"])
+    t_b, t_o = r["nbytes"] / HBM_BYTES_PER_S * 1e3, r["flops"] / BF16_FLOPS * 1e3
+    row = dict(name=r["name"], shape=r["shape"], max_abs_err=r["max_abs_err"], ms=ms,
+               wrapper_ms=wall, plain_ms=timed_ms(r["plain"], iters=3)[0],
+               library_ms=timed_ms(r["lib"])[0], bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations")
+    log(f"[hd256] {r['name']} {r['shape']} ({smi}): kernel device ms {ms:.4f} (wrapper "
+        f"wall {wall:.4f}) plain_ms {row['plain_ms']:.4f} library_ms "
+        f"{row['library_ms']:.4f} (SDPA, enable_gqa) bound_ms {row['bound_ms']:.4f} "
+        f"({row['bound_by']}: {r['nbytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.3f} GFLOP); "
+        f"err/RMS {r['err']:.3e}")
+    return row
+
+
 # ----------------------------------------------------------------- phase 4h
 # The reference engine's float32 traces of the other configs (written by
 # tests/test_torch_dense_configs.py and tests/test_torch_moe.py).
@@ -5339,12 +5537,374 @@ def phase_configs_main(smi) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 4i
+# The reference's float32 golden traces of the recurrent families (written
+# by tests/test_torch_rglru.py, tests/test_torch_xlstm.py and
+# tests/test_torch_recurrent_train.py).
+GOLDEN_RECURRENT_SERVE = "golden_recurrent_serve_smoke.json"
+GOLDEN_XLSTM_DRAFT = "golden_xlstm_draft_smoke.json"
+GOLDEN_TRAIN_RECURRENT = "golden_train_recurrent_smoke.json"
+
+
+def phase_golden_recurrent():
+    """4i ([golden-recurrent]): the recurrent families' golden traces on the
+    card in float32: the single-batch tokens of xlstm-125m and of
+    recurrentgemma-2b (window 8, the 12-token prompts wrap the ring) through
+    ``generate_batch``'s decode graph, the hybrid's through ``swa_decode``;
+    the engine trace of the stablelm-1.6b smoke target with an xlstm-125m
+    draft through CUDA graphs (tokens and counters identical, the target's
+    serving kernels launched); both families' FedAvg training
+    (``golden_train``: per-cloud losses within ``GOLDEN_TRAIN_RTOL``,
+    checksums within ``GOLDEN_TRAIN_SUM_TOL``, the channel kernels
+    launched). Returns the launches of the three replays."""
+    import torch
+
+    import golden_train
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.launch.graphs import GraphCache
+    from repro_torch.launch.serve import generate_batch
+    from repro_torch.models.model import build_model
+
+    data = ROOT / "src/repro_torch/testdata"
+    total = {k: 0 for k in ops.LAUNCHES}
+
+    def smoke32(arch, seed):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        return build_model(cfg), params_from_numpy(numpy_params(cfg, seed), cfg, DEVICE)
+
+    def tally(what):
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for k, v in launched.items():
+            total[k] += v
+        return launched
+
+    g = json.loads((data / GOLDEN_RECURRENT_SERVE).read_text())
+    for case in g["cases"]:
+        model, params = smoke32(case["arch"], g["seed"])
+        graphs = GraphCache(DEVICE)
+        ops.reset_launches()
+        gen, _, _ = generate_batch(model, params, torch.tensor(case["prompts"], device=DEVICE),
+                                   case["gen"], window=case["window"], graphs=graphs)
+        launched = tally(case["arch"])
+        check(gen.tolist() == case["tokens"], f"golden single batch {case['arch']}: fp32 tokens "
+                                              f"differ from the reference's")
+        if model.cfg.arch_type == "hybrid":
+            check(launched.get("swa_decode", 0) > 0, f"golden single batch {case['arch']}: "
+                                                     f"swa_decode never launched: {launched}")
+        log(f"[golden-recurrent] single batch {case['arch']} window {case['window']}: "
+            f"{len(case['prompts'])} x {len(case['prompts'][0])} + {case['gen']}, fp32 greedy "
+            f"tokens identical to the reference's; compiles {graphs.counts}; launches {launched}")
+
+    g = json.loads((data / GOLDEN_XLSTM_DRAFT).read_text())
+    target, tparams = smoke32("stablelm-1.6b", g["seed"])
+    draft, dparams = smoke32("xlstm-125m", g["draft_seed"])
+    eng = ServeEngine(target, tparams, device=DEVICE, draft_model=draft, draft_params=dparams,
+                      spec_tokens=g["spec_tokens"], **g["engine"])
+    ops.reset_launches()
+    outs = eng.run([Request(uid=u, prompt=np.asarray(p, np.int32),
+                            max_new_tokens=g["max_new_tokens"])
+                    for u, p in enumerate(g["prompts"])])
+    launched = tally("draft")
+    counters = {k: eng.pool_stats[k] for k in g["counters"]}
+    check([o.tokens for o in outs] == g["tokens"], "golden xlstm draft: fp32 tokens differ from "
+                                                   "the reference engine's")
+    check(counters == g["counters"], f"golden xlstm draft: counters {counters} vs "
+                                     f"{g['counters']}")
+    check(type(eng.draft).__name__ == "XlstmDraft", "golden xlstm draft: not the recurrent draft")
+    check(all(launched.get(k, 0) > 0 for k in ("flash_prefill", "suffix_prefill")),
+          f"golden xlstm draft: a target kernel never launched: {launched}")
+    log(f"[golden-recurrent] {g['config']}, k {g['spec_tokens']}: {len(outs)} requests, fp32 "
+        f"greedy tokens and counters identical to the reference engine's {counters}; compiles "
+        f"{dict(eng.graphs.counts)}; launches {launched}")
+    del eng, target, tparams, draft, dparams
+
+    g = json.loads((data / GOLDEN_TRAIN_RECURRENT).read_text())
+    for arch, case in g.items():
+        ops.reset_launches()
+        got = golden_train.golden_train_replay(case, "fedavg", DEVICE)
+        launched = tally(arch)
+        loss, sums = golden_train.golden_train_errors(case["cases"]["fedavg"], got)
+        check(loss <= golden_train.GOLDEN_TRAIN_RTOL,
+              f"golden training {arch}: loss rel err {loss} > {golden_train.GOLDEN_TRAIN_RTOL}")
+        check(sums <= golden_train.GOLDEN_TRAIN_SUM_TOL,
+              f"golden training {arch}: checksum err {sums} > {golden_train.GOLDEN_TRAIN_SUM_TOL}")
+        check(all(launched.get(k, 0) > 0 for k in CHANNEL),
+              f"golden training {arch}: a channel kernel never launched: {launched}")
+        log(f"[golden-recurrent] training {arch} fedavg {case['fed']['compression']} DP clip "
+            f"{case['fed']['dp_clip']}: {len(got['losses'])} steps, largest loss rel err "
+            f"{loss:.3e} (tol {golden_train.GOLDEN_TRAIN_RTOL:g}), checksum err {sums:.3e} (tol "
+            f"{golden_train.GOLDEN_TRAIN_SUM_TOL:g}); launches {launched}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------- phase 5n
+# recurrentgemma-2b's main path at full width: the single batch (4 x 64 + 64,
+# window 96), a 4 x 4096 prefill (the rings of 2048 wrap) and 32 decode steps.
+RG_MAIN = dict(arch="recurrentgemma-2b", batch=4, prompt=4096, steps=32, serve=(64, 64, 96))
+XLSTM_MAIN = dict(arch="xlstm-125m", batch=4, prompt=512, steps=8, serve=(64, 64, 0))
+
+
+def _recurrent_serve(smi, model, params, tag, prompt, gen, window) -> dict:
+    """The single batch at full width through its decode graph: (launches)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import synthetic_prompts
+    from repro_torch.launch.graphs import GraphCache
+    from repro_torch.launch.serve import generate_batch
+
+    cfg = model.cfg
+    prompts = torch.from_numpy(synthetic_prompts(cfg, 4, prompt, 0)).to(DEVICE)
+    graphs = GraphCache(DEVICE)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    gen_toks, t_prefill, t_gen = generate_batch(model, params, prompts, gen, window=window,
+                                                graphs=graphs)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(gen_toks.shape == (4, gen) and bool(((gen_toks >= 0)
+                                               & (gen_toks < cfg.vocab_size)).all()),
+          f"{cfg.name} single batch: output {tuple(gen_toks.shape)} out of range")
+    check(graphs.counts == {"decode": 1}, f"{cfg.name} single batch: compiles {graphs.counts}")
+    log(f"[{tag}] {cfg.name} single batch ({smi}): 4 x {prompt} teacher-forced in "
+        f"{t_prefill:.3f} s, {gen} tokens/row in {t_gen:.3f} s: {4 * gen / t_gen:.1f} tok/s; "
+        f"window {window}; launches {launches}; compiles {graphs.counts}; graph pool "
+        f"{graphs.pool_bytes() / 1e9:.3f} GB")
+    return launches
+
+
+def _recurrent_parity(smi, model, params, tag, prompts, feeds, faults=()) -> dict:
+    """``prefill`` of ``prompts`` then teacher-forced decode steps of
+    ``feeds`` through the kernels (timed; paged_decode_ring), then through
+    the plain versions and each planted fault: the logits of every
+    dispatch within ``LOGIT_RTOL`` x scale, the faults outside. Returns the
+    kernel run's launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    walls = {}
+
+    def run(timed=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(params, prompts)
+        torch.cuda.synchronize()
+        walls["prefill"] = time.perf_counter() - t0
+        out = [lg[:, :vocab].float()]
+        t0 = time.perf_counter()
+        for t in range(feeds.shape[1]):
+            cache, lg = model.decode(params, cache, feeds[:, t:t + 1])
+            out.append(lg[:, :vocab].float())
+        torch.cuda.synchronize()
+        walls["decode"] = (time.perf_counter() - t0) / max(feeds.shape[1], 1)
+        del cache
+        return torch.stack(out, 1)
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lk = run()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kern_walls = dict(walls)
+    check(bool(torch.isfinite(lk).all()), f"{cfg.name} {cfg.dtype}: non-finite logits")
+    with plain_kernels():
+        lp = run()
+    tol = LOGIT_RTOL[cfg.dtype]
+    scale = max(lp.abs().max().item(), 1.0)
+    d = (lk - lp).abs().amax(dim=(0, 2))          # per dispatch
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    msg = (f"[{tag}] {cfg.name} {cfg.dtype} ({smi}): B{prompts.shape[0]} prefill "
+           f"{prompts.shape[1]} + {feeds.shape[1]} decode steps, kernels vs plain max |dlogit| "
+           f"prefill {d[0].item():.3e}, decode steps {d[1:].max().item() if len(d) > 1 else 0:.3e}"
+           f" = {d.max().item() / scale:.3e} x logit scale {scale:.2f} (tol {tol:g} x scale), "
+           f"argmax agreement {agree:.3f}")
+    expect(d.max().item() <= tol * scale, f"{cfg.name} {cfg.dtype}: logit diff {d.max().item()} "
+                                          f"> {tol} x {scale}")
+    for fname, swap in faults:
+        with plain_kernels(**swap):
+            lf = run()
+        fd = (lk - lf).abs().max().item()
+        msg += f"; planted fault '{fname}' {fd:.3e} = {fd / scale:.3e} x scale"
+        expect(fd > tol * scale, f"{cfg.name} {cfg.dtype}: planted fault '{fname}' within "
+                                 "tolerance")
+        del lf
+    log(msg + f"; kernel run: prefill wall {kern_walls['prefill'] * 1e3:.1f} ms, decode step "
+        f"wall {kern_walls['decode'] * 1e3:.2f} ms, peak memory {peak:.1f} GB; launches "
+        f"{launches}")
+    del lk, lp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_recurrent_main(smi) -> dict:
+    """5n ([recurrent-main]): recurrentgemma-2b at its published widths (26
+    layers, d 2560, 10 heads over 1 kv head at hd 256, window 2048, vocab
+    256,000; bf16, seeded random weights): the single batch (4 x 64 + 64,
+    window 96; swa_decode) through its decode graph; a 4 x 4096 prefill (the
+    rings of 2048 wrap; flash_prefill) and 32 decode steps (paged_decode_ring)
+    through the kernels against the plain versions (bf16: logits within 0.1
+    x scale, the prefill's window dropped outside; float32 over every
+    layer, a float32 copy beside the bf16 weights: within 1e-3 x scale, the
+    prefill's mask shifted by one outside).
+    Then xlstm-125m at its published widths (12 layers, d 768, vocab
+    50,304): the single batch (4 x 64 + 64) and a 4 x 512 prefill with 8
+    decode steps, finite logits (no kernel on its path). Returns the kernel
+    runs' launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for spec in (RG_MAIN, XLSTM_MAIN):
+        t0 = time.perf_counter()
+        cfg = get_config(spec["arch"])
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        log(f"[recurrent-main] {cfg.name}: {cfg.arch_type}, {cfg.n_layers} layers, d "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.resolved_head_dim}, "
+            f"vocab {cfg.vocab_size}, {cfg.dtype}: {_numel(params) / 1e9:.3f} B parameters, "
+            f"{_nbytes(params) / 1e9:.2f} GB")
+        add(_recurrent_serve(smi, model, params, "recurrent-main", *spec["serve"]))
+        gen = torch.Generator().manual_seed(5)
+        prompts = torch.randint(0, cfg.vocab_size, (spec["batch"], spec["prompt"]),
+                                generator=gen).to(DEVICE)
+        feeds = torch.randint(0, cfg.vocab_size, (spec["batch"], spec["steps"]),
+                              generator=gen).to(DEVICE)
+        hybrid = cfg.arch_type == "hybrid"
+        # bf16 gates the dropped window; the one-key shift moves the bf16
+        # logits by as much as the kernel's own rounding (0.022 against 0.020
+        # x scale on an H100): float32 gates it
+        launches = _recurrent_parity(
+            smi, model, params, "recurrent-main", prompts, feeds,
+            [("window dropped", dict(flash_prefill=_prefill_no_window))] if hybrid else [])
+        add(launches)
+        if hybrid:
+            check(launches.get("flash_prefill", 0) > 0 and launches.get("paged_decode_ring", 0) > 0,
+                  f"{cfg.name}: a kernel of its path never launched: {launches}")
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            params32 = _cast(params, torch.float32)
+            log(f"[recurrent-main] {cfg.name}: float32 parity over all {cfg.n_layers} layers "
+                f"({4 * _numel(params) / 1e9:.1f} GB copy beside the bf16 weights)")
+            add(_recurrent_parity(smi, build_model(cfg32), params32, "recurrent-main", prompts,
+                                  feeds, [("mask shifted by one",
+                                           dict(flash_prefill=_prefill_shift))]))
+            del params32
+        log(f"[recurrent-main] {cfg.name}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; wall "
+            f"{time.perf_counter() - t0:.1f} s")
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------- phase 7g
+# The recurrent families' federated training at TRAIN's settings: (arch,
+# layers trained; None = every layer). recurrentgemma-2b trains 3 of its 26
+# layers (one whole period, 2 RG-LRU and 1 local attention): 1.544 B
+# parameters, 1.311 B of them the untied embedding and unembedding of its
+# 256,000-token vocabulary, near stablelm-1.6b's 1.644 B, which trains two
+# clouds on the card in ~62 GB. Its 12 layers (2.244 B parameters;
+# ``ModelConfig.param_count`` leaves the unembedding out and says 1.58 B)
+# ran out of the card's 80 GB in the first local step (NVIDIA H100 80GB
+# HBM3, 700.00 W): two clouds' weights, Adam moments and error feedback
+# and a gradient take ~36 B a parameter.
+RECURRENT_TRAIN = (("recurrentgemma-2b", 3), ("xlstm-125m", None))
+
+
+
+@contextlib.contextmanager
+def _train_layers(depth):
+    """``run_training``'s config cut to its first ``depth`` layers."""
+    from repro_torch.launch import train
+
+    saved = train.get_config
+    if depth is not None:
+        train.get_config = lambda arch: dataclasses.replace(saved(arch), n_layers=depth)
+    try:
+        yield
+    finally:
+        train.get_config = saved
+
+
+def phase_training_recurrent(smi) -> dict:
+    """7g ([train-recurrent]): FedAvg of both recurrent families at
+    ``TRAIN``'s settings (2 clouds, topk+int8, DP clip and noise, 4 steps of
+    8 x 256 per cloud): xlstm-125m at its published widths (its sLSTM scan
+    through ``SlstmScan``), recurrentgemma-2b at its published widths over
+    3 of its 26 layers (``RECURRENT_TRAIN``); finite losses, every channel
+    kernel launched; local-step walls and peak memory; a sync round from a
+    copy of the trained state through the kernels and through the plain
+    versions (``_sync_parity``: the new global params equal within
+    ``SYNC_DIFF_FRAC``). Returns the channel kernels' launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    total = {k: 0 for k in CHANNEL}
+    for arch, depth in RECURRENT_TRAIN:
+        label = f"train-{arch}"
+        with _train_layers(depth):
+            res, walls, launches, peak, t_all = _timed_run(label, arch=arch)
+        line, _ = _run_summary(res, walls, launches, peak, t_all)
+        cfg = res["trainer"].model.cfg
+        log(f"[train-recurrent] {arch} ({smi}), {cfg.n_layers} of {get_config(arch).n_layers} "
+            f"layers (param_count {cfg.param_count() / 1e9:.3f} B): {line}")
+        for k in CHANNEL:
+            total[k] += launches[k]
+        arrived = torch.ones(TRAIN["n_clouds"], dtype=torch.bool, device=DEVICE)
+        alphas = torch.full((TRAIN["n_clouds"],), 0.5, device=DEVICE)
+        _sync_parity(label, res["trainer"], res["state"], arrived, alphas)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_training_recurrent_isolated() -> dict:
+    """7g (``phase_training_recurrent``) in a process of its own, started
+    before any other phase touches the card: after the whole script's
+    serving and training phases, the caching allocator held 83.5 GB
+    reserved around no live block that ``empty_cache`` would not release,
+    and recurrentgemma-2b's 2.4 GB embedding was refused (NVIDIA H100 80GB
+    HBM3, 700.00 W). The child builds nothing (the libraries are built) and
+    prints its log as it runs; its launches and failed numeric checks come
+    back through ``build/phase_7g.json``; this process waits for it."""
+    out = ROOT / "build" / "phase_7g.json"
+    out.unlink(missing_ok=True)
+    code = ("import json, chip_smoke as c; smi = c.phase_device(); "
+            "r = c.phase_training_recurrent(smi); "
+            f"open({str(out)!r}, 'w').write(json.dumps({{'launches': r, 'failed': c.FAILED}}))")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=1200)
+    res = json.loads(out.read_text())
+    FAILED.extend(res["failed"])
+    return res["launches"]
+
+
 def main() -> int:
     t_script = time.perf_counter()
     smi = phase_device()
     import torch
 
     phase_build()
+    t0 = time.perf_counter()
+    recurrent_train_launches = phase_training_recurrent_isolated()
+    log(f"[train-recurrent] phase 7g wall {time.perf_counter() - t0:.1f} s")
     rows = phase_kernels(smi)
     rows.update(phase_kernels_int8(smi))
     rows.update(phase_kernels_ring(smi))
@@ -5357,6 +5917,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels_shapes(smi)
     log(f"[shapes] phase 3f wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_kernels_hd256(smi)
+    log(f"[hd256] phase 3g wall {time.perf_counter() - t0:.1f} s")
     phase_golden()
     phase_golden_int8()
     phase_golden_ring()
@@ -5375,6 +5938,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_golden_configs()
     log(f"[golden-configs] phase 4h wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_golden_recurrent()
+    log(f"[golden-recurrent] phase 4i wall {time.perf_counter() - t0:.1f} s")
     launches, main_trace = phase_main_path(smi)
     t0 = time.perf_counter()
     phase_eos(smi, main_trace)
@@ -5397,6 +5963,9 @@ def main() -> int:
     t0 = time.perf_counter()
     config_launches = phase_configs_main(smi)
     log(f"[configs-main] phase 5m wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    recurrent_launches = phase_recurrent_main(smi)
+    log(f"[recurrent-main] phase 5n wall {time.perf_counter() - t0:.1f} s")
     launches.update(phase_main_path_int8(smi))
     ring_launches, model, params = phase_main_path_ring(smi)
     launches.update(ring_launches)
@@ -5436,6 +6005,10 @@ def main() -> int:
         launches[k] += c
     for k, c in config_launches.items():
         launches[k] += c
+    # the recurrent families' main paths (5n) and training (7g)
+    for k, c in (*recurrent_launches.items(), *recurrent_train_launches.items()):
+        if k in launches:
+            launches[k] += c
     kernels = []
     for name, r in rows.items():
         kernels.append({

@@ -33,10 +33,15 @@ GOLDEN_TRAIN_FAULTED = ("fedavg", "gradient")
 
 
 def leaf_paths(tree, prefix: str = "") -> list[str]:
-    """"embed/tok", ... of a parameter tree, in leaf order."""
+    """"embed/tok", ... of a parameter tree, in leaf order (a list entry by
+    its index: "rest/0/ln/scale"; a None holds no leaf)."""
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}" if prefix
                                                              else k)]
+    if isinstance(tree, list):
+        return [p for i, t in enumerate(tree) for p in leaf_paths(t, f"{prefix}/{i}")]
+    if tree is None:
+        return []
     return [prefix]
 
 

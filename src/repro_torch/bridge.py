@@ -7,9 +7,13 @@ Both packages use one parameter tree: ``embed/tok`` (Vp, D),
 ``layers/ffn/{w_gate,w_up,w_down}`` (the MoE family: ``layers/ffn/router``
 (L, D, E), ``w_gate``/``w_up`` (L, E, D, F), ``w_down`` (L, E, F, D)) — and
 ``ln_f/scale`` (D,), every matrix laid out for ``x @ W``; a tied config has
-no ``unembed``. ``numpy_params`` draws such a tree with numpy, so the
-reference (through ``jnp.asarray``) and the port can load the same weights
-on a machine without JAX. The router stays float32 in both packages."""
+no ``unembed``. The recurrent families (hybrid, ssm) keep the reference's
+periodic tree: ``periods`` ({"pos0": stacked layers, ...} or None) and
+``rest`` (a list of layer trees) beside ``embed`` and ``ln_f``.
+``numpy_params`` draws such trees with numpy, so the reference (through
+``jnp.asarray``) and the port can load the same weights on a machine
+without JAX. The router, RG-LRU's Λ and xLSTM's gate biases stay float32 in
+both packages."""
 from __future__ import annotations
 
 import numpy as np
@@ -22,7 +26,10 @@ from repro_torch.models.common import padded_vocab
 def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     """Random float32 weights at the reference's init scales (He for the
     matrices with fan-in = rows, 0.02 for embeddings, zero RMS scales), drawn
-    leaf by leaf in a fixed order from ``np.random.default_rng(seed)``."""
+    leaf by leaf in a fixed order from ``np.random.default_rng(seed)``. The
+    recurrent families (``_numpy_periodic``) take their own trees."""
+    if cfg.arch_type in ("hybrid", "ssm"):
+        return _numpy_periodic(cfg, seed)
     rng = np.random.default_rng(seed)
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
     vp = padded_vocab(cfg.vocab_size)
@@ -62,19 +69,57 @@ def _numpy_ffn(cfg: ModelConfig, he) -> dict:
             "w_down": he(f, d, e)}
 
 
+# The float32 leaves of a bf16 model, in the reference and here: the MoE
+# router, RG-LRU's Λ, xLSTM's gate biases.
+FLOAT32_LEAVES = ("router", "lam", "b_i", "b_f", "b_z", "b_o")
+
+
+def _numpy_periodic(cfg: ModelConfig, seed: int) -> dict:
+    """The hybrid's or the ssm's tree in the reference's periodic layout
+    (``models/common.param_specs``), drawn in tree order: matrices and
+    embeddings at their init scales, RG-LRU's Λ as the reference draws it,
+    and every constant leaf (biases, norm scales, skips) at its init value
+    plus N(0, 0.1²), so that a test exercises each of them."""
+    from repro_torch.models import rglru, xlstm
+    from repro_torch.models.common import lam_init, param_specs
+
+    rng = np.random.default_rng(seed)
+    mod = rglru if cfg.arch_type == "hybrid" else xlstm
+
+    def draw(spec):
+        if isinstance(spec, dict):
+            return {k: draw(v) for k, v in spec.items()}
+        if isinstance(spec, list):
+            return [draw(v) for v in spec]
+        if spec is None:
+            return None
+        if spec.kind == "lam":
+            return lam_init(spec.shape, spec.arg)
+        x = rng.standard_normal(spec.shape, dtype=np.float32)
+        if spec.kind == "normal":
+            return x * np.float32(spec.arg)
+        return np.float32(spec.arg) + np.float32(0.1) * x
+
+    return draw(param_specs(cfg, mod.layer_specs, mod.pattern(cfg)))
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device, dtype=None) -> dict:
     """The port's parameters from a tree of numpy arrays (same leaf paths),
-    cast to ``dtype`` (default: the config's) on ``device``; a MoE
-    ``router`` leaf stays float32."""
+    cast to ``dtype`` (default: the config's) on ``device``; the
+    ``FLOAT32_LEAVES`` stay float32."""
     dtype = dtype or getattr(torch, cfg.dtype)
 
     def conv(node, key=""):
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        if node is None:
+            return None
         # a copy: the port updates tensors in place, and must never write
         # into the caller's arrays
         return torch.from_numpy(np.array(node, np.float32)).to(
-            device=device, dtype=torch.float32 if key == "router" else dtype)
+            device=device, dtype=torch.float32 if key in FLOAT32_LEAVES else dtype)
 
     return conv(tree)
 
@@ -83,6 +128,10 @@ def numpy_from_params(params: dict) -> dict:
     """The inverse of ``params_from_numpy``: float32 numpy arrays."""
     if isinstance(params, dict):
         return {k: numpy_from_params(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [numpy_from_params(v) for v in params]
+    if params is None:
+        return None
     return params.detach().float().cpu().numpy()
 
 
@@ -90,12 +139,20 @@ def _stack_clouds(trees: list) -> dict:
     """Per-cloud trees → one numpy tree with a leading cloud axis."""
     if isinstance(trees[0], dict):
         return {k: _stack_clouds([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_stack_clouds([t[i] for t in trees]) for i in range(len(trees[0]))]
+    if trees[0] is None:
+        return None
     return np.stack([numpy_from_params(t) for t in trees])
 
 
 def _unstack_cloud(tree: dict, c: int) -> dict:
     if isinstance(tree, dict):
         return {k: _unstack_cloud(v, c) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_unstack_cloud(v, c) for v in tree]
+    if tree is None:
+        return None
     return tree[c]
 
 

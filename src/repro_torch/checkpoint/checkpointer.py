@@ -21,13 +21,21 @@ import torch
 
 
 def _flatten_with_paths(tree, prefix: tuple = ()) -> dict:
-    """{path key: leaf} of a nested dict, keys as ``jax.tree_util`` writes
-    them (``"['a']/['b']"``)."""
+    """{path key: leaf} of a nested dict (lists and None too, as the
+    recurrent families' trees hold), keys as ``jax.tree_util`` writes them
+    (``"['a']/['b']"``, ``"['rest']/[0]/['ln']"``)."""
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
             out.update(_flatten_with_paths(tree[k], prefix + (f"[{k!r}]",)))
         return out
+    if isinstance(tree, list):
+        out = {}
+        for i, t in enumerate(tree):
+            out.update(_flatten_with_paths(t, prefix + (f"[{i}]",)))
+        return out
+    if tree is None:
+        return {}
     return {"/".join(prefix): tree}
 
 
@@ -110,6 +118,10 @@ class Checkpointer:
             def walk(node, prefix):
                 if isinstance(node, dict):
                     return {k: walk(node[k], prefix + (f"[{k!r}]",)) for k in sorted(node)}
+                if isinstance(node, list):
+                    return [walk(t, prefix + (f"[{i}]",)) for i, t in enumerate(node)]
+                if node is None:
+                    return None
                 return load("/".join(prefix), node)
 
             return walk(target, ())

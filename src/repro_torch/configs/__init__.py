@@ -1,9 +1,10 @@
 """Architecture config registry of the port: ``get_config("<arch-id>")``.
 
-Only the architectures the port serves are registered: the dense decoders
-and the MoE family (``qwen3-moe-235b-a22b`` at its smoke config only: its
-full config, 470 GB of bf16 weights, does not fit on one card). The
-others arrive with the slices that port their model families."""
+Only the architectures the port serves are registered: the dense decoders,
+the MoE family (``qwen3-moe-235b-a22b`` at its smoke config only: its
+full config, 470 GB of bf16 weights, does not fit on one card) and the
+recurrent families (``xlstm-125m``, ``recurrentgemma-2b``). The others
+arrive with the slices that port their model families."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,8 @@ _ARCH_MODULES = {
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -38,8 +38,8 @@
 //
 // Why the three entry points are bitwise equal over the same keys. Every
 // reduction has an order fixed by the code: a dot product is E FMAs per
-// lane (DecodeLanes: 8, or 20 at hd 160) and then a butterfly over the
-// key's lanes; a tile's max and sum are a
+// lane (DecodeLanes: 8, 20 at hd 160, 16 at hd 256) and then a butterfly over
+// the key's lanes; a tile's max and sum are a
 // local pass and a butterfly over the warp's key groups; the warps merge in
 // order 0..3 and the ranges in order 0, 1, 2, ... (each xor-butterfly step
 // adds two values that both partners add in either order, so every lane
@@ -69,7 +69,7 @@ namespace repro {
 constexpr int RING_TILE = 64;
 constexpr int DECODE_WARPS = 4;
 constexpr int WARP_KEYS = RING_TILE / DECODE_WARPS;  // keys per warp per tile
-constexpr int DECODE_STAGES = 2;                       // cp.async ring depth
+constexpr int DECODE_STAGES = 2;                       // cp.async ring depth where it fits
 // Ranges per row at most: kernels/paged_decode.py's split rule (MAX_RANGES)
 // never cuts a ring into more; the combine holds a row's partials in
 // registers.
@@ -169,21 +169,31 @@ struct WarpStage {
 
 // Dynamic shared memory of one block: the warps' stage rings, then the
 // warps' final states [warp][row][HD + 2] (acc, m, l) for the merge.
-template <typename TP, int HD, int RG>
-constexpr size_t split_smem_bytes() {
-  return (size_t)DECODE_WARPS * DECODE_STAGES * WarpStage<TP, HD>::BYTES +
+template <typename TP, int HD, int RG, int STAGES>
+__host__ __device__ constexpr size_t split_smem_bytes() {
+  return (size_t)DECODE_WARPS * STAGES * WarpStage<TP, HD>::BYTES +
          (size_t)DECODE_WARPS * RG * (HD + 2) * sizeof(float);
+}
+
+// Stages of the cp.async ring: DECODE_STAGES where the block's shared memory
+// fits the 227 KB opt-in, else 1 (fp32 at hd 256: two stages of 64 keys of
+// K and V are 256 KB). The pipeline depth changes when a tile's loads are
+// issued, never the order of any sum, so the output is the same bits.
+template <typename TP, int HD, int RG>
+__host__ __device__ constexpr int decode_stages() {
+  return split_smem_bytes<TP, HD, RG, DECODE_STAGES>() <= 232448 ? DECODE_STAGES : 1;
 }
 
 // How a warp spreads a key over its lanes: LPK lanes per key (a power of
 // two: the dot product's butterfly), E = HD / LPK dims each, KPP = 32 / LPK
 // keys per pass. 8 dims a lane (one 16-byte bf16 load) where HD / 8 is a
-// power of two; at hd 160 (HD / 8 = 20) 8 lanes of 20 dims, read as five
-// 4-element pieces (8 bytes of bf16, 16 of fp32, 4 of int8: each piece
-// aligned, since a lane's first dim is a multiple of 20).
+// power of two up to 16; at hd 160 (HD / 8 = 20) 8 lanes of 20 dims, read
+// as five 4-element pieces (8 bytes of bf16, 16 of fp32, 4 of int8: each
+// piece aligned, since a lane's first dim is a multiple of 20); at hd 256
+// 16 lanes of 16 dims (two keys a pass, two 16-byte bf16 loads a lane).
 template <int HD>
 struct DecodeLanes {
-  static constexpr int LPK = HD == 160 ? 8 : HD / 8;
+  static constexpr int LPK = HD == 160 ? 8 : HD == 256 ? 16 : HD / 8;
   static constexpr int E = HD / LPK;
   static_assert((LPK & (LPK - 1)) == 0 && LPK >= 4 && LPK <= 16 && E * LPK == HD &&
                     E % 4 == 0,
@@ -309,6 +319,7 @@ __global__ void __launch_bounds__(DECODE_WARPS * 32)
                         Layout layout, float* __restrict__ part, int Hkv, int G, int window,
                         float scale, int split) {
   using W = WarpStage<TP, HD>;
+  constexpr int ST = decode_stages<TP, HD, RG>();
   constexpr int E = DecodeLanes<HD>::E;
   constexpr int LPK = DecodeLanes<HD>::LPK;
   constexpr int KPP = 32 / LPK;
@@ -363,25 +374,25 @@ __global__ void __launch_bounds__(DECODE_WARPS * 32)
     for (int e = 0; e < E; ++e) acc[r][e] = 0.0f;
   }
 
-  unsigned char* ring = smem + (size_t)warp * DECODE_STAGES * W::BYTES;
+  unsigned char* ring = smem + (size_t)warp * ST * W::BYTES;
   const int s_warp = s_begin + warp * WARP_KEYS;  // the warp's first slot in tile 0
 #pragma unroll
-  for (int t = 0; t < DECODE_STAGES - 1; ++t) {
+  for (int t = 0; t < ST - 1; ++t) {
     if (t < n_tiles)
       issue_keys<TP, HD>(ring + t * W::BYTES, k, v, k_scale, v_scale, layout, b, h, Hkv,
                          s_warp + t * RING_TILE, limit, lane);
     cp_async_commit();
   }
   for (int t = 0; t < n_tiles; ++t) {
-    const int tn = t + DECODE_STAGES - 1;
+    const int tn = t + ST - 1;
     if (tn < n_tiles)
-      issue_keys<TP, HD>(ring + (tn % DECODE_STAGES) * W::BYTES, k, v, k_scale, v_scale,
+      issue_keys<TP, HD>(ring + (tn % ST) * W::BYTES, k, v, k_scale, v_scale,
                          layout, b, h, Hkv, s_warp + tn * RING_TILE, limit, lane);
     cp_async_commit();
-    cp_async_wait<DECODE_STAGES - 1>();
+    cp_async_wait<ST - 1>();
     __syncwarp();
 
-    const unsigned char* stage = ring + (t % DECODE_STAGES) * W::BYTES;
+    const unsigned char* stage = ring + (t % ST) * W::BYTES;
     const TP* sk = reinterpret_cast<const TP*>(stage);
     const TP* sv = sk + WARP_KEYS * HD;
     const float* sks = reinterpret_cast<const float*>(sv + WARP_KEYS * HD);
@@ -445,7 +456,7 @@ __global__ void __launch_bounds__(DECODE_WARPS * 32)
   cp_async_wait<0>();
 
   // the warp's acc: each lane holds its key group's share; sum the groups
-  float* merge = reinterpret_cast<float*>(smem + (size_t)DECODE_WARPS * DECODE_STAGES * W::BYTES);
+  float* merge = reinterpret_cast<float*>(smem + (size_t)DECODE_WARPS * ST * W::BYTES);
 #pragma unroll
   for (int r = 0; r < RG; ++r) {
 #pragma unroll
@@ -535,7 +546,7 @@ template <typename T, typename TP, int HD, int RG, typename Layout>
 int launch_split(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                  const void* pos, Layout layout, void* part, void* out, int B, int Hkv, int G,
                  int window, int split, float scale, cudaStream_t stream) {
-  constexpr size_t smem = split_smem_bytes<TP, HD, RG>();
+  constexpr size_t smem = split_smem_bytes<TP, HD, RG, decode_stages<TP, HD, RG>()>();
   // the opt-in above 48 KB, once per instantiation
   static const cudaError_t attr = allow_smem(split_decode_kernel<T, TP, HD, RG, Layout>, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -566,8 +577,14 @@ int launch_rows(const void* q, const void* k, const void* v, const void* ks, con
                                     window, split, scale, stream);
 }
 
-// Dispatch on head dim (32, 64, 128, 160); -1 for another head dim, a G below 1
-// or a split that is not a positive multiple of RING_TILE.
+template <typename Layout>
+struct IsRing : std::false_type {};
+template <bool SKIP>
+struct IsRing<RingLayout<SKIP>> : std::true_type {};
+
+// Dispatch on head dim (32, 64, 128, 160; 256 for the ring layouts only: the
+// hybrid's local attention, which has no paged pool); -1 for another head
+// dim, a G below 1 or a split that is not a positive multiple of RING_TILE.
 template <typename T, typename TP, typename Layout>
 int decode_by_hd(int hd, const void* q, const void* k, const void* v, const void* ks,
                  const void* vs, const void* pos, Layout layout, void* part, void* out, int B,
@@ -586,6 +603,11 @@ int decode_by_hd(int hd, const void* q, const void* k, const void* v, const void
     case 160:
       return launch_rows<T, TP, 160>(q, k, v, ks, vs, pos, layout, part, out, B, Hkv, G,
                                      window, split, scale, stream);
+    case 256:
+      if constexpr (IsRing<Layout>::value)
+        return launch_rows<T, TP, 256>(q, k, v, ks, vs, pos, layout, part, out, B, Hkv, G,
+                                       window, split, scale, stream);
+      break;
   }
   return -1;
 }

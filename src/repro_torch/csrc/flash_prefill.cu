@@ -14,7 +14,7 @@
 // paths) fill both, each K/V tile is read once for 128 rows, and the two
 // warpgroups take turns on the tensor cores, one's softmax under the
 // other's MMAs. Q has a 5-D tensor map (hd, G, Hkv, S, B), K and V 4-D maps
-// (hd, Hkv, T, B) with 128-key boxes.
+// (hd, Hkv, T, B) with 128-key boxes (64-key boxes at hd 256).
 // What bounds it on an H100: bytes at a short bucket (8 x 512, hd 64, G 1:
 // 67.1 MB, 0.020 ms at 3.35 TB/s against 8.6 GFLOP, 0.0087 ms at 989
 // TFLOP/s), operations at a long one (the ring path's cold round, B 4, S = T
@@ -28,7 +28,8 @@
 // engine's fp32 tokens exactly; wgmma on fp32 would be TF32): the SIMT body
 // of common.cuh, fp32 FMAs from shared memory. One block owns BQ query
 // positions times all G query heads of one kv head (rows = BQ*G <= 64), K/V
-// stream through shared memory in tiles of 64 keys with the same skips.
+// stream through shared memory in tiles of 64 keys with the same skips (rows
+// = BQ*G <= 32 at hd 256, the shared memory's limit).
 // The probability tensor never touches device memory in either body.
 #include "common.cuh"
 #include "prefill_tc.cuh"
@@ -103,11 +104,20 @@ __global__ void flash_prefill_kernel(const T* __restrict__ q, const T* __restric
   repro::write_rows<T, HD>(t, rows, QORow<T, HD>{out, S, Hkv, G, b, h, q_lo});
 }
 
+// Query rows a SIMT block holds: 64, or 32 at hd 256 (64 rows of 256 fp32
+// and their tiles would be 270 KB of shared memory).
+template <int HD>
+constexpr int simt_rows() {
+  return HD == 256 ? 32 : 64;
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len,
            int Hkv, int G, int window, float scale, cudaStream_t stream) {
-  const int BQ = G >= 64 ? 1 : 64 / G;
+  constexpr int ROWS = simt_rows<HD>();
+  const int BQ = G >= ROWS ? 1 : ROWS / G;
   const size_t smem = repro::tile_floats<HD>(BQ * G, BK) * sizeof(float);
+  if (smem > 232448) return -1;   // G too large for a block at this head dim
   cudaError_t err = repro::allow_smem(flash_prefill_kernel<T, HD>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * Hkv, (S + BQ - 1) / BQ);
@@ -128,6 +138,8 @@ int by_hd(int hd, const void* q, const void* k, const void* v, void* out, int B,
       return launch<T, 128>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
     case 160:
       return launch<T, 160>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
   }
   return -1;
 }
@@ -144,9 +156,10 @@ struct FlashPlan {
 
   __device__ int count() const { return n; }
   __device__ bool manual(int) const { return false; }
-  __device__ int k_lo(int i) const { return (j0 + i) * repro::tc::BK; }
+  static constexpr int KB = repro::tc::key_tile<HD>();
+  __device__ int k_lo(int i) const { return (j0 + i) * KB; }
   __device__ bool masked(int, int k) const {
-    return k + repro::tc::BK - 1 > q_lo || k + repro::tc::BK > T ||
+    return k + KB - 1 > q_lo || k + KB > T ||
            (window > 0 && q_hi - k >= window);
   }
   __device__ bool live(int, int k, int qp, int c) const {
@@ -189,9 +202,9 @@ __global__ void __launch_bounds__(128 * (TW + 1), repro::tc::Regs<TW>::BLOCKS)
   p.window = window;
   p.q_lo = blockIdx.y * BQ;
   p.q_hi = min(p.q_lo + BQ, S) - 1;
-  constexpr int BK = repro::tc::BK;
-  const int j_end = min((T_len + BK - 1) / BK, p.q_hi / BK + 1);   // stop at the diagonal
-  p.j0 = window > 0 ? max(0, p.q_lo - (window - 1)) / BK : 0;      // start at the window
+  constexpr int KB = repro::tc::key_tile<HD>();
+  const int j_end = min((T_len + KB - 1) / KB, p.q_hi / KB + 1);   // stop at the diagonal
+  p.j0 = window > 0 ? max(0, p.q_lo - (window - 1)) / KB : 0;      // start at the window
   p.n = max(0, j_end - p.j0);
   repro::tc::run_block<HD, TW>(p, scale_log2);
 }
@@ -205,7 +218,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
   const uint64_t qd[5] = {HD, (uint64_t)G, (uint64_t)Hkv, (uint64_t)S, (uint64_t)B};
   const uint32_t qb[5] = {L::AW, (uint32_t)G, 1, (uint32_t)BQ, 1};
   const uint64_t kd[4] = {HD, (uint64_t)Hkv, (uint64_t)T_len, (uint64_t)B};
-  const uint32_t kb[4] = {L::AW, 1, repro::tc::BK, 1};
+  const uint32_t kb[4] = {L::AW, 1, (uint32_t)repro::tc::key_tile<HD>(), 1};
   int err = repro::tc::make_map<HD>(&qm, q, 5, qd, qb);
   if (err == 0) err = repro::tc::make_map<HD>(&km, k, 4, kd, kb);
   if (err == 0) err = repro::tc::make_map<HD>(&vm, v, 4, kd, kb);
@@ -232,6 +245,8 @@ int by_hd_tc(int hd, const void* q, const void* k, const void* v, void* out, int
       return launch_tc<128>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
     case 160:
       return launch_tc<160>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+    case 256:
+      return launch_tc<256>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
   }
   return -1;
 }

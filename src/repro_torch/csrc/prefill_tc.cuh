@@ -21,7 +21,8 @@
 // consumer warpgroups take turns to issue Q.K^T (Turn<W>), so one's softmax
 // runs under the other's MMAs.
 //
-// Consumers, per tile: S = Q.K^T by wgmma m64n128k16 (bf16 in, fp32 out, Q
+// Consumers, per tile: S = Q.K^T by wgmma m64n128k16 (m64n64k16 over the
+// 64-key tiles of hd 256; bf16 in, fp32 out, Q
 // and K both K-major in shared memory), the online softmax in registers (the
 // row max and sum reduced over the 4 threads of the accumulator layout that
 // share a row; exp2 with scale*log2(e) folded into the scores; masked scores
@@ -37,7 +38,12 @@
 // HD bf16 in the swizzle TMA and wgmma agree on: 128-byte atom rows for hd
 // 64 and 128 (two atoms side by side, each its own region, for 128), 64-byte
 // rows (the 64-byte swizzle) for the head dims 64 does not divide: one
-// region for hd 32, five for hd 160; regions 1024-byte aligned.
+// region for hd 32, five for hd 160; regions 1024-byte aligned. hd 256 has
+// four 128-byte regions, K/V tiles of 64 keys (key_tile) and P.V one wgmma
+// m64n256k16 per k-step and term: O is 128 registers a consumer thread, S
+// 32 and the three P terms 48, under the 232 that setmaxnreg hands out, and
+// the block holds 193 KB of shared memory (Q 64 KB, two stages of K and V
+// 128 KB).
 // Layout<HD>::off is that swizzle, used by the producer's own writes and the
 // epilogue. At hd 160 P.V is one wgmma m64n160k16 per k-step and term (V an
 // MN-major operand five 64-byte atoms wide, its leading byte offset the
@@ -80,6 +86,14 @@ namespace repro {
 namespace tc {
 
 constexpr int BK = 128;     // keys per K/V tile (= producer threads: one row each)
+// Keys per K/V tile at head dim HD: BK, or 64 at hd 256, where a 128-key
+// tile would leave the consumers no registers (O alone is 128 a thread)
+// and two stages of it no shared memory. Tiles of 64 keys are TMA tiles
+// only: the producer threads write rows of manual tiles one each, BK of them.
+template <int HD>
+__host__ __device__ constexpr int key_tile() {
+  return HD == 256 ? 64 : BK;
+}
 constexpr int STAGES = 2;   // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -97,8 +111,8 @@ struct Regs {
 
 template <int HD>
 struct Layout {
-  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 160,
-                "head dims 32, 64, 128, 160");
+  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 160 || HD == 256,
+                "head dims 32, 64, 128, 160, 256");
   static constexpr int AW = HD % 64 == 0 ? 64 : 32;   // elements per swizzle-atom row
   static constexpr int AB = AW * 2;              // its bytes: 128 or 64
   static constexpr int CPA = AB / 16;            // 16-byte chunks per atom row
@@ -241,6 +255,20 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
 #define TC_D32(i) TC_D16(i), TC_D16(i + 16)
 #define TC_D64(i) TC_D32(i), TC_D32(i + 32)
 
+// S (64 x 64) = A (64 x 16, smem) . B (64 x 16, smem)^T, both K-major; scale_d 0
+// overwrites d, 1 accumulates.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_D32(0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // S (64 x 128) = A (64 x 16, smem) . B (128 x 16, smem)^T, both K-major; scale_d 0
 // overwrites d, 1 accumulates.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
@@ -313,6 +341,26 @@ __device__ __forceinline__ void wgmma_rs_n160(float (&d)[80], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (64 x 256) += A (64 x 16, registers) . B (16 x 256, smem, MN-major: imm-trans-b 1).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
+      "%123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : TC_D64(0), TC_D64(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int HD>
 __device__ __forceinline__ void wgmma_rs(float (&o)[HD / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -322,8 +370,21 @@ __device__ __forceinline__ void wgmma_rs(float (&o)[HD / 2], const uint32_t (&a)
     wgmma_rs_n64(o, a, db);
   } else if constexpr (HD == 128) {
     wgmma_rs_n128(o, a, db);
-  } else {
+  } else if constexpr (HD == 160) {
     wgmma_rs_n160(o, a, db);
+  } else {
+    wgmma_rs_n256(o, a, db);
+  }
+}
+
+// S (64 x KB) = Q . K^T over one 16-element k-step, KB the key tile.
+template <int KB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[KB / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (KB == 64) {
+    wgmma_ss_n64(d, da, db, scale_d);
+  } else {
+    wgmma_ss_n128(d, da, db, scale_d);
   }
 }
 
@@ -333,7 +394,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // One K/V tile of one consumer warpgroup: its 64 query rows (q_addr: their
-// first row in region 0 of the Q tile of R rows) against the BK keys at
+// first row in region 0 of the Q tile of R rows) against the KB keys at
 // k_addr / v_addr. Each thread holds rows r0 and r0 + 8 of the warpgroup's
 // 64 (the accumulator layout): half h of s[j*4 + e] is e >> 1, its column
 // j*8 + col0 + (e & 1). `live(h, c)` decides a key where `masked` is set.
@@ -343,18 +404,19 @@ __device__ __forceinline__ void attend_tile(float (&o)[HD / 2], float (&m)[2], f
                                             float scale_log2, bool masked, const Live& live,
                                             int col0, const Turn& turn) {
   using L = Layout<HD>;
-  float s[BK / 2];
+  constexpr int KB = key_tile<HD>();
+  float s[KB / 2];
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
+  for (int i = 0; i < KB / 2; ++i) s[i] = 0.0f;
   fence_regs(s);
   turn.wait();
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {   // 16 elements = 32 bytes of hd per step
     const uint32_t region = kk * 32 / L::AB, within = kk * 32 % L::AB;
-    wgmma_ss_n128(s, desc(q_addr + region * R * L::AB + within, 16, 8 * L::AB, L::MODE),
-                  desc(k_addr + region * BK * L::AB + within, 16, 8 * L::AB, L::MODE),
-                  kk > 0);
+    wgmma_ss<KB>(s, desc(q_addr + region * R * L::AB + within, 16, 8 * L::AB, L::MODE),
+                 desc(k_addr + region * KB * L::AB + within, 16, 8 * L::AB, L::MODE),
+                 kk > 0);
   }
   wgmma_commit();
   turn.pass();
@@ -363,13 +425,13 @@ __device__ __forceinline__ void attend_tile(float (&o)[HD / 2], float (&m)[2], f
 
   if (masked) {
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int j = 0; j < KB / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         s[j * 4 + e] = live(e >> 1, j * 8 + col0 + (e & 1)) ? s[j * 4 + e] * scale_log2 : NEG;
   } else {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) s[i] *= scale_log2;
+    for (int i = 0; i < KB / 2; ++i) s[i] *= scale_log2;
   }
 
   float alpha[2];
@@ -377,7 +439,7 @@ __device__ __forceinline__ void attend_tile(float (&o)[HD / 2], float (&m)[2], f
   for (int h = 0; h < 2; ++h) {
     float mx = m[h];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j * 4 + 2 * h], s[j * 4 + 2 * h + 1]));
+    for (int j = 0; j < KB / 8; ++j) mx = fmaxf(mx, fmaxf(s[j * 4 + 2 * h], s[j * 4 + 2 * h + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     alpha[h] = exp2_ftz(m[h] - mx);
@@ -385,7 +447,7 @@ __device__ __forceinline__ void attend_tile(float (&o)[HD / 2], float (&m)[2], f
   }
   float sum[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
+  for (int j = 0; j < KB / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = exp2_ftz(s[j * 4 + e] - m[e >> 1]);
@@ -404,9 +466,9 @@ __device__ __forceinline__ void attend_tile(float (&o)[HD / 2], float (&m)[2], f
   // k-steps of 16 keys (the accumulator layout of n8 blocks 2kk and 2kk+1
   // is the A layout of k-step kk): P.V = hi.V + mid.V + lo.V keeps p to
   // ~24 bits, as fp32 does.
-  uint32_t pa[3][BK / 16][4];
+  uint32_t pa[3][KB / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
+  for (int kk = 0; kk < KB / 16; ++kk)
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       float r0 = s[kk * 8 + 2 * x], r1 = s[kk * 8 + 2 * x + 1];
@@ -421,8 +483,8 @@ __device__ __forceinline__ void attend_tile(float (&o)[HD / 2], float (&m)[2], f
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {   // V: MN-major, 16 keys = 16 atom rows per step
-    const uint64_t dv = desc(v_addr + kk * 16 * L::AB, BK * L::AB, 8 * L::AB, L::MODE);
+  for (int kk = 0; kk < KB / 16; ++kk) {   // V: MN-major, 16 keys = 16 atom rows per step
+    const uint64_t dv = desc(v_addr + kk * 16 * L::AB, KB * L::AB, 8 * L::AB, L::MODE);
 #pragma unroll
     for (int term = 0; term < 3; ++term) wgmma_rs<HD>(o, pa[term][kk], dv);
   }
@@ -433,10 +495,11 @@ __device__ __forceinline__ void attend_tile(float (&o)[HD / 2], float (&m)[2], f
 
 template <int HD, int W>
 constexpr size_t smem_bytes() {
-  return 1024 + (size_t)64 * W * HD * 2 + (size_t)STAGES * 2 * BK * HD * 2 +
+  return 1024 + (size_t)64 * W * HD * 2 + (size_t)STAGES * 2 * key_tile<HD>() * HD * 2 +
          8 * (1 + 2 * STAGES);
 }
 static_assert(smem_bytes<160, 2>() <= 232448, "hd 160 fits the 227 KB opt-in");
+static_assert(smem_bytes<256, 2>() <= 232448, "hd 256 fits the 227 KB opt-in");
 
 // The block body. Plan (device methods, see flash_prefill.cu):
 //   count()                      K/V tiles the block walks
@@ -452,8 +515,8 @@ template <int HD, int W, typename Plan>
 __device__ __forceinline__ void run_block(const Plan& plan, float scale_log2) {
   using L = Layout<HD>;
   constexpr int R = 64 * W;
-  constexpr uint32_t Q_BYTES = R * HD * 2, KV_BYTES = BK * HD * 2;
-  static_assert(BK == 128, "one producer thread per key row");
+  constexpr uint32_t Q_BYTES = R * HD * 2, KV_BYTES = key_tile<HD>() * HD * 2;
+  static_assert(BK == 128, "one producer thread per key row of a manual tile");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // swizzled TMA boxes: 1024-byte aligned
@@ -533,18 +596,19 @@ __device__ __forceinline__ void run_block(const Plan& plan, float scale_log2) {
   }
 }
 
-// TMA loads of the K and V tile of keys [k, k + BK) of kv head h, row b, from
-// (B, T, Hkv, HD) maps into a stage (both hd regions).
+// TMA loads of the K and V tile of keys [k, k + key_tile<HD>()) of kv head h,
+// row b, from (B, T, Hkv, HD) maps into a stage (every hd region).
 template <int HD>
 __device__ __forceinline__ void load_kv_tma(const CUtensorMap* kmap, const CUtensorMap* vmap,
                                             uint32_t k_dst, uint32_t v_dst, uint32_t bar,
                                             int h, int k, int b) {
   using L = Layout<HD>;
-  mbar_expect_tx(bar, 2 * L::REGIONS * L::AB * BK);
+  constexpr int KB = key_tile<HD>();
+  mbar_expect_tx(bar, 2 * L::REGIONS * L::AB * KB);
 #pragma unroll
   for (int g = 0; g < L::REGIONS; ++g) {
-    tma_load_4d(k_dst + g * BK * L::AB, kmap, bar, g * L::AW, h, k, b);
-    tma_load_4d(v_dst + g * BK * L::AB, vmap, bar, g * L::AW, h, k, b);
+    tma_load_4d(k_dst + g * KB * L::AB, kmap, bar, g * L::AW, h, k, b);
+    tma_load_4d(v_dst + g * KB * L::AB, vmap, bar, g * L::AW, h, k, b);
   }
 }
 

@@ -18,20 +18,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_decode import HEAD_DIMS
+from repro_torch.kernels.paged_decode import HEAD_DIMS, WIDE_HEAD_DIMS
 
 # Query heads per kv head a block can hold: a block's rows are BQ positions
-# times the G heads, at most 64 in the SIMT body and 64 per consumer
+# times the G heads, at most 64 in the SIMT body (32 at hd 256, where 64
+# fp32 rows and their tiles overflow shared memory) and 64 per consumer
 # warpgroup in the tensor-core body (BQ = 64·W // G >= 1).
 MAX_GROUP = 64
+MAX_GROUP_HD256 = 32
 
 
-def check_group(name: str, hd: int, g: int) -> None:
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} unsupported (need {HEAD_DIMS})")
-    if not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"{name}: group {g} unsupported: a block holds at most {MAX_GROUP} "
-                         "query heads per kv head")
+def check_group(name: str, hd: int, g: int, head_dims=HEAD_DIMS) -> None:
+    if hd not in head_dims:
+        raise ValueError(f"{name}: head dim {hd} unsupported (need {head_dims})")
+    most = MAX_GROUP_HD256 if hd == 256 else MAX_GROUP
+    if not 1 <= g <= most:
+        raise ValueError(f"{name}: group {g} unsupported: a block holds at most {most} "
+                         f"query heads per kv head at hd {hd}")
 
 
 def flash_prefill(
@@ -45,7 +48,7 @@ def flash_prefill(
     build.check_cuda("flash_prefill", q=q, k=k, v=v)
     b, s, hkv, g, hd = q.shape
     t = k.shape[1]
-    check_group("flash_prefill", hd, g)
+    check_group("flash_prefill", hd, g, WIDE_HEAD_DIMS)
     if k.shape != (b, t, hkv, hd) or v.shape != k.shape:
         raise ValueError(f"flash_prefill: k/v {tuple(k.shape)}/{tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")

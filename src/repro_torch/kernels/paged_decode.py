@@ -27,6 +27,11 @@ from repro_torch.kernels import build
 # Head dims the attention kernels are built for (every body: decode,
 # tensor-core and SIMT prefill, the int8 pool write).
 HEAD_DIMS = (32, 64, 128, 160)
+# ... and those the ring decode kernels (paged_decode_ring, swa_decode) and
+# flash_prefill also take: hd 256, recurrentgemma-2b's local attention,
+# which has no paged pool (the table decode, suffix prefill and the int8
+# pool write refuse it).
+WIDE_HEAD_DIMS = HEAD_DIMS + (256,)
 RING_TILE = 64       # keys per tile of the decode body; ranges start at multiples of it
 MAX_RANGES = 16      # ranges per row at most (csrc/decode.cuh holds the same bound)
 RANGE_ELEMS = 16384  # K elements a range holds at least (256 keys at hd 64)
@@ -38,11 +43,11 @@ def kernel_head_dim(hd: int) -> int:
     (phi4-mini's smoke config, whose rows of 30 elements the kernels cannot
     read 16 bytes at a time), the extra dims zero and the softmax scale
     still 30**-0.5; any other hd raises."""
-    if hd in HEAD_DIMS:
+    if hd in WIDE_HEAD_DIMS:
         return hd
     if hd == 30:
         return 32
-    raise ValueError(f"head dim {hd}: the attention kernels take {HEAD_DIMS} (and 30, "
+    raise ValueError(f"head dim {hd}: the attention kernels take {WIDE_HEAD_DIMS} (and 30, "
                      "padded to 32)")
 
 
@@ -165,8 +170,8 @@ def check_ring(name, q, k, v, pos):
     Hkv, hd) of q's dtype, pos (B,) int32, all contiguous on one card."""
     build.check_cuda(name, q=q, k=k, v=v, pos=pos)
     b, hkv, g, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if hd not in WIDE_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {WIDE_HEAD_DIMS}")
     if k.dim() != 4 or k.shape[0] != b or k.shape[2:] != (hkv, hd) or v.shape != k.shape:
         raise ValueError(f"{name}: rings {tuple(k.shape)}/{tuple(v.shape)} do not match q "
                          f"{tuple(q.shape)}")

@@ -489,6 +489,10 @@ class ServeEngine:
         graphs: bool = True,
         mesh=None,
     ):
+        if model.init_slot_cache is None or model.prefill_slots is None:
+            raise ValueError(
+                f"arch {model.cfg.name!r} ({model.cfg.arch_type}) has no slot-cache API; the "
+                "engine serves the transformer family")
         if prefill not in PREFILL_MODES:
             raise ValueError(f"prefill {prefill!r} not in {PREFILL_MODES}")
         if num_slots < 1:
@@ -1618,6 +1622,9 @@ class ServeEngine:
         now = self._now()
         new_pos = np.zeros(self.num_slots, np.int32)
         mask = np.zeros(self.num_slots, bool)
+        # a recurrent draft's rollback: the snapshot after each row's last
+        # kept token (the rows without a live slot keep the last one)
+        snap_idx = np.full(self.num_slots, kk, np.int32)
         for j, i in enumerate(live):
             slot = self.slots[i]
             kr = k_r[i]
@@ -1645,6 +1652,7 @@ class ServeEngine:
             self.spec_accepted += appended - 1
             new_pos[i] = p + appended
             mask[i] = True
+            snap_idx[i] = appended - 1
             if done:
                 # _retire frees every slot page, lookahead included: a
                 # rollback first would free some twice
@@ -1656,7 +1664,7 @@ class ServeEngine:
                 self._draft_pos[i] = p + appended
         mask_t, pos_t = self._tensor(mask), self._tensor(new_pos)
         self._slots["pos"].copy_(torch.where(mask_t, pos_t, self._slots["pos"]))
-        self.draft.commit(mask_t, pos_t)
+        self.draft.commit(mask_t, pos_t, self._tensor(snap_idx))
         self.occupancy.append(self.pool.in_use / max(self.pool.capacity, 1))
 
     def decode_step(self, feed: np.ndarray) -> torch.Tensor:

@@ -39,14 +39,23 @@ and their log-probs are read by the acceptance test after the verify
 graph has replayed, so ``propose`` copies them out of the graph pool into
 buffers of the draft's own.
 
-The reference's recurrent draft (``XlstmDraft``, snapshot rollback for
-``ssm`` models) needs the xlstm family, which the port does not have yet."""
+``XlstmDraft``: the draft is recurrent (``arch_type == "ssm"``, e.g.
+xlstm-125m), and its state cannot be truncated by position. Its re-sync
+resets the refreshed rows to the empty state (``xlstm.select_rows``) and
+teacher-forces the padded prompts through the decode step, each row frozen
+past its own length; ``propose`` copies the state after each of its k + 1
+steps into a snapshot stack of the draft's own (allocated once, outside
+the graph pool, since ``commit`` reads it after the verify graph); and
+``commit`` restores each row to the snapshot just after its last accepted
+token (``xlstm.gather_snapshots``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.launch.graphs import GraphCache
 from repro_torch.launch.sampling import draw, filter_logits
+from repro_torch.models import xlstm
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 RING_ALIGN = 64  # the ring decode kernel's smallest page
 
@@ -70,6 +79,15 @@ def _propose_step(logits: torch.Tensor, u_t: torch.Tensor | None, greedy: torch.
     return d, torch.log_softmax(flt, dim=-1)
 
 
+def _upcast_unembed(model, params: dict) -> dict:
+    """``lm_logits`` multiplies in fp32: the draft's params with an untied
+    unembedding upcast once, as the engine does for the target."""
+    if model.cfg.tie_embeddings:
+        return params
+    return {**params, "embed": {**params["embed"],
+                                "unembed": params["embed"]["unembed"].float()}}
+
+
 class TransformerDraft:
     """Ring-cache draft backend (KV-cache models)."""
 
@@ -78,13 +96,7 @@ class TransformerDraft:
         self.model = model
         # the engine's cache (one pool, one set of counts), else its own
         self.graphs = graphs if graphs is not None else GraphCache(device)
-        # lm_logits multiplies in fp32: upcast the unembedding once, as the
-        # engine does for the target
-        if not model.cfg.tie_embeddings:
-            params = {**params, "embed": {
-                **params["embed"], "unembed": params["embed"]["unembed"].float(),
-            }}
-        self.params = params
+        self.params = _upcast_unembed(model, params)
         self.spec_tokens = spec_tokens
         self.cap = -(-(cap + spec_tokens + 1) // RING_ALIGN) * RING_ALIGN
         self.cache = model.init_slot_cache(num_slots, self.cap, device=device)
@@ -136,19 +148,87 @@ class TransformerDraft:
         self._logq.copy_(logq)
         return self._drafts, self._logq
 
-    def commit(self, mask: torch.Tensor, new_pos: torch.Tensor) -> None:
+    def commit(self, mask: torch.Tensor, new_pos: torch.Tensor,
+               snap_idx: torch.Tensor | None = None) -> None:
         """Truncate the rows in ``mask`` to their accepted position (a
-        rollback, or the fully accepted row's forward move)."""
+        rollback, or the fully accepted row's forward move); ``snap_idx``
+        is the recurrent draft's and unused here."""
         self.cache["pos"].copy_(torch.where(mask, new_pos.to(torch.int32), self.cache["pos"]))
 
 
+def _copy_tree_(dst, src) -> None:
+    for d, x in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(x)
+
+
+class XlstmDraft:
+    """Recurrent-state draft backend (``ssm`` models)."""
+
+    def __init__(self, model, params: dict, *, num_slots: int, spec_tokens: int, device,
+                 graphs: GraphCache | None = None):
+        self.model = model
+        self.graphs = graphs if graphs is not None else GraphCache(device)
+        self.params = _upcast_unembed(model, params)
+        self.spec_tokens = spec_tokens
+        self.cache = model.init_cache(num_slots, 1, device=device)
+        self._empty = xlstm.state_tree(model.init_cache(num_slots, 1, device=device))
+        # snapshot s = the state after s + 1 of a round's k + 1 steps
+        self._snaps = tree_map(lambda x: x.new_zeros((spec_tokens + 1, *x.shape)),
+                               xlstm.state_tree(self.cache))
+        self._drafts = self._logq = None
+
+    def prefill_rows(self, tokens: torch.Tensor, lengths: torch.Tensor) -> None:
+        """Re-sync the rows with ``lengths > 0`` from the empty state: row r
+        consumes its first lengths[r] tokens; the other rows are untouched."""
+        def fn(t, n):
+            state = xlstm.state_tree(self.cache)
+            _copy_tree_(state, xlstm.select_rows(n > 0, self._empty, state))
+            for i in range(t.shape[1]):
+                before = tree_map(torch.clone, state)
+                self.model.decode(self.params, self.cache, t[:, i:i + 1])
+                _copy_tree_(state, xlstm.select_rows(i < n, state, before))
+            return ()
+
+        self.graphs("draft_prefill", (), fn, tokens, lengths)
+
+    def _propose(self, feed, u, greedy, temps, topks, topps):
+        vocab = self.model.cfg.vocab_size
+        state = xlstm.state_tree(self.cache)
+        cur = feed.to(torch.int32)
+        ds, lqs = [], []
+        for t in range(self.spec_tokens + 1):
+            _, logits = self.model.decode(self.params, self.cache, cur[:, None])
+            for snap, x in zip(tree_leaves(self._snaps), tree_leaves(state)):
+                snap[t].copy_(x)
+            if t == self.spec_tokens:   # the trailing step: its output is dropped
+                break
+            cur, lq = _propose_step(logits, None if u is None else u[:, t], greedy, temps,
+                                    topks, topps, vocab)
+            ds.append(cur)
+            lqs.append(lq)
+        return torch.stack(ds, dim=1), None if u is None else torch.stack(lqs, dim=1)
+
+    propose = TransformerDraft.propose
+
+    def commit(self, mask: torch.Tensor, new_pos: torch.Tensor,
+               snap_idx: torch.Tensor) -> None:
+        """Restore every row from its accepted-point snapshot (snap_idx[r],
+        clipped to 0..k). Rows without a live slot take a valid snapshot
+        that the next re-sync overwrites."""
+        idx = snap_idx.to(self.cache["pos"].device).clamp(0, self.spec_tokens)
+        _copy_tree_(xlstm.state_tree(self.cache), xlstm.gather_snapshots(self._snaps, idx))
+
+
 def make_draft_backend(model, params: dict, *, num_slots: int, cap: int, spec_tokens: int,
-                       device, graphs: GraphCache | None = None) -> TransformerDraft:
-    """The draft's state layout for a model: a ring cache for the models
-    with the slot-cache API. Recurrent (``ssm``) drafts are not ported."""
+                       device, graphs: GraphCache | None = None):
+    """The draft's state layout for a model: a ring cache where the model
+    has the slot-cache API, snapshots of the recurrent state for ``ssm``
+    models."""
+    if model.init_slot_cache is not None and model.prefill_slots is not None:
+        return TransformerDraft(model, params, num_slots=num_slots, cap=cap,
+                                spec_tokens=spec_tokens, device=device, graphs=graphs)
     if model.cfg.arch_type == "ssm":
-        raise NotImplementedError(
-            f"draft {model.cfg.name!r} is recurrent (ssm): its snapshot-rollback backend "
-            "needs the xlstm family, a later slice of the port")
-    return TransformerDraft(model, params, num_slots=num_slots, cap=cap,
-                            spec_tokens=spec_tokens, device=device, graphs=graphs)
+        return XlstmDraft(model, params, num_slots=num_slots, spec_tokens=spec_tokens,
+                          device=device, graphs=graphs)
+    raise ValueError(f"draft arch {model.cfg.name!r} ({model.cfg.arch_type}) has neither a "
+                     "slot-cache API nor recurrent decode state")

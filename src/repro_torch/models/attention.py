@@ -316,3 +316,32 @@ def decode_attend(params, x: torch.Tensor, cache, cfg: ModelConfig, *, window: i
     ``wo``."""
     out = map_shards(_decode_ring_heads, params, cache, x, cfg, window, paged)
     return gather_heads(out) @ replica(params)["wo"]
+
+
+def fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The whole-prompt ring write of a lockstep batch, in place: the S
+    tokens of k/v (B, S, Hkv, hd), positions 0..S-1, into the ring
+    (B, C, Hkv, hd) at slots position mod C. When S >= C only the last C
+    tokens survive (the reference's roll by +first position); when S < C
+    slots S.. keep their old value. ``fill_cache_rows`` with every row's
+    length S."""
+    lengths = torch.full((k.shape[0],), k.shape[1], dtype=torch.int32, device=k.device)
+    new_k, new_v = fill_cache_rows(cache["k"], cache["v"], k, v, lengths)
+    cache["k"].copy_(new_k)
+    cache["v"].copy_(new_v)
+
+
+def prefill_local_attend(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                         cfg: ModelConfig, cache: dict, *, window: int) -> torch.Tensor:
+    """Whole-prompt prefill of one local-attention layer (the hybrid's): x
+    (B, S, D) at positions 0..S-1 attends causally within ``window``
+    through the flash-prefill kernel (the reference's ``attend_full`` in
+    this role), and the prompt's rotated k/v fill the layer's ring
+    ``cache`` ({"k"/"v": (B, C, Hkv, hd)}) in place (``fill_cache``).
+    Returns the output after ``wo``."""
+    b, s, _ = x.shape
+    k, v = compute_kv_for_prefill(params, x, positions, cfg)
+    q, k, v = _kernel_heads(cfg, _queries(params, x, positions, cfg), k, v)
+    out = ops.flash_prefill_attention(q, k, v, window=window, scale=_kernel_scale(cfg))
+    fill_cache(cache, k, v)
+    return _model_heads(cfg, out).reshape(b, s, -1) @ params["wo"]

@@ -1,5 +1,5 @@
-"""Shared layers: RMS norm, rotary embedding, SwiGLU MLP, the training loss,
-initializers.
+"""Shared layers: RMS norm, rotary embedding, the gated MLP (SwiGLU, GeGLU),
+the training loss, initializers.
 
 Plain functions on tensors with the reference package's conventions:
 parameters are dicts of tensors, layer math runs in the model dtype with
@@ -48,9 +48,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
-    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default is
+    the exact erf form, which differs from it by up to ~1e-3)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The gated MLP: (act(x @ w_gate) * (x @ w_up)) @ w_down, SwiGLU for
+    ``act == "silu"``, GeGLU (tanh GELU) for "gelu"."""
+    act_fn = F.silu if act == "silu" else gelu
+    return (act_fn(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
 
 
 def cross_entropy_loss(

@@ -56,7 +56,7 @@ def _dense_ffn_init(cfg: ModelConfig, generator: torch.Generator, device) -> dic
 
 
 def _dense_ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, aux: bool = True):
-    return apply_mlp(params, x), 0.0
+    return apply_mlp(params, x, cfg.act), 0.0
 
 
 DENSE_FFN = FFNHooks(_dense_ffn_init, _dense_ffn_apply)

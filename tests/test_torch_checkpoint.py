@@ -35,11 +35,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _trees(dtype):
-    cfg = get_smoke_config("stablelm-1.6b")
+def _trees(dtype, arch="stablelm-1.6b"):
+    """The same smoke params in both packages, each leaf in the port's
+    dtype (xlstm's gate biases stay float32 in a bf16 tree, in both)."""
+    cfg = get_smoke_config(arch)
     tree = numpy_params(cfg, 4)
     port = params_from_numpy(tree, cfg, "cpu", getattr(torch, dtype))
-    ref = jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(dtype), tree)
+    ref = jax.tree_util.tree_map(
+        lambda a, p: jnp.asarray(a).astype(jnp.bfloat16 if p.dtype == torch.bfloat16
+                                          else jnp.float32), tree, port)
     return port, ref
 
 
@@ -53,16 +57,20 @@ def _ref_bits(tree):
             for x in jax.tree_util.tree_leaves(tree)]
 
 
+@pytest.mark.parametrize("arch,key", [("stablelm-1.6b", "['layers']/['attn']/['wq']"),
+                                      ("xlstm-125m", "['periods']/['pos1']/['blk']/['r_z']")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_checkpoints_cross_between_packages_bitwise(tmp_path, dtype):
-    port, ref = _trees(dtype)
+def test_checkpoints_cross_between_packages_bitwise(tmp_path, dtype, arch, key):
+    """Also the recurrent families' periodic trees (lists and None walked
+    as ``jax.tree_util`` walks them)."""
+    port, ref = _trees(dtype, arch)
     Checkpointer(str(tmp_path / "p")).save(7, port)
     RefCheckpointer(str(tmp_path / "r")).save(7, ref)
     # the same manifest, key for key
     manifests = [json.loads((tmp_path / d / "step_00000007" / "manifest.json").read_text())
                  for d in ("p", "r")]
     assert manifests[0] == manifests[1]
-    assert "['layers']/['attn']/['wq']" in manifests[0]["leaves"]
+    assert key in manifests[0]["leaves"]
     # port → reference, reference → port, each bit for bit
     from_port = RefCheckpointer(str(tmp_path / "p")).restore(7, ref)
     from_ref = Checkpointer(str(tmp_path / "r")).restore(7, port)
@@ -70,7 +78,8 @@ def test_checkpoints_cross_between_packages_bitwise(tmp_path, dtype):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(_port_bits(from_ref), _port_bits(port)):
         np.testing.assert_array_equal(a, b)
-    assert all(x.dtype == getattr(torch, dtype) for x in tree_leaves(from_ref))
+    assert [x.dtype for x in tree_leaves(from_ref)] == [x.dtype for x in tree_leaves(port)]
+    assert getattr(torch, dtype) in {x.dtype for x in tree_leaves(from_ref)}
     # the payloads hold the same arrays under the same names
     with np.load(tmp_path / "p" / "step_00000007" / "arrays.npz") as a, \
             np.load(tmp_path / "r" / "step_00000007" / "arrays.npz") as b:

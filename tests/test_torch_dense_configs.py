@@ -79,7 +79,8 @@ def test_configs_are_the_references():
         assert dataclasses.asdict(get_smoke_config(arch)) == \
             dataclasses.asdict(ref_smoke_config(arch)), arch
     assert get_smoke_config("phi4-mini-3.8b").resolved_head_dim == 30
-    assert set(ARCH_IDS) == {"stablelm-1.6b", *ARCHS, "olmoe-1b-7b", "qwen3-moe-235b-a22b"}
+    assert set(ARCH_IDS) == {"stablelm-1.6b", *ARCHS, "olmoe-1b-7b", "qwen3-moe-235b-a22b",
+                             "xlstm-125m", "recurrentgemma-2b"}
 
 
 @pytest.mark.parametrize("arch", (*ARCHS, "olmoe-1b-7b", "qwen3-moe-235b-a22b"))
@@ -209,8 +210,9 @@ def test_port_engine_matches_reference(arch):
 # ------------------------------------------------------ padded head dims
 def test_head_dim_rules():
     assert HEAD_DIMS == (32, 64, 128, 160)
-    assert [kernel_head_dim(hd) for hd in (30, 32, 64, 128, 160)] == [32, 32, 64, 128, 160]
-    for hd in (16, 31, 96, 256):
+    assert [kernel_head_dim(hd) for hd in (30, 32, 64, 128, 160, 256)] == \
+        [32, 32, 64, 128, 160, 256]
+    for hd in (16, 31, 96, 512):
         with pytest.raises(ValueError, match="head dim"):
             kernel_head_dim(hd)
     # hd 160: ranges of at least 16384 / 160 keys, rounded up to the 64-key tile

@@ -907,3 +907,52 @@ def test_prefill_libraries_run_on_tensor_cores_cuda(sm90):
                                     torch.zeros(1, 4, 1, 64, device="cuda"),
                                     torch.zeros(1, 4, 1, 64, device="cuda"))
     assert ops.LAUNCHES["flash_prefill"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hd256_kernels_match_plain_cuda(sm90, dtype):
+    """recurrentgemma-2b's local attention (hd 256, 10 query heads over 1 kv
+    head): ``paged_decode_ring`` and ``swa_decode`` against their plain
+    versions over rings of 2048 (rows short of the ring, on a range
+    boundary, wrapped; windows 0 and 2048), BITWISE equal to each other at
+    every page size and batch invariant; ``flash_prefill`` (ragged S,
+    windows 0, 40 and 2048) within the gate of its plain version. The table
+    decode refuses hd 256 (no paged pool serves the hybrid)."""
+    from repro_torch.kernels.paged_decode import paged_decode_ring
+    from repro_torch.kernels.swa_decode import swa_decode
+
+    gen = torch.Generator().manual_seed(256)
+    tol = RTOL[{torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]]
+    b, cap, g, hd = 4, 2048, 10, 256
+    q = torch.randn(b, 1, g, hd, generator=gen).to("cuda", dtype)
+    k, v = (torch.randn(b, cap, 1, hd, generator=gen).to("cuda", dtype) for _ in "kv")
+    split = split_len(cap, hd)
+    pos = torch.tensor([split - 1, 700, cap + 100, 3 * cap + 5], dtype=torch.int32,
+                       device="cuda")
+    for window in (0, 2048):
+        swa = swa_decode(q, k, v, pos, window)
+        assert _err_rms(swa, ref.swa_decode_ref(q.float(), k.float(), v.float(), pos,
+                                                window)) <= tol
+        for page in (0, 64, 256, 512):
+            assert torch.equal(paged_decode_ring(q, k, v, pos, window, page=page), swa)
+        for r in range(b):
+            alone = swa_decode(*(x[r:r + 1].contiguous() for x in (q, k, v, pos)), window)
+            assert torch.equal(alone, swa[r:r + 1])
+    pk, pv, table = _ring_as_pool(k, v, 16)
+    with pytest.raises(ValueError, match="head dim 256"):
+        ops.paged_decode_attention(q, pk, pv, pos, table)
+    for s in (100, 1000):
+        qs, ks, vs = _prefill_case(gen, dtype, 2, s, 1, g, hd)
+        for window in (0, 40, 2048):
+            out = ops.flash_prefill_attention(qs, ks, vs, window=window)
+            exact = ref.flash_prefill_ref(qs.float(), ks.float(), vs.float(), window=window)
+            err = (out.float() - exact).abs()
+            if dtype == torch.bfloat16:
+                # elements within one bf16 ulp of the exact output rounded to
+                # bf16 are rounding flips, left out (chip_smoke.py's
+                # _flip_gated): the early rows' outputs (few keys) are many
+                # times the RMS, so one ulp there is ~0.13 x RMS
+                ulps = (out.view(torch.int16).int()
+                        - exact.to(dtype).view(torch.int16).int()).abs()
+                err = torch.where(ulps > 1, err, torch.zeros_like(err))
+            assert (err.max() / exact.pow(2).mean().sqrt()).item() <= tol, (s, window)

@@ -216,7 +216,7 @@ def test_batched_prefill_matches_own_looped_prefill():
 
 
 def test_other_families_raise():
-    for family in ("vlm", "hybrid", "ssm", "audio"):
+    for family in ("vlm", "audio"):
         cfg = dataclasses.replace(get_smoke_config(ARCH), arch_type=family)
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model(cfg)

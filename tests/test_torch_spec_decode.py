@@ -435,11 +435,17 @@ def test_gating_errors():
 
 
 def test_ssm_draft_raises():
-    cfg, _ = _cfgs()
-    ssm = dataclasses.replace(cfg, arch_type="ssm", name="xlstm-125m-smoke")
-    fake = dataclasses.replace(build_model(cfg), cfg=ssm)
-    with pytest.raises(NotImplementedError, match="xlstm"):
-        make_draft_backend(fake, {}, num_slots=2, cap=16, spec_tokens=2, device="cpu")
+    """A draft with neither the slot-cache API nor recurrent (ssm) state is
+    refused, as the reference refuses it; an ssm draft gets the recurrent
+    backend (``tests/test_torch_xlstm.py`` holds its tokens to the
+    reference's)."""
+    hybrid = build_model(get_smoke_config("recurrentgemma-2b"))
+    with pytest.raises(ValueError, match="neither a slot-cache API"):
+        make_draft_backend(hybrid, {}, num_slots=2, cap=16, spec_tokens=2, device="cpu")
+    ssm = build_model(get_smoke_config("xlstm-125m"))
+    draft = make_draft_backend(ssm, ssm.init(torch.Generator().manual_seed(0), "cpu"),
+                               num_slots=2, cap=16, spec_tokens=2, device="cpu")
+    assert type(draft).__name__ == "XlstmDraft"
 
 
 def test_serve_cli_speculates_on_cpu(capsys):

@@ -437,7 +437,10 @@ def test_train_cli_on_cpu_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
     )
-    env = {"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
+    # one intra-op thread, as the other subprocess CLI tests run: under the
+    # suite's 6 workers a team of threads per core stalled this smoke run
+    # past its 120 s (it takes ~5 s alone)
+    env = {"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1",
            "HOME": str(pathlib.Path.home()), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout
