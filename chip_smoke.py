@@ -121,6 +121,17 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    planted faults outside; bf16 timed (device and wrapper ms, the plain
    version's, SDPA's with ``enable_gqa``, the bound); phase 2 prints the
    hd-256 instantiations' registers and spills;
+3w-3x, 5w. whisper-medium's attention ([whisper-kernels]): ``flash_prefill``'s
+   non-causal mode at B 4, Hkv 16, G 1, hd 64 over T 1500 frames, with S =
+   1500 queries (the encoder, 3w), 64 (the prefill's cross-attention, 3x)
+   and 1, in bf16 (tensor cores) and float32 (SIMT): within ``RTOL`` of the
+   plain version (bf16: one-ulp flips left out), planted faults (the causal
+   mask applied; the last key dropped, T - 1 keys) outside;
+   ``swa_decode`` and ``paged_decode_ring`` over a ring of C 1500 at pos
+   1499 (the decode step's cross-attention: every slot live, one page of
+   the whole ring) within ``RTOL`` and BITWISE equal, faults outside; bf16
+   timed (device and wrapper ms, the plain version's, SDPA's with
+   ``is_causal=False``, the bound);
 4. golden: the port's engine replays the reference engine's float32 greedy
    trace (``src/repro_torch/testdata/golden_stablelm_smoke.json``) and must
    reproduce its tokens exactly;
@@ -174,6 +185,13 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    decode graph, the engine trace of the stablelm-1.6b smoke target with an
    xlstm-125m draft (tokens and counters identical), both families' FedAvg
    training (losses within ``GOLDEN_TRAIN_RTOL``);
+4j. golden pixtral and whisper ([golden-vlm-audio]): the reference's
+   float32 traces (``golden_vlm_audio_smoke.json``: numpy-seeded weights,
+   audio and patches): whisper's single batch (window 0, and 6 that its
+   prompts wrap) and pixtral's (from its tokens alone, as the reference's
+   ``serve_batch``) through ``generate_batch``'s decode graph, whisper's
+   prefill (the encoder and the prompt) and pixtral's (16 patches and the
+   prompt) then greedy decode: every token, the kernels launched;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -262,6 +280,20 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    faults outside; float32 over every layer within 1e-3 x scale); xlstm-125m
    (12 layers): the single batch and a prefill with decode steps, finite
    logits;
+5o. pixtral and whisper at their published widths ([vlm-audio-main]; bf16,
+   seeded random weights, audio and patches): whisper-medium's single batch
+   (4 x 64 + 64 over 1500 frames) through its decode graph (the encoder
+   wall, tok/s, the eager decode step's device time and launches, peak
+   memory), then a prefill and 16 decode steps through the kernels against
+   the plain versions (bf16 logits within 0.1 x scale, the causal mask in
+   the encoder outside; float32 over every layer within 1e-3 x scale, the
+   last frame dropped outside); pixtral-12b's prefill of 256 patches + 64
+   tokens and 32 decode steps, kernels against plain (bf16 within 0.1 x
+   scale, the causal mask dropped outside; float32 over 8 of 40 layers,
+   printed as a cut, within 1e-3 x scale, the mask shifted by one outside).
+   Then [train-vlm-audio]: one loss, backward and AdamW step taken twice on
+   one batch for whisper-medium whole and pixtral-12b over 4 of 40 layers
+   (printed as a cut): finite losses and parameters, the loss drops;
 5b. int8 main path: the same model over an int8 pool with a host tier; 8
    cold prompts of 256-384 tokens x 64 tokens in a pool tight enough that
    slots are preempted and swapped out, then 8 shared-prefix prompts x 32
@@ -378,7 +410,7 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    of 5e (the verify's suffix prefills, the draft's ring decode and re-sync
    prefills, the int8 verify's pool writes), the tensor-parallel traces of
    5k-5l, the other configs' traces of 5m, the recurrent families' runs of
-   5n, the training run and 7g),
+   5n, pixtral's and whisper's of 5o, the training run and 7g),
    then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -5376,18 +5408,20 @@ def phase_kernels_hd256(smi) -> list[dict]:
     return timed
 
 
-def _hd256_timed(smi, r: dict) -> dict:
-    """One timed row of phase 3g: device and wrapper ms of the kernel, the
-    plain version's and SDPA's device ms, the bound."""
+def _hd256_timed(smi, r: dict, tag: str = "hd256") -> dict:
+    """One timed row of phase 3g (3w-3x, 5w: ``tag`` "whisper-kernels"):
+    device and wrapper ms of the kernel, the plain version's and SDPA's
+    device ms, the bound."""
     ms, wall = timed_ms(r["kern"])
     t_b, t_o = r["nbytes"] / HBM_BYTES_PER_S * 1e3, r["flops"] / BF16_FLOPS * 1e3
     row = dict(name=r["name"], shape=r["shape"], max_abs_err=r["max_abs_err"], ms=ms,
                wrapper_ms=wall, plain_ms=timed_ms(r["plain"], iters=3)[0],
                library_ms=timed_ms(r["lib"])[0], bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations")
-    log(f"[hd256] {r['name']} {r['shape']} ({smi}): kernel device ms {ms:.4f} (wrapper "
+    log(f"[{tag}] {r['name']} {r['shape']} ({smi}): kernel device ms {ms:.4f} (wrapper "
         f"wall {wall:.4f}) plain_ms {row['plain_ms']:.4f} library_ms "
-        f"{row['library_ms']:.4f} (SDPA, enable_gqa) bound_ms {row['bound_ms']:.4f} "
+        f"{row['library_ms']:.4f} ({r.get('lib_what', 'SDPA, enable_gqa')}) bound_ms "
+        f"{row['bound_ms']:.4f} "
         f"({row['bound_by']}: {r['nbytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.3f} GFLOP); "
         f"err/RMS {r['err']:.3e}")
     return row
@@ -5678,12 +5712,15 @@ def _recurrent_serve(smi, model, params, tag, prompt, gen, window) -> dict:
     return launches
 
 
-def _recurrent_parity(smi, model, params, tag, prompts, feeds, faults=()) -> dict:
-    """``prefill`` of ``prompts`` then teacher-forced decode steps of
-    ``feeds`` through the kernels (timed; paged_decode_ring), then through
-    the plain versions and each planted fault: the logits of every
-    dispatch within ``LOGIT_RTOL`` x scale, the faults outside. Returns the
-    kernel run's launches."""
+def _recurrent_parity(smi, model, params, tag, prompts, feeds, faults=(), inputs=None,
+                      cache_window=0) -> dict:
+    """``prefill`` of ``prompts`` (with the batch's other ``inputs``: patch
+    or audio embeddings) into rings of ``cache_window`` slots (0: the
+    model's default), then teacher-forced decode steps of ``feeds``
+    through the kernels (timed; paged_decode_ring), then through the plain
+    versions and each planted fault: the logits of every dispatch within
+    ``LOGIT_RTOL`` x scale, the faults outside. Returns the kernel run's
+    launches."""
     import torch
 
     from repro_torch.kernels import ops
@@ -5695,7 +5732,8 @@ def _recurrent_parity(smi, model, params, tag, prompts, feeds, faults=()) -> dic
     def run(timed=False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache, lg = model.prefill(params, prompts)
+        cache, lg = model.prefill(params, {"tokens": prompts, **(inputs or {})},
+                                  cache_window=cache_window)
         torch.cuda.synchronize()
         walls["prefill"] = time.perf_counter() - t0
         out = [lg[:, :vocab].float()]
@@ -5896,6 +5934,498 @@ def phase_training_recurrent_isolated() -> dict:
     return res["launches"]
 
 
+# ------------------------------------------------------- phases 3w-3x, 5w
+# whisper-medium's attention shapes: the encoder's self-attention (S = T =
+# 1500 frames) and the decoder's cross-attention over them (a 64-token
+# prompt, one query), non-causal through flash_prefill; the decode step's
+# cross-attention through the ring decodes over a full ring of 1500 keys.
+WHISPER_KERNELS = dict(b=4, t=1500, hkv=16, g=1, hd=64, prompt=64)
+
+
+def _noncausal_as_causal(q, k, v, *, causal=True, window=0, scale=None):
+    """Planted fault: the causal mask applied where every key counts."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_prefill_ref(q, k, v, window=window, scale=scale)
+
+
+def _noncausal_drop_last(q, k, v, *, causal=True, window=0, scale=None):
+    """Planted fault: non-causal attention over T - 1 keys (the last key of
+    the last, partial tile dropped); causal calls stay sound."""
+    from repro_torch.kernels import ref
+
+    if causal:
+        return ref.flash_prefill_ref(q, k, v, window=window, scale=scale)
+    return ref.flash_prefill_ref(q, k[:, :-1], v[:, :-1], causal=False, scale=scale)
+
+
+def _prefill_no_causal(q, k, v, *, causal=True, window=0, scale=None):
+    """Planted fault: the prefill's causal mask dropped (every query sees
+    every key)."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_prefill_ref(q, k, v, causal=False, scale=scale)
+
+
+NONCAUSAL_FAULTS = (("causal mask applied", _noncausal_as_causal),
+                    ("last key dropped (T - 1 keys)", _noncausal_drop_last))
+
+
+def phase_kernels_whisper(smi) -> list[dict]:
+    """3w-3x, 5w ([whisper-kernels]): ``flash_prefill(causal=False)`` at
+    whisper-medium's shapes (B 4, Hkv 16, G 1, hd 64, T 1500: S = 1500, the
+    encoder, 3w; S 64, the prefill's cross-attention, 3x; S 1), in bf16 (the
+    tensor-core body) and float32 (SIMT), each within ``RTOL`` of its plain
+    version (bf16: one-ulp flips left out, ``_flip_gated``), the planted
+    faults (the causal mask applied; the last key dropped) outside;
+    ``swa_decode`` and ``paged_decode_ring`` over a ring of C 1500 at pos
+    1499 (every slot live: the decode step's cross-attention, 5w) within
+    ``RTOL`` of their plain versions and BITWISE equal, the newest key or
+    the whole page dropped outside. bf16 is timed: device ms, wrapper
+    wall, the plain version's ms, SDPA's (``is_causal=False``), the bound.
+    Returns the timed rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    c = WHISPER_KERNELS
+    b, t, hkv, g, hd = c["b"], c["t"], c["hkv"], c["g"], c["hd"]
+    h = hkv * g
+    gen = torch.Generator().manual_seed(29)
+    timed = []
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        tol = RTOL[dname]
+        elem = dt.itemsize
+        tag = f"Hkv{hkv} G{g} hd{hd} {dname}"
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen).to(DEVICE, dt)
+
+        k4, v4 = rnd(b, t, hkv, hd), rnd(b, t, hkv, hd)
+        kt, vt = k4.transpose(1, 2), v4.transpose(1, 2)
+        rows = []
+        for row, s in (("3w", t), ("3x", c["prompt"]), ("3x S1", 1)):
+            q5 = rnd(b, s, hkv, g, hd)
+            out = ops.flash_prefill_attention(q5, k4, v4, causal=False)
+            torch.cuda.synchronize()
+            exact = ref.flash_prefill_ref(q5.float(), k4.float(), v4.float(), causal=False)
+            e_fp, raw, e_abs = _flip_gated(out, exact, dt)
+            expect(e_fp <= tol, f"flash_prefill non-causal {tag} S{s} T{t}: err/RMS {e_fp} > "
+                                f"{tol}")
+            rms = exact.pow(2).mean().sqrt().item()
+            msg = (f"[whisper-kernels] flash_prefill non-causal {tag} B{b} S{s} T{t} (row {row})"
+                   f": err/RMS {e_fp:.3e}"
+                   + (f" beyond one-ulp flips ({raw:.3e} with them)" if dt == torch.bfloat16
+                      else "") + f" (tol {tol:g})")
+            for fname, fn in NONCAUSAL_FAULTS:
+                fe = (out.float() - fn(q5.float(), k4.float(), v4.float(), causal=False)
+                      ).abs().max().item() / rms
+                expect(fe > tol, f"flash_prefill non-causal {tag} S{s}: planted fault '{fname}' "
+                                 "within tolerance")
+                msg += f"; planted fault '{fname}' err/RMS {fe:.3e}"
+            log(msg)
+            if dt == torch.bfloat16 and s > 1:
+                qt = q5.reshape(b, s, h, hd).transpose(1, 2)
+                rows.append(dict(
+                    name="flash_prefill", max_abs_err=e_abs, err=e_fp,
+                    kern=lambda q5=q5: ops.flash_prefill_attention(q5, k4, v4, causal=False),
+                    plain=lambda q5=q5: ref.flash_prefill_ref(q5, k4, v4, causal=False),
+                    lib=lambda qt=qt: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=False),
+                    nbytes=(2 * b * s * h * hd + 2 * b * t * hkv * hd) * elem,
+                    flops=4 * b * h * hd * s * t, lib_what="SDPA, is_causal=False",
+                    shape=f"row {row}: {tag} B{b} S{s} T{t} non-causal"))
+            del out, exact
+        # --- the decode step's cross-attention: a full ring of T keys
+        q = rnd(b, hkv, g, hd)
+        pos = torch.full((b,), t - 1, dtype=torch.int32, device=DEVICE)
+        ring = ops.swa_decode_attention(q, k4, v4, t - 1, 0, paged=True)
+        swa = ops.swa_decode_attention(q, k4, v4, t - 1, 0, paged=False)
+        same = torch.equal(ring, swa)
+        expect(same, f"{tag}: paged_decode_ring and swa_decode differ at C {t}")
+        exact = _ring_plain(q.float(), k4.float(), v4.float(), pos, 0).float()
+        rms = exact.pow(2).mean().sqrt().item()
+        msg = (f"[whisper-kernels] cross decode {tag} B{b} C{t} pos {t - 1} (row 5w): "
+               f"paged_decode_ring == swa_decode bitwise {same}")
+        for name, o in (("paged_decode_ring", ring), ("swa_decode", swa)):
+            e = (o.float() - exact).abs().max().item()
+            expect(e <= tol * rms, f"{name} {tag} C{t}: err/RMS {e / rms} > {tol}")
+            msg += f"; {name} err/RMS {e / rms:.3e}"
+        for fname, kind in RING_FAULTS:
+            if kind == "nowrap":   # pos = C - 1: nothing has wrapped
+                continue
+            fe = (ring.float() - _ring_plain(q.float(), k4.float(), v4.float(), pos, 0,
+                                             fault=kind).float()).abs().max().item() / rms
+            expect(fe > tol, f"paged_decode_ring {tag} C{t}: planted fault '{fname}' within "
+                             "tolerance")
+            msg += f"; planted fault '{fname}' err/RMS {fe:.3e}"
+        log(msg + f" (tol {tol:g}); {_split_plan(t, q.shape, [t] * b)}")
+        if dt == torch.bfloat16:
+            qd = q.reshape(b, h, 1, hd)
+            for name, paged in (("swa_decode", False), ("paged_decode_ring", True)):
+                e = (ring if paged else swa).float().sub(exact).abs().max().item()
+                rows.append(dict(
+                    name=name, max_abs_err=e, err=e / rms,
+                    kern=lambda paged=paged: ops.swa_decode_attention(q, k4, v4, t - 1, 0,
+                                                                       paged=paged),
+                    plain=lambda paged=paged: (ref.ring_paged_decode_ref if paged else
+                                               ref.swa_decode_ref)(q, k4, v4, pos, 0),
+                    lib=lambda: F.scaled_dot_product_attention(qd, kt, vt, is_causal=False),
+                    nbytes=2 * b * h * hd * elem + 2 * b * t * hkv * hd * elem + 4 * b,
+                    flops=4 * b * t * h * hd, lib_what="SDPA over the T keys",
+                    shape=f"row 5w: {tag} B{b} C{t} pos {t - 1}"))
+            timed += [_hd256_timed(smi, r, "whisper-kernels") for r in rows]
+        del q, k4, v4, kt, vt, ring, swa, exact, rows
+        torch.cuda.empty_cache()
+    return timed
+
+
+# ----------------------------------------------------------------- phase 4j
+# The reference's float32 traces of pixtral and whisper (written by
+# tests/test_torch_whisper.py).
+GOLDEN_VLM_AUDIO = "golden_vlm_audio_smoke.json"
+
+
+def _golden_inputs(cfg, b: int, seed: int) -> dict:
+    """The golden file's patch or audio embeddings: N(0, 1) float32 from
+    numpy's ``seed``, (b, vision_seq or encoder_seq, d_model)."""
+    import torch
+
+    n, key = ((cfg.encoder_seq, "audio_embeds") if cfg.arch_type == "audio" else
+              (cfg.vision_seq, "patch_embeds"))
+    x = np.random.default_rng(seed).standard_normal((b, n, cfg.d_model), dtype=np.float32)
+    return {key: torch.from_numpy(x).to(DEVICE)}
+
+
+def _prefill_then_decode(model, params, prompts, inputs: dict, gen: int) -> list:
+    """``prefill`` (the image prefix or the encoder, then the prompt) into
+    rings with room for ``gen`` more tokens, then ``gen`` greedy decode
+    steps: the tokens."""
+    import torch
+
+    cfg = model.cfg
+    prefix = cfg.vision_seq if cfg.arch_type == "vlm" else 0
+    cache, logits = model.prefill(params, {"tokens": prompts, **inputs},
+                                  cache_window=prefix + prompts.shape[1] + gen)
+    out = []
+    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    for _ in range(gen):
+        out.append(tok)
+        cache, logits = model.decode(params, cache, tok)
+        tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    return torch.cat(out, 1).tolist()
+
+
+def phase_golden_vlm_audio() -> dict:
+    """4j ([golden-vlm-audio]): the reference's float32 greedy traces of
+    whisper-medium and pixtral-12b at their smoke configs on the card, on
+    numpy-seeded weights, audio and patches: the single batch (whisper
+    without and with a window of 6 that its prompts wrap; pixtral from its
+    tokens alone, as the reference's ``serve_batch``) through
+    ``generate_batch``'s decode graph, and ``prefill`` then decode (whisper's
+    encoder and prompt; pixtral's 16-patch prefix and prompt): every token.
+    Returns the launches."""
+    import torch
+
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.graphs import GraphCache
+    from repro_torch.launch.serve import generate_batch
+    from repro_torch.models.model import build_model
+
+    g = json.loads((ROOT / "src/repro_torch/testdata" / GOLDEN_VLM_AUDIO).read_text())
+    total = {k: 0 for k in ops.LAUNCHES}
+
+    def smoke32(arch):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        return build_model(cfg), params_from_numpy(numpy_params(cfg, g["seed"]), cfg, DEVICE)
+
+    def tally():
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for k, v in launched.items():
+            total[k] += v
+        return launched
+
+    for case in g["serve"]:
+        model, params = smoke32(case["arch"])
+        prompts = torch.tensor(case["prompts"], device=DEVICE)
+        audio = model.cfg.arch_type == "audio"
+        inputs = _golden_inputs(model.cfg, len(prompts), g["inputs_seed"]) if audio else {}
+        graphs = GraphCache(DEVICE)
+        ops.reset_launches()
+        gen, _, _ = generate_batch(model, params, prompts, case["gen"], window=case["window"],
+                                   graphs=graphs, inputs=inputs)
+        launched = tally()
+        check(gen.tolist() == case["tokens"], f"golden single batch {case['arch']} window "
+                                              f"{case['window']}: fp32 tokens differ from the "
+                                              "reference's")
+        need = ("flash_prefill", "swa_decode") if audio else ("swa_decode",)
+        check(all(launched.get(k, 0) > 0 for k in need),
+              f"golden single batch {case['arch']}: a kernel never launched: {launched}")
+        log(f"[golden-vlm-audio] single batch {case['arch']} window {case['window']}: "
+            f"{len(case['prompts'])} x {len(case['prompts'][0])} + {case['gen']}, fp32 greedy "
+            f"tokens identical to the reference's; compiles {graphs.counts}; launches {launched}")
+    for case in g["prefill"]:
+        model, params = smoke32(case["arch"])
+        prompts = torch.tensor(case["prompts"], device=DEVICE)
+        ops.reset_launches()
+        got = _prefill_then_decode(model, params, prompts,
+                                   _golden_inputs(model.cfg, len(prompts), g["inputs_seed"]),
+                                   case["gen"])
+        launched = tally()
+        check(got == case["tokens"], f"golden prefill {case['arch']}: fp32 tokens differ from "
+                                     "the reference's")
+        check(all(launched.get(k, 0) > 0 for k in ("flash_prefill", "paged_decode_ring")),
+              f"golden prefill {case['arch']}: a kernel never launched: {launched}")
+        log(f"[golden-vlm-audio] prefill {case['arch']}: {len(case['prompts'])} x "
+            f"{len(case['prompts'][0])} + {case['gen']}, fp32 greedy tokens identical to the "
+            f"reference's; launches {launched}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------- phase 5o
+# whisper-medium's single batch (B 4, 1500 frames, prompt 64, gen 64) and
+# pixtral-12b's multimodal prefill (B 4, 256 patches + 64 tokens) with 32
+# decode steps, at their published widths. pixtral's float32 parity runs
+# over its first FP32_LAYERS of 40 layers, as phase 5m's 12 B configs.
+WHISPER_MAIN = dict(arch="whisper-medium", batch=4, prompt=64, gen=64, steps=16)
+PIXTRAL_MAIN = dict(arch="pixtral-12b", batch=4, prompt=64, steps=32)
+
+
+def _seeded_inputs(cfg, b: int, seed: int) -> dict:
+    """Patch or audio embeddings N(0, 1) from a seeded generator on the
+    card, in the model dtype."""
+    import torch
+
+    n, key = ((cfg.encoder_seq, "audio_embeds") if cfg.arch_type == "audio" else
+              (cfg.vision_seq, "patch_embeds"))
+    x = torch.randn((b, n, cfg.d_model), device=DEVICE, dtype=torch.float32,
+                    generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    return {key: x.to(getattr(torch, cfg.dtype))}
+
+
+def _whisper_main(smi, model, params) -> dict:
+    """whisper-medium's single batch through its decode graph: the encoder
+    wall (its second call), tok/s, the decode step's device time, launches
+    and peak memory; then the logit parity. Returns the launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import synthetic_prompts
+    from repro_torch.launch.graphs import GraphCache
+    from repro_torch.launch.serve import generate_batch
+    from repro_torch.models import whisper
+    from repro_torch.models.model import build_model
+
+    cfg, spec = model.cfg, WHISPER_MAIN
+    b = spec["batch"]
+    total = {}
+    inputs = _seeded_inputs(cfg, b, 2)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whisper.encode(cfg, params, inputs["audio_embeds"], kernel=True)
+        torch.cuda.synchronize()
+        enc_wall = time.perf_counter() - t0
+    prompts = torch.from_numpy(synthetic_prompts(cfg, b, spec["prompt"], 0)).to(DEVICE)
+    graphs = GraphCache(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    gen, t_prefill, t_gen = generate_batch(model, params, prompts, spec["gen"], graphs=graphs,
+                                           inputs=inputs)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(gen.shape == (b, spec["gen"]) and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          f"{cfg.name} single batch: output {tuple(gen.shape)} out of range")
+    check(graphs.counts == {"decode": 1}, f"{cfg.name} single batch: compiles {graphs.counts}")
+    check(all(launches.get(k, 0) > 0 for k in ("flash_prefill", "swa_decode")),
+          f"{cfg.name} single batch: a kernel never launched: {launches}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    cache = model.init_cache(params, {"tokens": prompts, **inputs}, 256)
+    tok = prompts[:, :1]
+    step_ms, step_wall = timed_ms(lambda: model.decode(params, cache, tok, paged=False), iters=5)
+    per_step = dict(LAST_KERNELS)
+    del cache
+    log(f"[vlm-audio-main] {cfg.name} single batch ({smi}): encoder {b} x {cfg.encoder_seq} "
+        f"frames {enc_wall * 1e3:.1f} ms wall; {b} x {spec['prompt']} teacher-forced in "
+        f"{t_prefill:.3f} s (encoder included), {spec['gen']} tokens/row in {t_gen:.3f} s: "
+        f"{b * spec['gen'] / t_gen:.1f} tok/s; eager decode step {step_ms:.3f} ms device, "
+        f"{step_wall:.3f} ms wall, {sum(n for n, _ in per_step.values()):.0f} kernel launches; "
+        f"launches {launches}; compiles {graphs.counts}; graph pool "
+        f"{graphs.pool_bytes() / 1e9:.3f} GB; peak {peak:.2f} GB")
+    gen_ = torch.Generator().manual_seed(5)
+    feeds = torch.randint(0, cfg.vocab_size, (b, spec["steps"]), generator=gen_).to(DEVICE)
+    for k, v in _recurrent_parity(smi, model, params, "vlm-audio-main", prompts, feeds,
+                                  [("causal mask in the non-causal attention",
+                                    dict(flash_prefill=_noncausal_as_causal))],
+                                  inputs=inputs, cache_window=spec["prompt"] + spec["steps"]
+                                  ).items():
+        total[k] = total.get(k, 0) + v
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _cast(params, torch.float32)
+    inputs32 = _cast(inputs, torch.float32)
+    log(f"[vlm-audio-main] {cfg.name}: float32 parity over every layer "
+        f"({4 * _numel(params) / 1e9:.1f} GB copy beside the bf16 weights)")
+    for k, v in _recurrent_parity(smi, build_model(cfg32), params32, "vlm-audio-main", prompts,
+                                  feeds, [("last frame dropped in the encoder and "
+                                           "cross-attention", dict(
+                                               flash_prefill=_noncausal_drop_last))],
+                                  inputs=inputs32, cache_window=spec["prompt"] + spec["steps"]
+                                  ).items():
+        total[k] = total.get(k, 0) + v
+    del params32, inputs32
+    return total
+
+
+def _pixtral_main(smi, model, params) -> dict:
+    """pixtral-12b's multimodal prefill and decode steps through the
+    kernels against the plain versions, bf16 and float32 over its first
+    ``FP32_LAYERS`` layers. Returns the launches."""
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    cfg, spec = model.cfg, PIXTRAL_MAIN
+    b = spec["batch"]
+    total = {}
+    inputs = _seeded_inputs(cfg, b, 3)
+    gen = torch.Generator().manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab_size, (b, spec["prompt"]), generator=gen).to(DEVICE)
+    feeds = torch.randint(0, cfg.vocab_size, (b, spec["steps"]), generator=gen).to(DEVICE)
+    window = cfg.vision_seq + spec["prompt"] + spec["steps"]
+    for k, v in _recurrent_parity(smi, model, params, "vlm-audio-main", prompts, feeds,
+                                  [("causal mask dropped", dict(flash_prefill=_prefill_no_causal))],
+                                  inputs=inputs, cache_window=window).items():
+        total[k] = total.get(k, 0) + v
+    depth = FP32_LAYERS
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=depth)
+    params32 = _cast(_first_layers(params, depth), torch.float32)
+    log(f"[vlm-audio-main] {cfg.name}: float32 parity over {depth} of {cfg.n_layers} layers "
+        f"(cut: a float32 copy of every layer, {4 * _numel(params) / 1e9:.1f} GB, beside the "
+        f"{_nbytes(params) / 1e9:.1f} GB of bf16 weights passes {FP32_COPY_BYTES / 1e9:.0f} GB)")
+    for k, v in _recurrent_parity(smi, build_model(cfg32), params32, "vlm-audio-main", prompts,
+                                  feeds, [("mask shifted by one",
+                                           dict(flash_prefill=_prefill_shift))],
+                                  inputs=_cast(inputs, torch.float32), cache_window=window
+                                  ).items():
+        total[k] = total.get(k, 0) + v
+    del params32
+    return total
+
+
+def phase_vlm_audio_main(smi) -> dict:
+    """5o ([vlm-audio-main]): whisper-medium at its published widths (24 + 24
+    layers, d 1024, 16 heads = 16 kv heads at hd 64, 1500 frames, vocab
+    51,865, tied; bf16, seeded random weights and audio): the single batch
+    4 x 64 + 64 through its decode graph (the encoder through
+    ``flash_prefill``'s non-causal mode, the decode step's self- and
+    cross-attention through ``swa_decode``), then a prefill of the 64-token
+    prompt over the encoder with 16 decode steps (``paged_decode_ring``)
+    through the kernels against the plain versions (bf16 logits within
+    0.1 x scale, the causal mask in the encoder outside; float32 over every
+    layer within 1e-3 x scale, the last frame dropped outside).
+    pixtral-12b (40 layers, d 5120, 32/8 heads at hd 128, vocab 131,072,
+    the projector; 12.27 B parameters): a prefill of 256 patches + 64
+    tokens and 32 decode steps through the kernels against the plain
+    versions (bf16 within 0.1 x scale, the causal mask dropped outside;
+    float32 over its first 8 of 40 layers within 1e-3 x scale, the mask
+    shifted by one outside). Returns the launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    total = {}
+    for arch, run in (("whisper-medium", _whisper_main), ("pixtral-12b", _pixtral_main)):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        log(f"[vlm-audio-main] {cfg.name}: {cfg.arch_type}, {cfg.n_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder layers over {cfg.encoder_seq} frames"
+               if cfg.encoder_layers else f", {cfg.vision_seq} patches") +
+            f", d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+            f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+            f"{_numel(params) / 1e9:.3f} B parameters, {_nbytes(params) / 1e9:.2f} GB")
+        for k, v in run(smi, model, params).items():
+            total[k] = total.get(k, 0) + v
+        log(f"[vlm-audio-main] {cfg.name}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; wall "
+            f"{time.perf_counter() - t0:.1f} s")
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+# The training check's configurations: (arch, layers; None = every layer).
+# pixtral-12b trains 4 of its 40 layers: at 40, its bf16 weights, gradients
+# and the fp32 AdamW moments take ~12 bytes a parameter, 147 GB.
+VLM_AUDIO_TRAIN = (("whisper-medium", None), ("pixtral-12b", 4))
+
+
+def phase_train_vlm_audio(smi):
+    """[train-vlm-audio]: one ``loss``, backward and AdamW step (lr 1e-3, as
+    the reference's ``test_train_step_no_nans``), taken twice on the same
+    batch (2 x 64 tokens with their audio or patch embeddings), for
+    whisper-medium whole and pixtral-12b over 4 of its 40 layers: finite
+    losses and parameters, and the second loss below the first; the step's
+    wall and peak memory. (The federated trainer refuses both families:
+    its corpus carries tokens only.)"""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    from repro_torch.utils.grad import microbatched_value_and_grad
+    from repro_torch.utils.tree import tree_leaves
+
+    tcfg = TrainConfig(lr=1e-3, steps=10, warmup_steps=1)
+    for arch, depth in VLM_AUDIO_TRAIN:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        opt = adamw_init(params)
+        toks = torch.randint(0, cfg.vocab_size, (2, 65),
+                             generator=torch.Generator().manual_seed(7)).to(DEVICE)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], **_seeded_inputs(cfg, 2, 8)}
+        losses, walls = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (loss, _), grads = microbatched_value_and_grad(model.loss, params, batch)
+            adamw_update(tcfg, grads, opt, params)
+            del grads
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(params))
+        check(all(np.isfinite(losses)) and finite,
+              f"train {arch}: non-finite loss or parameters: {losses}")
+        check(losses[1] < losses[0], f"train {arch}: the loss did not drop on the same batch: "
+                                     f"{losses}")
+        log(f"[train-vlm-audio] {arch} ({smi}), {cfg.n_layers} of {get_config(arch).n_layers} "
+            f"layers ({_numel(params) / 1e9:.3f} B parameters), batch 2 x 64: losses "
+            f"{losses[0]:.4f} -> {losses[1]:.4f}, step walls {walls[0]:.3f} / {walls[1]:.3f} s, "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del params, opt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_script = time.perf_counter()
     smi = phase_device()
@@ -5920,6 +6450,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels_hd256(smi)
     log(f"[hd256] phase 3g wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_kernels_whisper(smi)
+    log(f"[whisper-kernels] phases 3w-3x, 5w wall {time.perf_counter() - t0:.1f} s")
     phase_golden()
     phase_golden_int8()
     phase_golden_ring()
@@ -5941,6 +6474,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_golden_recurrent()
     log(f"[golden-recurrent] phase 4i wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_golden_vlm_audio()
+    log(f"[golden-vlm-audio] phase 4j wall {time.perf_counter() - t0:.1f} s")
     launches, main_trace = phase_main_path(smi)
     t0 = time.perf_counter()
     phase_eos(smi, main_trace)
@@ -5966,6 +6502,12 @@ def main() -> int:
     t0 = time.perf_counter()
     recurrent_launches = phase_recurrent_main(smi)
     log(f"[recurrent-main] phase 5n wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vlm_audio_launches = phase_vlm_audio_main(smi)
+    log(f"[vlm-audio-main] phase 5o wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_vlm_audio(smi)
+    log(f"[train-vlm-audio] wall {time.perf_counter() - t0:.1f} s")
     launches.update(phase_main_path_int8(smi))
     ring_launches, model, params = phase_main_path_ring(smi)
     launches.update(ring_launches)
@@ -6005,8 +6547,10 @@ def main() -> int:
         launches[k] += c
     for k, c in config_launches.items():
         launches[k] += c
-    # the recurrent families' main paths (5n) and training (7g)
-    for k, c in (*recurrent_launches.items(), *recurrent_train_launches.items()):
+    # the recurrent families' main paths (5n) and training (7g), pixtral's
+    # and whisper's (5o)
+    for k, c in (*recurrent_launches.items(), *recurrent_train_launches.items(),
+                 *vlm_audio_launches.items()):
         if k in launches:
             launches[k] += c
     kernels = []

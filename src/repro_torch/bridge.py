@@ -9,7 +9,11 @@ Both packages use one parameter tree: ``embed/tok`` (Vp, D),
 ``ln_f/scale`` (D,), every matrix laid out for ``x @ W``; a tied config has
 no ``unembed``. The recurrent families (hybrid, ssm) keep the reference's
 periodic tree: ``periods`` ({"pos0": stacked layers, ...} or None) and
-``rest`` (a list of layer trees) beside ``embed`` and ``ln_f``.
+``rest`` (a list of layer trees) beside ``embed`` and ``ln_f``. Pixtral
+(vlm) adds ``projector/{w (D, D), b (D,)}`` to the dense tree; whisper
+(audio) has ``enc/layers/{ln1, attn, ln2, mlp}`` and ``enc/ln_post``,
+``dec/layers/{ln1, attn, ln_x, xattn, ln2, mlp}`` and ``dec/ln_f``, each
+LayerNorm ``{scale, bias}``, each MLP ``{w_up, b_up, w_down, b_down}``.
 ``numpy_params`` draws such trees with numpy, so the reference (through
 ``jnp.asarray``) and the port can load the same weights on a machine
 without JAX. The router, RG-LRU's Λ and xLSTM's gate biases stay float32 in
@@ -27,9 +31,14 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     """Random float32 weights at the reference's init scales (He for the
     matrices with fan-in = rows, 0.02 for embeddings, zero RMS scales), drawn
     leaf by leaf in a fixed order from ``np.random.default_rng(seed)``. The
-    recurrent families (``_numpy_periodic``) take their own trees."""
+    recurrent families (``_numpy_periodic``) and whisper (``_numpy_whisper``)
+    take their own trees; pixtral's projector is drawn after the dense tree
+    (its bias, like every constant leaf of the trees of their own, at its
+    init value plus N(0, 0.1²), so that a test exercises it)."""
     if cfg.arch_type in ("hybrid", "ssm"):
         return _numpy_periodic(cfg, seed)
+    if cfg.arch_type == "audio":
+        return _numpy_whisper(cfg, seed)
     rng = np.random.default_rng(seed)
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
     vp = padded_vocab(cfg.vocab_size)
@@ -43,7 +52,7 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     embed = {"tok": normal((vp, d), 0.02)}
     if not cfg.tie_embeddings:
         embed["unembed"] = normal((d, vp), 0.02)
-    return {
+    tree = {
         "embed": embed,
         "layers": {
             "ln1": {"scale": np.zeros((L, d), np.float32)},
@@ -57,6 +66,55 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
             "ffn": _numpy_ffn(cfg, he),
         },
         "ln_f": {"scale": np.zeros((d,), np.float32)},
+    }
+    if cfg.arch_type == "vlm":
+        tree["projector"] = {"w": normal((d, d), (2.0 / d) ** 0.5),
+                             "b": np.float32(0.1) * rng.standard_normal(d, dtype=np.float32)}
+    return tree
+
+
+def _numpy_whisper(cfg: ModelConfig, seed: int) -> dict:
+    """Whisper's tree: matrices and the embedding at their init scales,
+    every LayerNorm scale 1 and bias 0 and every MLP bias 0 plus N(0,
+    0.1²)."""
+    rng = np.random.default_rng(seed)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def const(shape, value):
+        return np.float32(value) + normal(shape, 0.1)
+
+    def stack(L, cross):
+        def he(rows, cols):
+            return normal((L, rows, cols), (2.0 / rows) ** 0.5)
+
+        def attn():
+            return {"wq": he(d, cfg.n_heads * hd), "wk": he(d, cfg.n_kv_heads * hd),
+                    "wv": he(d, cfg.n_kv_heads * hd), "wo": he(cfg.n_heads * hd, d)}
+
+        def ln():
+            return {"scale": const((L, d), 1.0), "bias": const((L, d), 0.0)}
+
+        layers = {"ln1": ln(), "attn": attn()}
+        if cross:
+            layers.update(ln_x=ln(), xattn=attn())
+        layers["ln2"] = ln()
+        layers["mlp"] = {"w_up": he(d, f), "b_up": const((L, f), 0.0), "w_down": he(f, d),
+                         "b_down": const((L, d), 0.0)}
+        return layers
+
+    vp = padded_vocab(cfg.vocab_size)
+    embed = {"tok": normal((vp, d), 0.02)}
+    if not cfg.tie_embeddings:
+        embed["unembed"] = normal((d, vp), 0.02)
+    return {
+        "embed": embed,
+        "enc": {"layers": stack(cfg.encoder_layers or cfg.n_layers, False),
+                "ln_post": {"scale": const((d,), 1.0), "bias": const((d,), 0.0)}},
+        "dec": {"layers": stack(cfg.n_layers, True),
+                "ln_f": {"scale": const((d,), 1.0), "bias": const((d,), 0.0)}},
     }
 
 

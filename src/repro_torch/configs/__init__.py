@@ -1,10 +1,11 @@
 """Architecture config registry of the port: ``get_config("<arch-id>")``.
 
-Only the architectures the port serves are registered: the dense decoders,
-the MoE family (``qwen3-moe-235b-a22b`` at its smoke config only: its
-full config, 470 GB of bf16 weights, does not fit on one card) and the
-recurrent families (``xlstm-125m``, ``recurrentgemma-2b``). The others
-arrive with the slices that port their model families."""
+All ten of the reference's architectures are registered: the dense
+decoders, the MoE family (``qwen3-moe-235b-a22b`` at its smoke config
+only: its full config, 470 GB of bf16 weights, does not fit on one card),
+the recurrent families (``xlstm-125m``, ``recurrentgemma-2b``), the
+vision-language decoder (``pixtral-12b``) and the audio encoder-decoder
+(``whisper-medium``)."""
 from __future__ import annotations
 
 import importlib
@@ -20,6 +21,8 @@ _ARCH_MODULES = {
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -86,6 +86,15 @@ class FederatedTrainer:
                              "core.privacy.secure_aggregate on the clouds' updates")
         if self.train.eval_every:
             raise ValueError("eval_every: the trainer has no evaluation loop")
+        # the synthetic corpus has tokens only, where these families' losses
+        # read patch or audio embeddings (the reference's trainer fails on
+        # them with a KeyError in loss_fn)
+        inputs = {"vlm": "patch_embeds", "audio": "audio_embeds"}
+        if self.model.cfg.arch_type in inputs:
+            raise ValueError(
+                f"{self.model.cfg.name} ({self.model.cfg.arch_type}): its loss needs "
+                f"{inputs[self.model.cfg.arch_type]!r}, and the federated corpus carries "
+                "tokens only")
 
     # ------------------------------------------------------------------ init
     def _cloud_device(self, c: int, device):

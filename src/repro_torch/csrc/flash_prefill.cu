@@ -1,8 +1,15 @@
-// Causal GQA flash attention for cold prefill.
+// GQA flash attention: cold prefill (causal) and whisper's encoder and
+// cross-attention (non-causal).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_prefill.py::flash_prefill
 // (body _flash_kernel): q (B, S, Hkv, G, hd) against k/v (B, T, Hkv, hd),
-// causal with an optional sliding window, fp32 online softmax.
+// fp32 online softmax, in both of its modes: causal with an optional
+// sliding window, or non-causal (causal = 0, window 0) over all T keys for
+// any S (S = T = 1500 at whisper's encoder, S = 64 or 1 queries against
+// its 1500 frames in cross-attention). Non-causal, a block walks every key
+// tile; only the tile that crosses T pays for the element mask (kp < T),
+// so the zero rows past T (the TMA box's fill, the SIMT loads' zeros) never
+// reach the running max or sum.
 //
 // Two bodies, chosen by the element type (not a fallback: each type has one):
 //
@@ -63,11 +70,13 @@ struct KVRow {
 };
 
 struct CausalLive {
-  int G, q_lo, k_lo, T_len, window;
+  int G, q_lo, k_lo, T_len, causal, window;
   __device__ bool operator()(int r, int c) const {
-    const int qpos = q_lo + r / G;
     const int kpos = k_lo + c;
-    if (kpos >= T_len || kpos > qpos) return false;
+    if (kpos >= T_len) return false;
+    if (!causal) return true;
+    const int qpos = q_lo + r / G;
+    if (kpos > qpos) return false;
     return window == 0 || qpos - kpos < window;
   }
 };
@@ -75,8 +84,8 @@ struct CausalLive {
 template <typename T, int HD>
 __global__ void flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                      const T* __restrict__ v, T* __restrict__ out, int S,
-                                     int T_len, int Hkv, int G, int BQ, int window,
-                                     float scale) {
+                                     int T_len, int Hkv, int G, int BQ, int causal,
+                                     int window, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / Hkv;
   const int h = blockIdx.x - b * Hkv;
@@ -90,14 +99,15 @@ __global__ void flash_prefill_kernel(const T* __restrict__ q, const T* __restric
   __syncthreads();
 
   const int n_k = (T_len + BK - 1) / BK;
-  const int j_end = min(n_k, q_hi / BK + 1);  // stop at the diagonal
-  const int j_start = window > 0 ? max(0, q_lo - (window - 1)) / BK : 0;
+  // causal: stop at the diagonal, start at the window's edge
+  const int j_end = causal ? min(n_k, q_hi / BK + 1) : n_k;
+  const int j_start = causal && window > 0 ? max(0, q_lo - (window - 1)) / BK : 0;
   for (int j = j_start; j < j_end; ++j) {
     const int k_lo = j * BK;
     repro::load_rows<T, HD>(KVRow<T, HD>{k, T_len, Hkv, b, h, k_lo}, BK, t.k, HD + 1);
     repro::load_rows<T, HD>(KVRow<T, HD>{v, T_len, Hkv, b, h, k_lo}, BK, t.v, HD);
     __syncthreads();
-    repro::scores<HD>(t, rows, BK, scale, CausalLive{G, q_lo, k_lo, T_len, window});
+    repro::scores<HD>(t, rows, BK, scale, CausalLive{G, q_lo, k_lo, T_len, causal, window});
     __syncthreads();
     repro::online_softmax_update<HD>(t, rows, BK);
   }
@@ -113,7 +123,7 @@ constexpr int simt_rows() {
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len,
-           int Hkv, int G, int window, float scale, cudaStream_t stream) {
+           int Hkv, int G, int causal, int window, float scale, cudaStream_t stream) {
   constexpr int ROWS = simt_rows<HD>();
   const int BQ = G >= ROWS ? 1 : ROWS / G;
   const size_t smem = repro::tile_floats<HD>(BQ * G, BK) * sizeof(float);
@@ -122,24 +132,31 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * Hkv, (S + BQ - 1) / BQ);
   flash_prefill_kernel<T, HD><<<grid, 256, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, T_len, Hkv, G, BQ, window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, T_len, Hkv, G, BQ, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int by_hd(int hd, const void* q, const void* k, const void* v, void* out, int B, int S,
-          int T_len, int Hkv, int G, int window, float scale, cudaStream_t stream) {
+          int T_len, int Hkv, int G, int causal, int window, float scale,
+          cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch<T, 32>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch<T, 64>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch<T, 128>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
     case 160:
-      return launch<T, 160>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch<T, 160>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch<T, 256>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
   }
   return -1;
 }
@@ -152,19 +169,19 @@ struct FlashPlan {
   static constexpr int R = 64 * TW;
   const CUtensorMap *qmap, *kmap, *vmap;
   __nv_bfloat16* out;
-  int b, h, S, T, Hkv, G, BQ, window, q_lo, q_hi, j0, n;
+  int b, h, S, T, Hkv, G, BQ, causal, window, q_lo, q_hi, j0, n;
 
   __device__ int count() const { return n; }
   __device__ bool manual(int) const { return false; }
   static constexpr int KB = repro::tc::key_tile<HD>();
   __device__ int k_lo(int i) const { return (j0 + i) * KB; }
+  // non-causal: only the tile that crosses T is masked, and only kp < T
   __device__ bool masked(int, int k) const {
-    return k + KB - 1 > q_lo || k + KB > T ||
-           (window > 0 && q_hi - k >= window);
+    return k + KB > T || (causal && (k + KB - 1 > q_lo || (window > 0 && q_hi - k >= window)));
   }
   __device__ bool live(int, int k, int qp, int c) const {
     const int kp = k + c;
-    return kp < T && kp <= qp && (window == 0 || qp - kp < window);
+    return kp < T && (!causal || (kp <= qp && (window == 0 || qp - kp < window)));
   }
   __device__ int qpos(int r) const { return q_lo + r / G; }
   __device__ void load_q(uint32_t dst, uint32_t bar) const {
@@ -186,7 +203,8 @@ __global__ void __launch_bounds__(128 * (TW + 1), repro::tc::Regs<TW>::BLOCKS)
     flash_prefill_tc(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                     int S, int T_len, int Hkv, int G, int BQ, int window, float scale_log2) {
+                     int S, int T_len, int Hkv, int G, int BQ, int causal, int window,
+                     float scale_log2) {
   FlashPlan<HD> p;
   p.qmap = &qmap;
   p.kmap = &kmap;
@@ -199,19 +217,21 @@ __global__ void __launch_bounds__(128 * (TW + 1), repro::tc::Regs<TW>::BLOCKS)
   p.Hkv = Hkv;
   p.G = G;
   p.BQ = BQ;
+  p.causal = causal;
   p.window = window;
   p.q_lo = blockIdx.y * BQ;
   p.q_hi = min(p.q_lo + BQ, S) - 1;
   constexpr int KB = repro::tc::key_tile<HD>();
-  const int j_end = min((T_len + KB - 1) / KB, p.q_hi / KB + 1);   // stop at the diagonal
-  p.j0 = window > 0 ? max(0, p.q_lo - (window - 1)) / KB : 0;      // start at the window
+  const int n_k = (T_len + KB - 1) / KB;
+  const int j_end = causal ? min(n_k, p.q_hi / KB + 1) : n_k;      // stop at the diagonal
+  p.j0 = causal && window > 0 ? max(0, p.q_lo - (window - 1)) / KB : 0;   // the window's edge
   p.n = max(0, j_end - p.j0);
   repro::tc::run_block<HD, TW>(p, scale_log2);
 }
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len,
-              int Hkv, int G, int window, float scale, cudaStream_t stream) {
+              int Hkv, int G, int causal, int window, float scale, cudaStream_t stream) {
   using L = repro::tc::Layout<HD>;
   const int BQ = 64 * TW / G;
   CUtensorMap qm, km, vm;
@@ -229,41 +249,49 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
   if (ready != 0) return ready;
   const dim3 grid(B * Hkv, (S + BQ - 1) / BQ);
   flash_prefill_tc<HD><<<grid, 128 * (TW + 1), smem, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)out, S, T_len, Hkv, G, BQ, window,
+      qm, km, vm, (__nv_bfloat16*)out, S, T_len, Hkv, G, BQ, causal, window,
       scale * repro::tc::LOG2E);
   return (int)cudaGetLastError();
 }
 
 int by_hd_tc(int hd, const void* q, const void* k, const void* v, void* out, int B, int S,
-             int T_len, int Hkv, int G, int window, float scale, cudaStream_t stream) {
+             int T_len, int Hkv, int G, int causal, int window, float scale,
+             cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_tc<32>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch_tc<32>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
     case 64:
-      return launch_tc<64>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch_tc<64>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
     case 128:
-      return launch_tc<128>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch_tc<128>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
     case 160:
-      return launch_tc<160>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch_tc<160>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
     case 256:
-      return launch_tc<256>(q, k, v, out, B, S, T_len, Hkv, G, window, scale, stream);
+      return launch_tc<256>(q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale,
+                             stream);
   }
   return -1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (SIMT body), 1 = bfloat16 (tensor-core body). Returns
+// dtype: 0 = float32 (SIMT body), 1 = bfloat16 (tensor-core body); causal:
+// 1 = causal with the optional window, 0 = every key (window 0). Returns
 // cudaGetLastError() after the launch (0 on success), -1 for an unsupported
 // head dim / dtype, -2 if cuTensorMapEncodeTiled refused a tensor map, -3 if the
 // tensor-core kernel was built with too few registers for its warp roles.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* out, int dtype,
-                             int B, int S, int T_len, int Hkv, int G, int hd, int window,
-                             float scale, void* stream) {
+                             int B, int S, int T_len, int Hkv, int G, int hd, int causal,
+                             int window, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!causal && window) return -1;
   if (dtype == 0)
-    return by_hd<float>(hd, q, k, v, out, B, S, T_len, Hkv, G, window, scale, s);
+    return by_hd<float>(hd, q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale, s);
   if (dtype == 1)
-    return by_hd_tc(hd, q, k, v, out, B, S, T_len, Hkv, G, window, scale, s);
+    return by_hd_tc(hd, q, k, v, out, B, S, T_len, Hkv, G, causal, window, scale, s);
   return -1;
 }

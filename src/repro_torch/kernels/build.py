@@ -47,7 +47,7 @@ P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of every C entry point: pointers and the stream are c_void_p
 SIGNATURES = {
     "paged_decode": (P,) * 7 + (I,) * 9 + (F, P),
-    "flash_prefill": (P,) * 4 + (I,) * 8 + (F, P),
+    "flash_prefill": (P,) * 4 + (I,) * 9 + (F, P),
     "suffix_prefill": (P,) * 8 + (I,) * 9 + (F, P),
     "paged_decode_int8": (P,) * 9 + (I,) * 9 + (F, P),
     "suffix_prefill_int8": (P,) * 10 + (I,) * 9 + (F, P),

@@ -1,8 +1,10 @@
-"""Causal GQA flash attention on the card: wrapper of ``csrc/flash_prefill.cu``.
+"""GQA flash attention on the card: wrapper of ``csrc/flash_prefill.cu``.
 
 Replaces the TPU kernel ``repro/kernels/flash_prefill.py::flash_prefill``
-(causal mode, optional sliding window), used here for cold prefill. Plain
-version: ``ref.flash_prefill_ref``.
+in both its modes: causal with an optional sliding window (cold prefill,
+the local attention of the hybrid) and non-causal over any T keys
+(whisper's encoder self-attention and its decoder's cross-attention over
+the encoder's frames, S and T free). Plain version: ``ref.flash_prefill_ref``.
 
 The C entry point picks its body by dtype. bfloat16 (the serving paths)
 runs on the tensor cores: ``wgmma`` for Q·Kᵀ and P·V, K/V tiles brought in
@@ -42,10 +44,13 @@ def flash_prefill(
     k: torch.Tensor,  # (B, T, Hkv, hd)
     v: torch.Tensor,
     *,
+    causal: bool = True,
     window: int = 0,
     scale: float | None = None,  # None: hd**-0.5
 ) -> torch.Tensor:
     build.check_cuda("flash_prefill", q=q, k=k, v=v)
+    if not causal and window:
+        raise ValueError("flash_prefill: a window needs causal attention")
     b, s, hkv, g, hd = q.shape
     t = k.shape[1]
     check_group("flash_prefill", hd, g, WIDE_HEAD_DIMS)
@@ -59,7 +64,7 @@ def flash_prefill(
         build.check_tma("flash_prefill", q=q, k=k, v=v, out=out)
     build.launch(
         "flash_prefill", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        build.dtype_code(q), b, s, t, hkv, g, hd, window,
+        build.dtype_code(q), b, s, t, hkv, g, hd, int(causal), window,
         hd**-0.5 if scale is None else scale,
     )
     return out

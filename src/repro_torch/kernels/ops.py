@@ -63,13 +63,16 @@ def swa_decode_attention(
 
 
 def flash_prefill_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
-    scale: float | None = None,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    window: int = 0, scale: float | None = None,
 ) -> torch.Tensor:
-    """Causal GQA attention. q (B, S, Hkv, G, hd); k/v (B, T, Hkv, hd)."""
+    """GQA attention, causal (optional window) or, with ``causal=False``,
+    over every key. q (B, S, Hkv, G, hd); k/v (B, T, Hkv, hd)."""
     if q.is_cuda:
-        return flash_prefill(q, k, v, window=window, scale=scale)
-    return ref.flash_prefill_ref(q, k, v, window=window, scale=scale)
+        return flash_prefill(q, k, v, causal=causal, window=window, scale=scale)
+    if not causal and window:
+        raise ValueError("flash_prefill: a window needs causal attention")
+    return ref.flash_prefill_ref(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def suffix_prefill_attention(

@@ -106,12 +106,17 @@ def flash_prefill_ref(
     k: torch.Tensor,  # (B, T, Hkv, hd)
     v: torch.Tensor,
     *,
+    causal: bool = True,
     window: int = 0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Causal GQA attention over dense positions 0..S-1 / 0..T-1, optional
-    sliding window. Mirrors ``flash_prefill_ref`` (causal=True)."""
+    """GQA attention over dense positions 0..S-1 / 0..T-1: causal with an
+    optional sliding window, or (``causal=False``) full softmax over all T
+    keys, S and T free (an encoder's self-attention, cross-attention).
+    Mirrors ``flash_prefill_ref``."""
     s, t = q.shape[1], k.shape[1]
+    if not causal:
+        return _attend(q, k, v, torch.ones((s, t), dtype=torch.bool, device=q.device), scale)
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = qpos >= kpos

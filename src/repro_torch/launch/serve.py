@@ -64,17 +64,21 @@ from repro_torch.models.model import build_model
 
 def generate_batch(model, params, prompts: torch.Tensor, gen_tokens: int, *,
                    window: int = 0, graphs: GraphCache | None = None,
-                   ) -> tuple[torch.Tensor, float, float]:
+                   inputs: dict | None = None) -> tuple[torch.Tensor, float, float]:
     """Lockstep greedy generation over one fixed batch: a ring cache of
-    prompt + gen slots (the window's, when smaller), the prompts (B, P)
-    teacher-forced through the decode step, then ``gen_tokens`` greedy
-    tokens. Decode attention streams every ring slot (``swa_decode``). The
+    prompt + gen slots (the window's, when smaller), made by
+    ``model.init_cache`` from the batch {"tokens": prompts, **inputs}
+    (``inputs``: whisper's "audio_embeds", whose encoder it runs), the
+    prompts (B, P) teacher-forced through the decode step, then
+    ``gen_tokens`` greedy tokens. Decode attention streams every ring slot
+    (``swa_decode``; whisper's cross-attention too). The
     decode step and its argmax are one specialization of ``graphs`` (a
     fresh ``GraphCache`` on the prompts' device when None: one CUDA graph
     on the card), replayed for every prompt and generated token; each
     replay's token is copied into the next one's input. Returns (generated
     (B, gen_tokens) int64 on the CPU, prefill seconds, decode seconds); the
-    tokens stay on the device until the end."""
+    tokens stay on the device until the end. The encoder's wall counts
+    into the prefill seconds."""
     b, p = prompts.shape
     device = prompts.device
     vocab = model.cfg.vocab_size
@@ -85,13 +89,14 @@ def generate_batch(model, params, prompts: torch.Tensor, gen_tokens: int, *,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    cache = model.init_cache(b, p + gen_tokens, window=window, device=device)
+    t0 = time.perf_counter()
+    cache = model.init_cache(params, {"tokens": prompts, **(inputs or {})}, p + gen_tokens,
+                             window=window)
 
     def step(tok):
         _, logits = model.decode(params, cache, tok, window=window, paged=False)
         return logits[:, :vocab].argmax(dim=-1, keepdim=True)
 
-    t0 = time.perf_counter()
     tok = None
     for i in range(p):
         tok = graphs("decode", (), step, prompts[:, i:i + 1])
@@ -112,16 +117,25 @@ def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4, prompt_len: in
                 log_fn=print) -> dict:
     """The single-batch path: seeded random weights, ``batch`` synthetic
     prompts (``engine.synthetic_prompts``: row r is the engine trace's
-    request r), ``generate_batch``; reports throughput."""
+    request r), ``generate_batch``; reports throughput. The audio family
+    decodes over audio embeddings (B, encoder_seq, D) drawn from N(0, 1)
+    by a generator seeded ``seed + 2`` (the reference's key); vlm decodes
+    from the tokens alone, no image, as the reference's does."""
     from repro_torch.launch.engine import synthetic_prompts
 
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed), device)
     prompts = torch.from_numpy(synthetic_prompts(cfg, batch, prompt_len, seed)).to(device)
+    inputs = {}
+    if cfg.arch_type == "audio":
+        inputs["audio_embeds"] = torch.randn(
+            (batch, cfg.encoder_seq, cfg.d_model), device=device, dtype=torch.float32,
+            generator=torch.Generator(device=device).manual_seed(seed + 2),
+        ).to(getattr(torch, cfg.dtype))
     graphs = GraphCache(device)
     gen, t_prefill, t_gen = generate_batch(model, params, prompts, gen_tokens, window=window,
-                                           graphs=graphs)
+                                           graphs=graphs, inputs=inputs)
     result = {
         "arch": cfg.name,
         "device": str(torch.device(device)),

@@ -170,8 +170,9 @@ class XlstmDraft:
         self.graphs = graphs if graphs is not None else GraphCache(device)
         self.params = _upcast_unembed(model, params)
         self.spec_tokens = spec_tokens
-        self.cache = model.init_cache(num_slots, 1, device=device)
-        self._empty = xlstm.state_tree(model.init_cache(num_slots, 1, device=device))
+        rows = {"tokens": torch.zeros((num_slots, 1), dtype=torch.long, device=device)}
+        self.cache = model.init_cache(params, rows, 1)
+        self._empty = xlstm.state_tree(model.init_cache(params, rows, 1))
         # snapshot s = the state after s + 1 of a round's k + 1 steps
         self._snaps = tree_map(lambda x: x.new_zeros((spec_tokens + 1, *x.shape)),
                                xlstm.state_tree(self.cache))

@@ -63,50 +63,87 @@ def _model_heads(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
     return out if out.shape[-1] == hd else out[..., :hd]
 
 
-def _queries(params: dict, x: torch.Tensor, positions: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
-    """Rotated queries grouped by kv head: (B, S, Hkv, G, hd)."""
+def _queries(params: dict, x: torch.Tensor, positions: torch.Tensor | None,
+             cfg: ModelConfig, rope: bool = True) -> torch.Tensor:
+    """Queries grouped by kv head, rotated at ``positions`` unless ``rope``
+    is False (whisper): (B, S, Hkv, G, hd)."""
     hd = cfg.resolved_head_dim
-    q = apply_rope(_split_heads(x @ params["wq"], cfg.n_heads, hd), positions, cfg.rope_theta)
+    q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
     return q.reshape(*x.shape[:2], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd)
 
 
 def compute_kv_for_prefill(
-    params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+    params: dict, x: torch.Tensor, positions: torch.Tensor | None, cfg: ModelConfig,
+    rope: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Head-split, rotated (k, v) of a prompt: (B, S, Hkv, hd) each."""
+    """Head-split (k, v) of a prompt, k rotated unless ``rope`` is False:
+    (B, S, Hkv, hd) each."""
     hd = cfg.resolved_head_dim
     k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
     v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
-    return apply_rope(k, positions, cfg.rope_theta), v
+    return (apply_rope(k, positions, cfg.rope_theta) if rope else k), v
 
 
-def attend_causal(
-    params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
-    window: int = 0,
+def attend_full(
+    params: dict, x: torch.Tensor, positions: torch.Tensor | None, cfg: ModelConfig, *,
+    causal: bool = True, window: int = 0,
+    kv: tuple[torch.Tensor, torch.Tensor] | None = None, rope: bool = True,
+    kernel: bool = False,
 ) -> torch.Tensor:
-    """Causal self-attention of the training forward, in plain PyTorch under
-    autograd: the reference's chunked jnp path (its training forward never
-    reaches a kernel, and its flash-prefill kernel has no backward). Scores
-    and softmax in fp32, probabilities cast to the value dtype for the PV
-    product; queries in chunks of ``default_q_chunk(S)``. x: (B, S, D)."""
+    """Full-sequence attention (the reference's ``attend_full``): x (B, S,
+    D) attends over its own k/v, or over ``kv`` = (k, v) (B, T, Hkv, hd)
+    given (cross-attention, T free); causal at ``positions`` with an
+    optional window, or (``causal=False``) over every key. ``rope`` False
+    rotates nothing (whisper). Returns the output after ``wo``.
+
+    By default in plain PyTorch under autograd: the training forward (the
+    reference's chunked jnp path; its flash-prefill kernel has no
+    backward). Scores and softmax in fp32, probabilities cast to the value
+    dtype for the PV product; queries in chunks of ``default_q_chunk(S)``.
+    ``kernel=True`` (the serving paths: whisper's encoder and its prefill's
+    cross-attention) runs ``ops.flash_prefill_attention`` instead."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = _queries(params, x, positions, cfg)                        # (B, S, Hkv, G, hd)
-    k, v = compute_kv_for_prefill(params, x, positions, cfg)       # (B, S, Hkv, hd)
+    q = _queries(params, x, positions, cfg, rope)                  # (B, S, Hkv, G, hd)
+    k, v = compute_kv_for_prefill(params, x, positions, cfg, rope) if kv is None else kv
+    if kernel:
+        q, k, v = _kernel_heads(cfg, q, k, v)
+        out = ops.flash_prefill_attention(q, k, v, causal=causal, window=window,
+                                          scale=_kernel_scale(cfg))
+        return _model_heads(cfg, out).reshape(b, s, -1) @ params["wo"]
     chunk = default_q_chunk(s)
     outs = []
     for c0 in range(0, s, chunk):
-        qc, pc = q[:, c0:c0 + chunk], positions[:, c0:c0 + chunk]
+        qc = q[:, c0:c0 + chunk]
         scores = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), k.float()) * (hd**-0.5)
-        mask = pc[:, None, None, :, None] >= positions[:, None, None, None, :]
-        if window > 0:
-            mask &= (pc[:, None, None, :, None] - positions[:, None, None, None, :]) < window
-        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        if causal:
+            pc = positions[:, c0:c0 + chunk]
+            mask = pc[:, None, None, :, None] >= positions[:, None, None, None, :]
+            if window > 0:
+                mask &= (pc[:, None, None, :, None] - positions[:, None, None, None, :]) < window
+            scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, qc.shape[1], -1))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.to(x.dtype) @ params["wo"]
+
+
+def cross_decode_attend(params: dict, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
+                        cfg: ModelConfig, *, paged: bool = True) -> torch.Tensor:
+    """One decode step's cross-attention (whisper's): the query of each row
+    (x (B, 1, D), no rotation) over its T encoder keys xk/xv (B, T, Hkv,
+    hd). A ring of T slots read at position T - 1 has every slot live, in
+    position order, so this is the ring decode (``ops.swa_decode_attention``
+    with window 0, ``paged`` as the step's own) over all T keys: the split-KV
+    decode body, built for one query a row. Returns the output after
+    ``wo``."""
+    b = x.shape[0]
+    q = _kernel_heads(cfg, _queries(params, x, None, cfg, rope=False))[0]
+    out = ops.swa_decode_attention(q[:, 0], xk, xv, xk.shape[1] - 1, 0, paged=paged,
+                                   scale=_kernel_scale(cfg))
+    return _model_heads(cfg, out).reshape(b, 1, -1) @ params["wo"]
 
 
 def int8_roundtrip_kv(x: torch.Tensor) -> torch.Tensor:
@@ -281,20 +318,21 @@ def fill_cache_rows(
 
 
 def _decode_ring_heads(params: dict, cache: dict, x: torch.Tensor, cfg: ModelConfig,
-                       window: int, paged: bool) -> torch.Tensor:
+                       window: int, paged: bool, rope: bool = True) -> torch.Tensor:
     """One decode step over one layer's ring cache, one shard's heads (every
     head with no active axis): the pre-``wo`` output. x: (B, 1, D); cache:
     {"k"/"v": (B, C, Hkv, hd), "pos": () or (B,)}. Row b's token (position
-    pos[b]) is written first, in place at slot pos[b] mod C, then attends
-    over its ring through ``ops.swa_decode_attention`` (``paged``: the
-    kernel that skips dead pages; else the one that streams every slot)."""
+    pos[b], rotated unless ``rope`` is False) is written first, in place at
+    slot pos[b] mod C, then attends over its ring through
+    ``ops.swa_decode_attention`` (``paged``: the kernel that skips dead
+    pages; else the one that streams every slot)."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = cache["pos"]
     cap = cache_capacity(cache)
     pos_b = pos[:, None] if pos.dim() == 1 else pos.reshape(1, 1).expand(b, 1)
-    q = _queries(params, x, pos_b, cfg)                            # (B, 1, Hkv, G, hd)
-    k, v = compute_kv_for_prefill(params, x, pos_b, cfg)           # (B, 1, Hkv, hd)
+    q = _queries(params, x, pos_b, cfg, rope)                      # (B, 1, Hkv, G, hd)
+    k, v = compute_kv_for_prefill(params, x, pos_b, cfg, rope)     # (B, 1, Hkv, hd)
     q, k, v = _kernel_heads(cfg, q, k, v)
     slot = pos.long() % cap
     if pos.dim() == 1:
@@ -310,11 +348,11 @@ def _decode_ring_heads(params: dict, cache: dict, x: torch.Tensor, cfg: ModelCon
 
 
 def decode_attend(params, x: torch.Tensor, cache, cfg: ModelConfig, *, window: int = 0,
-                  paged: bool = True) -> torch.Tensor:
+                  paged: bool = True, rope: bool = True) -> torch.Tensor:
     """One decode step over one layer's ring cache (``_decode_ring_heads``,
     per shard under a tensor axis), then the gathered heads through
     ``wo``."""
-    out = map_shards(_decode_ring_heads, params, cache, x, cfg, window, paged)
+    out = map_shards(_decode_ring_heads, params, cache, x, cfg, window, paged, rope)
     return gather_heads(out) @ replica(params)["wo"]
 
 
@@ -332,16 +370,19 @@ def fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def prefill_local_attend(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                         cfg: ModelConfig, cache: dict, *, window: int) -> torch.Tensor:
-    """Whole-prompt prefill of one local-attention layer (the hybrid's): x
-    (B, S, D) at positions 0..S-1 attends causally within ``window``
-    through the flash-prefill kernel (the reference's ``attend_full`` in
-    this role), and the prompt's rotated k/v fill the layer's ring
-    ``cache`` ({"k"/"v": (B, C, Hkv, hd)}) in place (``fill_cache``).
-    Returns the output after ``wo``."""
+                         cfg: ModelConfig, cache: dict, *, window: int,
+                         rope: bool = True) -> torch.Tensor:
+    """Whole-prompt prefill of one causal self-attention layer (the
+    hybrid's local attention, a dense decoder's, whisper's decoder's): x
+    (B, S, D) at positions 0..S-1 attends causally within ``window`` (0:
+    every earlier key) through the flash-prefill kernel (the reference's
+    ``attend_full`` in this role), and the prompt's k/v (rotated unless
+    ``rope`` is False) fill the layer's ring ``cache`` ({"k"/"v": (B, C,
+    Hkv, hd)}) in place (``fill_cache``). Returns the output after
+    ``wo``."""
     b, s, _ = x.shape
-    k, v = compute_kv_for_prefill(params, x, positions, cfg)
-    q, k, v = _kernel_heads(cfg, _queries(params, x, positions, cfg), k, v)
+    k, v = compute_kv_for_prefill(params, x, positions, cfg, rope)
+    q, k, v = _kernel_heads(cfg, _queries(params, x, positions, cfg, rope), k, v)
     out = ops.flash_prefill_attention(q, k, v, window=window, scale=_kernel_scale(cfg))
     fill_cache(cache, k, v)
     return _model_heads(cfg, out).reshape(b, s, -1) @ params["wo"]

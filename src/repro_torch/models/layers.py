@@ -1,5 +1,6 @@
-"""Shared layers: RMS norm, rotary embedding, the gated MLP (SwiGLU, GeGLU),
-the training loss, initializers.
+"""Shared layers: RMS norm, LayerNorm, rotary embedding, the gated MLP
+(SwiGLU, GeGLU) and the plain two-matrix GELU MLP, the training loss,
+initializers.
 
 Plain functions on tensors with the reference package's conventions:
 parameters are dicts of tensors, layer math runs in the model dtype with
@@ -30,6 +31,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with a bias: fp32 mean and variance, ``rsqrt(var + eps)``,
+    cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     """(head_dim/2,) inverse frequencies, fp32."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
@@ -55,10 +67,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """The gated MLP: (act(x @ w_gate) * (x @ w_up)) @ w_down, SwiGLU for
-    ``act == "silu"``, GeGLU (tanh GELU) for "gelu"."""
-    act_fn = F.silu if act == "silu" else gelu
-    return (act_fn(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+    """The gated MLP where ``params`` has ``w_gate``: (act(x @ w_gate) *
+    (x @ w_up)) @ w_down, SwiGLU for ``act == "silu"``, GeGLU (tanh GELU)
+    for "gelu". Else the plain MLP with biases (whisper's): gelu(x @ w_up +
+    b_up) @ w_down + b_down."""
+    if "w_gate" in params:
+        act_fn = F.silu if act == "silu" else gelu
+        return (act_fn(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+    return gelu(x @ params["w_up"] + params["b_up"]) @ params["w_down"] + params["b_down"]
 
 
 def cross_entropy_loss(

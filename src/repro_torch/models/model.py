@@ -1,18 +1,24 @@
 """Model API of the port: ``build_model(cfg)`` returns a ``ModelAPI`` whose
-members close over the config — the transformer part of the reference's
-``ModelAPI`` that the trainer and the serving engine use, with the dense
-gated FFN or, for ``arch_type == "moe"``, the MoE layer; the recurrent
-families (``"hybrid"``: recurrentgemma, ``models/rglru.py``; ``"ssm"``:
-xLSTM, ``models/xlstm.py``) with whole-prompt prefill and decode and no
-slot-cache API, as in the reference — and ``localize_config``, the
-per-shard config of tensor-parallel serving."""
+members close over the config, for all six of the reference's arch types:
+the transformer (``"dense"``; ``"moe"``: the MoE layer) with the slot-cache
+API the serving engine uses; the recurrent families (``"hybrid"``:
+recurrentgemma, ``models/rglru.py``; ``"ssm"``: xLSTM,
+``models/xlstm.py``), pixtral (``"vlm"``, ``models/vlm.py``) and whisper
+(``"audio"``, ``models/whisper.py``) with whole-prompt prefill and decode
+and no slot-cache API, as in the reference. And ``localize_config``, the
+per-shard config of tensor-parallel serving.
+
+Batches are dicts, as in the reference: {"tokens" (B, S), "labels" (B, S)}
+for training and prefill, plus "patch_embeds" (B, vision_seq, D) for vlm
+and "audio_embeds" (B, encoder_seq, D) for audio; decode takes tokens (B,
+1) against a cache that ``init_cache`` or ``prefill`` made."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru, transformer, xlstm
+from repro_torch.models import rglru, transformer, vlm, whisper, xlstm
 from repro_torch.models.moe import MOE_FFN
 
 
@@ -29,7 +35,9 @@ class ModelAPI:
     # either cache layout; ``paged`` picks the ring kernel that skips dead pages.
     # The cache is updated in place (a CUDA graph replays the step on its tensors)
     decode: Callable[..., tuple[dict, Any]]
-    # init_cache(batch, max_seq, window=, device=) -> lockstep decode cache (pos ())
+    # init_cache(params, batch, max_seq, window=) -> lockstep decode cache (pos ()) for
+    # the rows of batch["tokens"], on its device (audio: runs the encoder on
+    # batch["audio_embeds"] and holds each layer's cross K/V)
     init_cache: Callable[..., dict]
     # The slot-cache API of continuous batching (None where the arch has none,
     # as in the reference: the recurrent families):
@@ -42,9 +50,10 @@ class ModelAPI:
     init_paged_cache: Callable[..., dict] | None = None
     # init_slot_cache(num_slots, max_seq, window=, device=) -> per-slot rings (pos (B,))
     init_slot_cache: Callable[..., dict] | None = None
-    # prefill(params, tokens (B, S), window=, cache_window=) -> (decode cache at
-    # pos S, logits (B, Vp) of the last position): the recurrent families'
-    # whole-prompt prefill
+    # prefill(params, batch, window=, cache_window=) -> (decode cache at pos S,
+    # logits (B, Vp) of the last position): the whole-prompt prefill of the
+    # recurrent families, vlm (image prefix + prompt) and audio (encoder +
+    # prompt)
     prefill: Callable[..., tuple[dict, Any]] | None = None
 
 
@@ -70,9 +79,19 @@ def localize_config(cfg: ModelConfig, shards: int) -> ModelConfig:
     )
 
 
-def _recurrent_api(cfg: ModelConfig, mod) -> ModelAPI:
-    """The hybrid (``rglru``) or ssm (``xlstm``) family: ``mod`` holds its
-    init, loss, forward, decode cache, decode step and prefill."""
+def _prefill_family_api(cfg: ModelConfig, mod) -> ModelAPI:
+    """A family with whole-prompt prefill and decode and no slot-cache API,
+    as in the reference: the hybrid (``rglru``), ssm (``xlstm``), vlm
+    (``vlm``: forward and prefill take the batch with its
+    ``patch_embeds``) or audio (``whisper``: forward and prefill take the
+    batch with its ``audio_embeds``; ``init_cache`` runs the encoder on
+    them). ``mod`` holds the family's init, loss, forward, decode cache,
+    decode step and prefill."""
+    inputs = cfg.arch_type in ("vlm", "audio")
+
+    def arg(batch):
+        return batch if inputs else batch["tokens"]
+
     def init(generator, device):
         return mod.init_params(cfg, generator, device)
 
@@ -80,32 +99,33 @@ def _recurrent_api(cfg: ModelConfig, mod) -> ModelAPI:
         return mod.loss_fn(cfg, params, batch)
 
     def forward(params, batch):
-        return mod.forward(cfg, params, batch["tokens"])[0]
+        return mod.forward(cfg, params, arg(batch))[0]
 
     def decode(params, cache, tokens, *, window=0, paged=True):
         return mod.decode_step(cfg, params, cache, tokens, window=window, paged=paged)
 
-    def init_cache(batch, max_seq, *, window=0, device):
-        return mod.init_decode_cache(cfg, batch, max_seq, window=window, device=device)
+    def init_cache(params, batch, max_seq, *, window=0):
+        if cfg.arch_type == "audio":
+            return whisper.init_decode_cache(cfg, params, batch["audio_embeds"], max_seq,
+                                             window=window)
+        return mod.init_decode_cache(cfg, batch["tokens"].shape[0], max_seq, window=window,
+                                     device=batch["tokens"].device)
 
-    def prefill(params, tokens, *, window=0, cache_window=0):
-        return mod.prefill(cfg, params, tokens, window=window, cache_window=cache_window)
+    def prefill(params, batch, *, window=0, cache_window=0):
+        return mod.prefill(cfg, params, arg(batch), window=window, cache_window=cache_window)
 
     return ModelAPI(cfg, init, loss, forward, decode, init_cache, prefill=prefill)
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.arch_type not in ("dense", "moe", "hybrid", "ssm"):
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: the port serves the dense and MoE transformers "
-            "and the recurrent families; the vlm and audio families are a later slice"
-        )
     if cfg.act not in ("silu", "gelu"):
-        raise NotImplementedError(f"act {cfg.act!r}: the port's MLPs are SwiGLU and GeGLU")
-    if cfg.arch_type == "hybrid":
-        return _recurrent_api(cfg, rglru)
-    if cfg.arch_type == "ssm":
-        return _recurrent_api(cfg, xlstm)
+        raise NotImplementedError(f"act {cfg.act!r}: the port's MLPs are SwiGLU and GeGLU "
+                                  "(and whisper's plain GELU MLP)")
+    family = {"hybrid": rglru, "ssm": xlstm, "vlm": vlm, "audio": whisper}
+    if cfg.arch_type in family:
+        return _prefill_family_api(cfg, family[cfg.arch_type])
+    if cfg.arch_type not in ("dense", "moe"):
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
     ffn = MOE_FFN if cfg.arch_type == "moe" else transformer.DENSE_FFN
 
     def init(generator, device):
@@ -137,8 +157,9 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             kv_dtype=kv_dtype,
         )
 
-    def init_cache(batch, max_seq, *, window=0, device):
-        return transformer.init_decode_cache(cfg, batch, max_seq, window=window, device=device)
+    def init_cache(params, batch, max_seq, *, window=0):
+        return transformer.init_decode_cache(cfg, batch["tokens"].shape[0], max_seq,
+                                             window=window, device=batch["tokens"].device)
 
     def init_slot_cache(num_slots, max_seq, *, window=0, device):
         return transformer.init_decode_cache(cfg, num_slots, max_seq, window=window,

@@ -17,7 +17,7 @@ update. The temporal conv (width 4, depthwise, causal) carries a
 their window: whole-prompt prefill attends through the flash-prefill
 kernel and fills the ring (``attention.prefill_local_attend``), decode goes
 through the ring decode kernels (``attention.decode_attend``), training
-through the plain ``attend_causal`` under autograd.
+through the plain ``attend_full`` under autograd.
 
 Parameters and decode caches keep the reference's periodic layout
 (``common.periodic_stack``); a decode step updates every state of the cache
@@ -157,7 +157,7 @@ def _train_layer(cfg: ModelConfig, kind: str, lp: dict, x: torch.Tensor,
     if kind == "rglru":
         out = _rec_mixing(lp["mix"], h, None)[0]
     else:
-        out = attn.attend_causal(lp["mix"], h, positions, cfg, window=cfg.local_attn_window)
+        out = attn.attend_full(lp["mix"], h, positions, cfg, window=cfg.local_attn_window)
     return _mlp_residual(cfg, lp, x + out)
 
 

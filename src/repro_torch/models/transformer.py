@@ -112,28 +112,38 @@ def _per_shard(fn, tree, *args):
 def _train_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor,
                  window: int, ffn: FFNHooks) -> tuple[torch.Tensor, torch.Tensor]:
     a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
-    h = h + attn.attend_causal(lp["attn"], a, positions, cfg, window=window)
+    h = h + attn.attend_full(lp["attn"], a, positions, cfg, window=window)
     f, aux = ffn.apply(lp["ffn"], rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps), cfg)
     return h + f, aux
+
+
+def forward_embeds(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,
+                   *, ffn: FFNHooks = DENSE_FFN, window: int = 0,
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoder stack over input embeddings x (B, S, D) at ``positions``
+    (B, S): (the final-normed hidden states (B, S, D), aux loss summed over
+    layers (0 for the dense FFN)). With ``cfg.remat`` each layer is
+    recomputed in the backward pass (``torch.utils.checkpoint``), as the
+    reference's ``scan_layers`` does with ``jax.checkpoint``."""
+    h = x
+    aux = torch.zeros((), device=x.device)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        if cfg.remat and torch.is_grad_enabled():
+            h, a = checkpoint(_train_layer, cfg, lp, h, positions, window, ffn,
+                              use_reentrant=False)
+        else:
+            h, a = _train_layer(cfg, lp, h, positions, window, ffn)
+        aux = aux + a
+    return rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps), aux
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             ffn: FFNHooks = DENSE_FFN, window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward: tokens (B, S) → (logits fp32 (B, S, Vp), aux loss
-    summed over layers (0 for the dense FFN)). With ``cfg.remat`` each
-    layer is recomputed in the backward pass (``torch.utils.checkpoint``),
-    as the reference's ``scan_layers`` does with ``jax.checkpoint``."""
-    h = embed_tokens(params["embed"], tokens)
-    pos = positions_for(tokens)
-    aux = torch.zeros((), device=tokens.device)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        if cfg.remat and torch.is_grad_enabled():
-            h, a = checkpoint(_train_layer, cfg, lp, h, pos, window, ffn, use_reentrant=False)
-        else:
-            h, a = _train_layer(cfg, lp, h, pos, window, ffn)
-        aux = aux + a
-    h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
+    summed over layers (0 for the dense FFN))."""
+    h, aux = forward_embeds(cfg, params, embed_tokens(params["embed"], tokens),
+                            positions_for(tokens), ffn=ffn, window=window)
     return lm_logits(params["embed"], h, cfg), aux
 
 
@@ -246,6 +256,32 @@ def decode_step(
     h = rms_norm(h, p0["ln_f"]["scale"], cfg.norm_eps)
     replica(cache)["pos"] += 1
     return cache, lm_logits(p0["embed"], h, cfg)[:, 0]
+
+
+def prefill_embeds(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
+                   ffn: FFNHooks = DENSE_FFN, window: int = 0, cache_window: int = 0,
+                   ) -> tuple[dict, torch.Tensor]:
+    """Whole-prompt prefill of a lockstep batch from its input embeddings x
+    (B, S, D) (pixtral's image prefix and prompt; the token embeddings of a
+    prompt): positions 0..S-1 attend causally (within ``window``) through
+    the flash-prefill kernel, and each layer's rotated k/v fill a fresh
+    ring cache of ``cache_window`` slots (S when 0: a ring smaller than S
+    keeps the last tokens) → (the decode cache at pos S, logits (B, Vp) of
+    the last position). ``decode_step`` continues it."""
+    b, s, _ = x.shape
+    cache = init_decode_cache(cfg, b, cache_window if cache_window > 0 else s,
+                              device=x.device)
+    pos = positions_for(x[..., 0])
+    h = x
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        a = rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
+        h = h + attn.prefill_local_attend(lp["attn"], a, pos, cfg, layer_cache(cache, i),
+                                          window=window)
+        h = _ffn_residual(cfg, lp, h, ffn)
+    h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
+    cache["pos"].fill_(s)
+    return cache, lm_logits(params["embed"], h[:, -1:], cfg)[:, 0]
 
 
 def prefill_slots(

@@ -167,6 +167,85 @@ def test_plain_versions_match_pallas_kernels_interpreted(g, hd):
     _close(ref.suffix_prefill_ref(*(_to_torch(a, dt) for a in args), prefix_width=3), want, dt)
 
 
+# ------------------------------------------- flash_prefill, non-causal
+# whisper's encoder (S = T) and cross-attention (S queries, T frames), at T
+# no multiple of 64: the last key tile crosses T
+NONCAUSAL_SHAPES = [(24, 24), (8, 40), (1, 40)]
+
+
+@pytest.mark.parametrize("g,hd,dtype", CASES)
+@pytest.mark.parametrize("s,t", NONCAUSAL_SHAPES)
+def test_noncausal_flash_prefill_plain_matches_reference_oracle(g, hd, dtype, s, t):
+    from repro.kernels import ref as jref
+
+    rng = np.random.default_rng(s * 100 + t)
+    q = rng.standard_normal((2, s, 2, g, hd), np.float32)
+    k = rng.standard_normal((2, t, 2, hd), np.float32)
+    v = rng.standard_normal((2, t, 2, hd), np.float32)
+    want = jref.flash_prefill_ref(*(_to_jax(a, dtype) for a in (q, k, v)), causal=False)
+    got = ref.flash_prefill_ref(*(_to_torch(a, dtype) for a in (q, k, v)), causal=False)
+    _close(got, want, dtype)
+    # the dispatch on CPU tensors is the plain version; a window needs causal
+    torch.testing.assert_close(
+        ops.flash_prefill_attention(*(_to_torch(a, dtype) for a in (q, k, v)), causal=False),
+        got, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_prefill_attention(*(_to_torch(a, dtype) for a in (q, k, v)), causal=False,
+                                    window=4)
+
+
+@pytest.mark.parametrize("g,hd", [(1, 32), (2, 64)])
+@pytest.mark.parametrize("s", [1, 8])
+def test_noncausal_flash_prefill_plain_matches_pallas_interpreted(g, hd, s):
+    """The TPU kernel's non-causal mode (interpret mode, float32) at S != T,
+    T = 40."""
+    from repro.kernels.flash_prefill import flash_prefill
+
+    dt = np.float32
+    rng = np.random.default_rng(7 + s)
+    q = rng.standard_normal((2, s, 2, g, hd), np.float32)
+    k = rng.standard_normal((2, 40, 2, hd), np.float32)
+    v = rng.standard_normal((2, 40, 2, hd), np.float32)
+    want = flash_prefill(*(_to_jax(a, dt) for a in (q, k, v)), causal=False, bq=8, bk=8,
+                         interpret=True)
+    _close(ref.flash_prefill_ref(*(_to_torch(a, dt) for a in (q, k, v)), causal=False), want,
+           dt)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("t", [40, 1500])
+def test_cross_decode_route_matches_reference_attend_full(paged, t):
+    """Whisper's decode-step cross-attention: the port's ring-decode route
+    (``ops.swa_decode_attention`` over the T frames at position T - 1,
+    window 0) against the reference's ``attend_full(kv=..., causal=False)``
+    on the same weights, float32."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as ref_smoke_config
+    from repro.models import attention as jattn
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as attn
+
+    cfg = dataclasses.replace(get_smoke_config("whisper-medium"), dtype="float32")
+    ref_cfg = dataclasses.replace(ref_smoke_config("whisper-medium"), dtype="float32")
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    rng = np.random.default_rng(t)
+    params = {name: rng.standard_normal(shape, np.float32) * np.float32(0.1)
+              for name, shape in (("wq", (d, h * hd)), ("wk", (d, h * hd)),
+                                  ("wv", (d, h * hd)), ("wo", (h * hd, d)))}
+    x = rng.standard_normal((3, 1, d), np.float32)
+    xk, xv = (rng.standard_normal((3, t, cfg.n_kv_heads, hd), np.float32) for _ in "kv")
+    want = jattn.attend_full({k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+                             None, ref_cfg, causal=False, kv=(jnp.asarray(xk), jnp.asarray(xv)),
+                             rope=False)
+    T = torch.from_numpy
+    got = attn.cross_decode_attend({k: T(v) for k, v in params.items()}, T(x), T(xk), T(xv),
+                                   cfg, paged=paged)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 def test_gather_pages_matches_reference():
     from repro.kernels import ref as jref
     from repro_torch.models.attention import gather_pages
@@ -889,6 +968,28 @@ def test_fp32_prefill_stays_on_the_simt_body_cuda(sm90, g, hd):
                                                  prefix_width=3),
                     ref.suffix_prefill_ref(q, ksuf, vsuf, kp, vp, table, starts,
                                            prefix_width=3)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hd", [(1, 32), (2, 32), (1, 64), (2, 64)])
+def test_noncausal_flash_prefill_matches_plain_cuda(sm90, dtype, g, hd):
+    """``flash_prefill(causal=False)`` in both bodies (float32: SIMT; bf16:
+    tensor cores) against its plain version within RTOL of the plain
+    output's RMS, at whisper's shapes: S = T = 1500 (the encoder), 64 and 1
+    queries against 1500 frames (cross-attention), and ragged S / T (the
+    last key tile crossing T); dropping the last key must read outside."""
+    gen = torch.Generator().manual_seed(g * 1000 + hd)
+    tol = RTOL[str(dtype).split(".")[1]]
+    for s, t in ((1500, 1500), (64, 1500), (1, 1500), (100, 129), (129, 65)):
+        q = torch.randn(2, s, 2, g, hd, generator=gen).to("cuda", dtype)
+        k, v = (torch.randn(2, t, 2, hd, generator=gen).to("cuda", dtype) for _ in "kv")
+        out = ops.flash_prefill_attention(q, k, v, causal=False)
+        want = ref.flash_prefill_ref(q, k, v, causal=False)
+        assert _err_rms(out, want) <= tol, (s, t)
+        short = ref.flash_prefill_ref(q, k[:, :-1], v[:, :-1], causal=False)
+        assert _err_rms(out, short) > tol or t > 200, (s, t)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_prefill_attention(q, k, v, causal=False, window=8)
 
 
 def test_prefill_libraries_run_on_tensor_cores_cuda(sm90):

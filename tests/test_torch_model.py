@@ -215,11 +215,16 @@ def test_batched_prefill_matches_own_looped_prefill():
     assert caches[0]["pos"].tolist() == caches[1]["pos"].tolist() == [13, 0, 4]
 
 
-def test_other_families_raise():
-    for family in ("vlm", "audio"):
-        cfg = dataclasses.replace(get_smoke_config(ARCH), arch_type=family)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_model(cfg)
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b", "pixtral-12b",
+                                  "recurrentgemma-2b", "xlstm-125m", "whisper-medium"])
+def test_build_model_takes_every_arch_type(arch):
+    """All six of the reference's arch types build, with the whole-prompt
+    prefill or the slot-cache API; an unknown one raises."""
+    model = build_model(get_smoke_config(arch))
+    assert (model.prefill_slots is not None) == (model.cfg.arch_type in ("dense", "moe"))
+    assert (model.prefill is not None) != (model.prefill_slots is not None)
+    with pytest.raises(ValueError, match="arch_type"):
+        build_model(dataclasses.replace(get_smoke_config(arch), arch_type="cnn"))
 
 
 # ---------------------------------------------------------- import isolation

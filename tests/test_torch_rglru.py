@@ -133,7 +133,7 @@ def test_teacher_forced_decode_matches_reference(hybrid):
     leaf for leaf."""
     model, params, ref_model, ref_params = hybrid
     toks = np.random.default_rng(2).integers(0, 512, (2, 24)).astype(np.int32)
-    cache = model.init_cache(2, 24, window=8, device="cpu")
+    cache = model.init_cache(params, {"tokens": torch.from_numpy(toks)}, 24, window=8)
     jc = ref_model.init_cache(ref_params, {"tokens": jnp.asarray(toks)}, 24, window=8)
     dec = _ref_decode(ARCH, 8)
     for t in range(24):
@@ -152,12 +152,12 @@ def test_prefill_across_a_ring_wrap_then_decode(hybrid):
     rng = np.random.default_rng(3)
     prompt = rng.integers(0, 512, (2, 20)).astype(np.int32)
     feed = rng.integers(0, 512, (2, 6)).astype(np.int32)
-    cache, got = model.prefill(params, torch.from_numpy(prompt), window=8)
+    cache, got = model.prefill(params, {"tokens": torch.from_numpy(prompt)}, window=8)
     jc, want = jax.jit(lambda p, t: ref_model.prefill(p, {"tokens": t}, window=8))(
         ref_params, jnp.asarray(prompt))
     close(got, want)
     close_trees(cache, jc)
-    tf = model.init_cache(2, 20, window=8, device="cpu")
+    tf = model.init_cache(params, {"tokens": torch.from_numpy(prompt)}, 20, window=8)
     for t in range(20):
         tf, tf_logits = model.decode(params, tf, torch.from_numpy(prompt[:, t:t + 1]), window=8)
     close(got, tf_logits.numpy())
@@ -176,7 +176,8 @@ def test_decode_state_stays_bounded_past_three_rings(hybrid):
     leaf changes shape or address (the decode writes in place, as a CUDA
     graph replays it), the logits stay finite."""
     model, params, _, _ = hybrid
-    cache = model.init_cache(1, 24, window=8, device="cpu")
+    cache = model.init_cache(params, {"tokens": torch.zeros((1, 1), dtype=torch.long)}, 24,
+                             window=8)
     leaves = jax.tree_util.tree_leaves(cache)
     before = [(x.shape, x.data_ptr()) for x in leaves]
     tok = torch.zeros((1, 1), dtype=torch.long)

@@ -163,7 +163,8 @@ def _ring_caches(model, ref_model, ref_params, b, max_seq, window, per_slot):
     if per_slot:
         return (model.init_slot_cache(b, max_seq, window=window, device="cpu"),
                 ref_model.init_slot_cache(ref_params, b, max_seq, window=window))
-    return (model.init_cache(b, max_seq, window=window, device="cpu"),
+    return (model.init_cache(None, {"tokens": torch.zeros((b, 1), dtype=torch.long)}, max_seq,
+                             window=window),
             ref_model.init_cache(ref_params, {"tokens": jnp.zeros((b, 1), jnp.int32)},
                                  max_seq, window=window))
 

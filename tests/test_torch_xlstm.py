@@ -111,12 +111,12 @@ def test_prefill_and_24_decode_steps_match_reference(ssm):
     rng = np.random.default_rng(2)
     prompt = rng.integers(0, 512, (2, 9)).astype(np.int32)
     feed = rng.integers(0, 512, (2, 24)).astype(np.int32)
-    cache, got = model.prefill(params, torch.from_numpy(prompt))
+    cache, got = model.prefill(params, {"tokens": torch.from_numpy(prompt)})
     jc, want = jax.jit(lambda p, t: ref_model.prefill(p, {"tokens": t}))(ref_params,
                                                                          jnp.asarray(prompt))
     close(got, want)
     close_trees(cache, jc)
-    tf = model.init_cache(2, 0, device="cpu")
+    tf = model.init_cache(params, {"tokens": torch.from_numpy(prompt)}, 0)
     for t in range(9):
         tf, tf_logits = model.decode(params, tf, torch.from_numpy(prompt[:, t:t + 1]))
     close(got, tf_logits.numpy())
@@ -215,7 +215,7 @@ def test_select_rows_and_gather_snapshots_match_reference(ssm):
     rng = np.random.default_rng(5)
 
     def rand_state():
-        c = model.init_cache(3, 0, device="cpu")
+        c = model.init_cache(None, {"tokens": torch.zeros((3, 1), dtype=torch.long)}, 0)
         return tree_map(lambda x: torch.from_numpy(rng.standard_normal(x.shape)
                                                    .astype(np.float32)), xlstm.state_tree(c))
 
