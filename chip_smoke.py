@@ -132,6 +132,12 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    the whole ring) within ``RTOL`` and BITWISE equal, faults outside; bf16
    timed (device and wrapper ms, the plain version's, SDPA's with
    ``is_causal=False``, the bound);
+3p, 2p. the per-request path's shapes ([per-request]): ``flash_prefill`` at B
+   1 (S 384 causal; S 6144 with window 4096, a ring prompt past its
+   window) and ``suffix_prefill`` at width 1 (an exact 45-token suffix
+   behind 256 cached tokens, W 16), bf16: within ``RTOL`` of the plain
+   versions (one-ulp flips left out), planted faults outside; timed as in
+   3g, SDPA over the same keys;
 4. golden: the port's engine replays the reference engine's float32 greedy
    trace (``src/repro_torch/testdata/golden_stablelm_smoke.json``) and must
    reproduce its tokens exactly;
@@ -192,6 +198,22 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    ``serve_batch``) through ``generate_batch``'s decode graph, whisper's
    prefill (the encoder and the prompt) and pixtral's (16 patches and the
    prompt) then greedy decode: every token, the kernels launched;
+4k. golden per request ([golden-per-request]): the reference engine's
+   float32 traces with ``batch_prefill=False``
+   (``golden_stablelm_smoke_per_request.json``: rings with a window its
+   prompts wrap, through ``prefill_slot``; the pool with prefix hits,
+   width-1 cold and suffix dispatches; int8 pages in a pool that preempts):
+   tokens, dispatch counters and ``compiles`` identical, each path's kernels
+   launched;
+   dry run ([dryrun]): the whole table of ``repro_torch.launch.dryrun``
+   (10 architectures x 4 input shapes x 2 production meshes; a process of
+   its own beside the build, no device, joined before the first timed
+   phase so that no timed phase shares the host with it): 80 records, no error,
+   every compiler-only field null, its wall; then stablelm-1.6b's
+   training record on a one-device logical mesh at phase 7's per-cloud
+   shape (8 x 256): ``argument_bytes`` equal to the bytes of the
+   parameters, AdamW state and batch the trainer holds on the card,
+   exactly, beside the caching allocator's growth;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -322,6 +344,15 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    (``swa_decode``), the decode step's profile for both, the trace over
    the windowed paged pool (token agreement), an interleaved trace (4
    prompts of <= 64 tokens x 16);
+5p. per request ([per-request-main]): phase 5's paged trace and 5c's ring
+   trace with ``batch_prefill=False`` at full width: budgets, finite logits,
+   one prefill dispatch per request, the kernels launched; tok/s, TTFT p50,
+   dispatches, ``compiles`` and token agreement beside the batched traces'
+   (no gate on bf16 tokens). The first-token logits of a 6144- and a
+   700-token ring prompt through ``prefill_slot`` and of a width-1 cold and
+   suffix dispatch within 0.1 x scale of the plain path (planted faults
+   outside); in float32 four ring prompts' per-request logits within 1e-3 x
+   scale of one batched cold round's;
 5d. single batch: ``generate_batch`` at full width, batch 4, prompt 64, gen
    64, window 96 (the ring wraps; its shape is checked in 3c), through its
    one decode-and-argmax graph; ``swa_decode`` must launch;
@@ -410,15 +441,18 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    of 5e (the verify's suffix prefills, the draft's ring decode and re-sync
    prefills, the int8 verify's pool writes), the tensor-parallel traces of
    5k-5l, the other configs' traces of 5m, the recurrent families' runs of
-   5n, pixtral's and whisper's of 5o, the training run and 7g),
+   5n, pixtral's and whisper's of 5o, the per-request traces of 5p, the
+   training run and 7g),
    then ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -3607,7 +3641,7 @@ def phase_main_path_ring(smi):
     and an interleaved trace of 4 prompts of <= 64 tokens x 16. Returns
     the ring kernels' launches (paged_decode_ring's from the main run,
     swa_decode's from the run with paged decode off) and the model and
-    parameters for 5d."""
+    parameters for 5d, and the main run's tokens and record for 5p."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3660,7 +3694,8 @@ def phase_main_path_ring(smi):
     del eng
     torch.cuda.empty_cache()
     return ({"paged_decode_ring": launches["paged_decode_ring"],
-             "swa_decode": l_swa["swa_decode"]}, model, params)
+             "swa_decode": l_swa["swa_decode"]}, model, params,
+            dict(tokens=toks, record=graphed))
 
 
 # ----------------------------------------------------------------- phase 5d
@@ -6426,12 +6461,453 @@ def phase_train_vlm_audio(smi):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 3p
+# The per-request path's kernel shapes (stablelm-1.6b: Hkv 32, G 1, hd 64,
+# bf16): flash_prefill at B 1 over one prompt (a phase-5 cold prompt of 384
+# tokens, causal; a ring prompt of 6144 tokens past its window of 4096,
+# ``prefill_slot``'s call), suffix_prefill at width 1 (an exact 45-token
+# suffix behind a 256-token prefix of 16 pages, W 16 as the engine buckets
+# it). The 6144-token plain version runs 8 kv heads at a time.
+PER_REQUEST_KERNELS = dict(hkv=32, hd=64, prompts=((384, 0), (6144, 4096)), suffix=45,
+                           start=256, page=16, t_w=52, num_pages=60, heads=8)
+
+
+def phase_kernels_per_request(smi) -> list[dict]:
+    """3p, 2p ([per-request]): ``flash_prefill`` at B 1 and ``suffix_prefill``
+    at width 1, bf16: each within ``RTOL`` of its plain version (one-ulp
+    flips of the outputs left out, as in 3g), the shifted-mask fault
+    outside; device and wrapper ms, the plain version's, SDPA's over the
+    same keys, the bound. Returns the rows for the log."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    c = PER_REQUEST_KERNELS
+    hkv, hd, tol = c["hkv"], c["hd"], RTOL["bfloat16"]
+    gen = torch.Generator().manual_seed(31)
+    rows = []
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    for s, w in c["prompts"]:
+        q5 = torch.randn(1, s, hkv, 1, hd, generator=gen).to(DEVICE, torch.bfloat16)
+        k4 = torch.randn(1, s, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+        v4 = torch.randn(1, s, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+        out = ops.flash_prefill_attention(q5, k4, v4, window=w)
+        gated = raw = err = fe = 0.0
+        for h in range(0, hkv, c["heads"]):
+            sl = (slice(None), slice(None), slice(h, h + c["heads"]))
+            exact = ref.flash_prefill_ref(q5[sl].float(), k4[sl].float(), v4[sl].float(),
+                                          window=w)
+            g, r, e = _flip_gated(out[sl], exact, torch.bfloat16)
+            gated, raw, err = max(gated, g), max(raw, r), max(err, e)
+            if h == 0:
+                rms = exact.pow(2).mean().sqrt().item()
+                fault = _prefill_shift(q5[sl], k4[sl], v4[sl], window=w)
+                fe = (out[sl].float() - fault.float()).abs().max().item() / rms
+            del exact
+        what = f"flash_prefill bfloat16 B1 S{s} Hkv{hkv} G1 hd{hd} window{w}"
+        expect(gated <= tol, f"{what}: err/RMS beyond one-ulp flips {gated} > {tol}")
+        expect(fe > tol, f"{what}: planted fault 'mask shifted by one' within tolerance")
+        qt, kt, vt = (x.reshape(1, s, hkv, hd).transpose(1, 2) for x in (q5, k4, v4))
+        # SDPA takes its flash backend where the mask is plain causal (as row
+        # 3 times it); a window needs the explicit mask
+        if w:
+            pos = torch.arange(s, device=DEVICE)
+            wmask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < w)
+            sdpa_kw, lib_what = dict(attn_mask=wmask), "SDPA, the windowed mask"
+        else:
+            sdpa_kw, lib_what = dict(is_causal=True), "SDPA, is_causal=True"
+        ms, wall = timed_ms(lambda: ops.flash_prefill_attention(q5, k4, v4, window=w))
+        plain_ms = timed_ms(lambda: ref.flash_prefill_ref(q5, k4, v4, window=w), iters=3)[0]
+        lib = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw))[0]
+        pairs = sum(min(i + 1, w) if w else i + 1 for i in range(s))
+        b_ms, b_by = bound(4 * s * hkv * hd * 2, 4 * hkv * hd * pairs)
+        rows.append(dict(name="flash_prefill", shape=f"B1 S{s} window{w}", ms=ms,
+                         wrapper_ms=wall, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err))
+        log(f"[per-request] {what} ({smi}): err/RMS beyond one-ulp flips {gated:.3e} (tol "
+            f"{tol:g}), with them {raw:.3e}; planted fault 'mask shifted by one' {fe:.3e}; "
+            f"kernel device ms {ms:.4f} (wrapper wall {wall:.4f}) plain_ms {plain_ms:.4f} "
+            f"library_ms {lib:.4f} ({lib_what}) bound_ms {b_ms:.4f} ({b_by}: "
+            f"{pairs} live pairs per head)")
+        del q5, k4, v4, out, qt, kt, vt, sdpa_kw
+        torch.cuda.empty_cache()
+
+    s, start, page, t_w = c["suffix"], c["start"], c["page"], c["t_w"]
+    w_pfx = -(-start // page)
+    kp = torch.randn(c["num_pages"], page, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    vp = torch.randn(c["num_pages"], page, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    table = _table(gen, [-(-(start + s) // page)], t_w, c["num_pages"]).to(DEVICE)
+    q5 = torch.randn(1, s, hkv, 1, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    ks = torch.randn(1, s, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    vs = torch.randn(1, s, hkv, hd, generator=gen).to(DEVICE, torch.bfloat16)
+    starts = torch.tensor([start], dtype=torch.int32, device=DEVICE)
+    args = (q5, ks, vs, kp, vp, table, starts)
+    out = ops.suffix_prefill_attention(*args, prefix_width=w_pfx)
+    exact = ref.suffix_prefill_ref(*(x.float() if x.is_floating_point() else x for x in args),
+                                   prefix_width=w_pfx)
+    gated, raw, err = _flip_gated(out, exact, torch.bfloat16)
+    rms = exact.pow(2).mean().sqrt().item()
+    faults = {"last prefix key dropped": _suffix_shift(*args, prefix_width=w_pfx),
+              "last prefix page dropped": _suffix_drop_page(*args, prefix_width=w_pfx)}
+    fes = {k: (out.float() - f.float()).abs().max().item() / rms for k, f in faults.items()}
+    what = f"suffix_prefill bfloat16 n1 S{s} start{start} W{w_pfx} Hkv{hkv} G1 hd{hd}"
+    expect(gated <= tol, f"{what}: err/RMS beyond one-ulp flips {gated} > {tol}")
+    for k, fe in fes.items():
+        expect(fe > tol, f"{what}: planted fault '{k}' within tolerance")
+    kc = torch.cat([ref.gather_pages_ref(kp, table[:, :w_pfx])[:, :start], ks], 1).transpose(1, 2)
+    vc = torch.cat([ref.gather_pages_ref(vp, table[:, :w_pfx])[:, :start], vs], 1).transpose(1, 2)
+    smask = (torch.arange(start + s, device=DEVICE)[None, :]
+             <= start + torch.arange(s, device=DEVICE)[:, None])
+    qt = q5.reshape(1, s, hkv, hd).transpose(1, 2)
+    ms, wall = timed_ms(lambda: ops.suffix_prefill_attention(*args, prefix_width=w_pfx))
+    plain_ms = timed_ms(lambda: ref.suffix_prefill_ref(*args, prefix_width=w_pfx))[0]
+    lib = timed_ms(lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=smask))[0]
+    b_ms, b_by = bound((4 * s + 2 * start) * hkv * hd * 2 + 4 * (1 + w_pfx),
+                       4 * hkv * hd * (s * start + s * (s + 1) // 2))
+    rows.append(dict(name="suffix_prefill", shape=f"n1 S{s} start{start}", ms=ms,
+                     wrapper_ms=wall, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                     bound_by=b_by, max_abs_err=err))
+    log(f"[per-request] {what} ({smi}): err/RMS beyond one-ulp flips {gated:.3e} (tol {tol:g}), "
+        f"with them {raw:.3e}; planted faults " + ", ".join(f"'{k}' {v:.3e}" for k, v in
+                                                           fes.items())
+        + f"; kernel device ms {ms:.4f} (wrapper wall {wall:.4f}) plain_ms {plain_ms:.4f} "
+        f"library_ms {lib:.4f} (SDPA over the same keys) bound_ms {b_ms:.4f} ({b_by})")
+    del kp, vp, q5, ks, vs, out, exact, kc, vc
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------------------------------------- phase 4k
+GOLDEN_PER_REQUEST = "golden_stablelm_smoke_per_request.json"
+# per run of the golden file: the kernels its path must launch
+GOLDEN_PER_REQUEST_KERNELS = (("flash_prefill", "paged_decode_ring"),
+                              ("flash_prefill", "suffix_prefill", "paged_decode"),
+                              ("flash_prefill", "suffix_prefill_int8", "paged_decode_int8",
+                               "kv_write_int8"))
+
+
+def phase_golden_per_request():
+    """4k ([golden-per-request]): the reference engine's float32 traces with
+    ``batch_prefill=False`` (rings with a window the prompts wrap:
+    ``prefill_slot``; the pool with prefix hits: width-1 cold and suffix
+    dispatches; int8 pages in a pool that preempts), replayed through CUDA
+    graphs: tokens, dispatch counters and ``compiles`` identical, each
+    path's kernels launched."""
+    import torch
+
+    from repro_torch.bridge import numpy_params, params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models.model import build_model
+
+    g = json.loads((ROOT / "src/repro_torch/testdata" / GOLDEN_PER_REQUEST).read_text())
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"), dtype="float32")
+    model = build_model(cfg)
+    params = params_from_numpy(numpy_params(cfg, g["seed"]), cfg, DEVICE)
+    for run, kernels in zip(g["runs"], GOLDEN_PER_REQUEST_KERNELS):
+        eng = ServeEngine(model, params, device=DEVICE, **run["engine"])
+        before = dict(ops.LAUNCHES)
+        outs = eng.run([Request(uid=u, prompt=np.asarray(p, np.int32),
+                                max_new_tokens=g["max_new_tokens"])
+                        for u, p in enumerate(run["prompts"])])
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in kernels}
+        got = [o.tokens for o in outs]
+        counters = {k: getattr(eng, k) for k in run["counters"]}
+        compiles = {k: eng.compiles[k] for k in run["compiles"]}
+        check(got == run["tokens"], f"golden per-request run {run['name']}: tokens differ "
+                                    f"from the reference:\n{got}\n{run['tokens']}")
+        check(counters == run["counters"], f"golden per-request run {run['name']}: counters "
+                                           f"{counters} vs {run['counters']}")
+        check(compiles == run["compiles"], f"golden per-request run {run['name']}: compiles "
+                                           f"{compiles} vs {run['compiles']}")
+        check(all(v > 0 for v in launched.values()),
+              f"golden per-request run {run['name']} missed a kernel: {launched}")
+        log(f"[golden-per-request] {run['name']}: {len(got)} requests, fp32 greedy tokens, "
+            f"counters {counters} and compiles {compiles} identical to the reference "
+            f"engine's; kernel launches {launched}")
+        del eng
+
+
+# ------------------------------------------------------------- dry run
+def start_dryrun(out_dir: pathlib.Path):
+    """The dry run's whole table (10 architectures x 4 input shapes x 2
+    production meshes, ``repro_torch.launch.dryrun``), started in a process
+    of its own: it needs no device, and runs beside the kernels' build,
+    which times nothing. Returns (process, records file, start time)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / "dryrun.jsonl"
+    out.unlink(missing_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all", "--shape", "all",
+         "--multi-pod", "both", "--out", str(out)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    def stop():  # a run that fails before reading it leaves no process behind
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, out, time.perf_counter()
+
+
+DRYRUN_TRAIN = dict(arch="stablelm-1.6b", seq_len=256, per_cloud_batch=8)
+
+
+def phase_dryrun(smi, started):
+    """The dry run ([dryrun]): the table's 80 records (no error, every
+    compiler-only field null) and its wall; then stablelm-1.6b's single-pod
+    training record on a one-device logical mesh (data 1 x model 1) at
+    phase 7's per-cloud shape (8 x 256): its ``argument_bytes`` must equal
+    exactly the bytes of the parameters, AdamW state and batch the port's
+    trainer holds on the card (its step count, a host int, counted as the
+    reference's int32 scalar), printed beside the caching allocator's
+    growth while they were made."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_init
+
+    proc, out, t0 = started
+    _, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the dry run failed: {err[-2000:]}")
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    check(len(recs) == 80 and not any("error" in r for r in recs),
+          f"the dry run wrote {len(recs)} records: {[r for r in recs if 'error' in r]}")
+    check(all(r["needs"] == "compiler" and all(r[k] is None for k in dryrun.COMPILER_FIELDS)
+              for r in recs), "a dry-run record fills a compiler-only field")
+    big = max(recs, key=lambda r: r["memory"]["argument_bytes"])
+    log(f"[dryrun] {len(recs)} records (10 architectures x 4 shapes x 2 meshes) in {wall:.1f} s "
+        f"(beside the kernels' build; the process's own wall); largest arguments per device "
+        f"{big['memory']['argument_bytes'] / 2**30:.3f} GiB ({big['arch']} x {big['shape']} x "
+        f"{big['mesh']})")
+
+    c = DRYRUN_TRAIN
+    cfg = get_config(c["arch"])
+    shape = ShapeConfig("phase7", c["seq_len"], c["per_cloud_batch"], "training")
+    _, mem = dryrun.memory_plan(cfg, shape, LogicalMesh(("data", "model"), (1, 1)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    opt = adamw_init(params)
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, n_domains=4, noise=0.0)
+    batch = corpus.sample(torch.Generator().manual_seed(0), torch.ones(4) / 4,
+                          c["per_cloud_batch"], c["seq_len"])
+    batch = {k: v.to(DEVICE) for k, v in batch.items() if k != "domain"}
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    held = _nbytes(params) + _nbytes(opt["m"]) + _nbytes(opt["v"]) + 4 + _nbytes(batch)
+    check(held == mem["argument_bytes"],
+          f"dry run: argument_bytes {mem['argument_bytes']} != the trainer's {held}")
+    log(f"[dryrun] {cfg.name} training, one-device mesh, batch {c['per_cloud_batch']} x "
+        f"{c['seq_len']} ({smi}): argument_bytes {mem['argument_bytes']} == the card's "
+        f"parameters, AdamW m and v, step count and batch {held} B exactly; the caching "
+        f"allocator grew {grown} B ({grown - held:+d} B: its block rounding); output_bytes "
+        f"{mem['output_bytes']}")
+    del model, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 5p
+def _first_token_parity(cfg, label, runs, tol):
+    """Per-request first-token logits through the kernels against the plain
+    versions, from copies of one cache: ``runs`` is (what, cache, call)
+    with ``call(cache) -> logits``; a ring prompt's planted fault (the mask
+    shifted by one) must land outside."""
+    import torch
+
+    for what, cache, call, faults in runs:
+        snap = {k: v.clone() for k, v in cache.items()}
+        lk = call(cache)[:, : cfg.vocab_size].float()
+        check(bool(torch.isfinite(lk).all()), f"{label} {what}: non-finite logits")
+        got = {}
+        for fname, swap in [("plain", {}), *faults]:
+            twin = {k: v.clone() for k, v in snap.items()}
+            with plain_kernels(**swap):
+                got[fname] = call(twin)[:, : cfg.vocab_size].float()
+            del twin
+        scale = max(got["plain"].abs().max().item(), 1.0)
+        d = (lk - got["plain"]).abs().max().item()
+        expect(d <= tol * scale, f"{label} {what}: logit diff {d} > {tol} x {scale}")
+        msg = (f"[per-request-main] {cfg.dtype} {what}: kernel vs plain max |dlogit| {d:.3e} = "
+               f"{d / scale:.3e} x logit scale {scale:.2f} (tol {tol:g} x scale)")
+        for fname, _ in faults:
+            fd = (lk - got[fname]).abs().max().item()
+            expect(fd > tol * scale, f"{label} {what}: planted fault '{fname}' within tolerance")
+            msg += f"; planted fault '{fname}' {fd / scale:.3e} x scale"
+        log(msg)
+        del snap, got
+
+
+def phase_per_request_main(smi, model, params, batched: dict, ring_batched: dict) -> dict:
+    """5p ([per-request-main]): stablelm-1.6b at its published widths (bf16,
+    phase 5's seeded weights) with ``batch_prefill=False``: phase 5's paged
+    trace (width-1 cold and suffix dispatches) and 5c's ring trace (4 x
+    4096 rings; prompts up to 6144 tokens wrap inside ``prefill_slot``),
+    each printed beside the batched engine's readings of this run (tok/s,
+    TTFT p50, dispatches, compiles, token agreement; no gate on the bf16
+    tokens); every request's budget, finite logits, one prefill dispatch per
+    request. Gates: the per-request first-token logits (a 6144-token and a
+    700-token ring prompt through ``prefill_slot``, a cold and a suffix
+    prompt through width-1 ``prefill_slots``) within 0.1 x scale of the
+    plain path in bf16, the shifted mask outside; and in float32 the
+    per-request logits of four ring prompts (two wrap) within 1e-3 x
+    scale of one batched cold round's over the same prompts. Returns the
+    kernels' launches of the two traces."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models.model import build_model
+
+    cfg = model.cfg
+    cold, hits = batched["cold"], batched["hits"]
+    eng = ServeEngine(model, params, num_slots=8, max_seq=384 + 32, page_size=16,
+                      prefix_cache=True, paged_cache=True, device=DEVICE, batch_prefill=False)
+    eng.warm(sorted({len(r.prompt) for r in cold}), gen_tokens=2)
+    finite = []
+    _tap(eng, finite)
+    ops.reset_launches()
+    outs, wall = _run_trace(eng, batched)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    first = dict(counters=dict(eng.pool_stats), compiles=eng.compiles)
+    again, a_wall = _run_trace(eng, batched)
+    eng.graphs.tap = None
+    check(bool(torch.stack(finite).all()), "per-request paged trace: non-finite logits")
+    check(len(outs) == 16 and all(len(o.tokens) == 32 for o in outs.values()),
+          "per-request paged trace: a request missed its budget")
+    ps = first["counters"]
+    check(ps["cold_dispatches"] + ps["suffix_dispatches"] == eng.prefill_dispatches == 16
+          and ps["suffix_dispatches"] > 0, f"per-request paged trace: dispatches {ps}")
+    check(all(launches.get(k, 0) > 0 for k in SERVING),
+          f"per-request paged trace: a kernel never launched: {launches}")
+    toks = {u: o.tokens for u, o in outs.items()}
+    same = sum(toks[u] == batched["tokens"][u] for u in toks) / len(toks)
+    bc = batched["record"]["counters"]
+    log(f"[per-request-main] {_trace_line('fp pages, per request', smi, outs, wall, eng)}; "
+        f"{ps['cold_dispatches']} cold + {ps['suffix_dispatches']} suffix dispatches (batched: "
+        f"{bc['cold_dispatches']} + {bc['suffix_dispatches']}); compiles {first['compiles']} "
+        f"(batched: {batched['record']['compiles']}); the batched engine of phase 5 read "
+        f"{batched['tok_s']:.1f} tok/s, TTFT p50 {batched['ttft'] * 1e3:.1f} ms; token "
+        f"agreement with it {same:.3f} of requests (bf16; no gate); again, every key "
+        f"captured: {_trace_line('fp pages, per request', smi, again, a_wall, eng)}; "
+        f"launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+
+    r_toks, r_launches, eng, rec = _ring_trace(model, params, smi, "ring, per request",
+                                               batch_prefill=False)
+    check(eng.prefill_dispatches == len(RING_PROMPTS)
+          and eng.compiles["prefill"] == len(set(RING_PROMPTS))
+          and r_launches.get("flash_prefill", 0) > 0
+          and r_launches.get("paged_decode_ring", 0) > 0,
+          f"per-request ring trace: dispatches {eng.prefill_dispatches}, compiles "
+          f"{eng.compiles}, launches {r_launches}")
+    same = sum(r_toks[u] == ring_batched["tokens"][u] for u in r_toks) / len(r_toks)
+    rb = ring_batched["record"]
+    log(f"[per-request-main] ring per request: {rec['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{rec['ttft'] * 1e3:.1f} ms, {rec['counters']['prefill_dispatches']} prefill "
+        f"dispatches, compiles {rec['compiles']}; the batched ring trace of 5c read "
+        f"{rb['tok_s']:.1f} tok/s, TTFT p50 {rb['ttft'] * 1e3:.1f} ms, "
+        f"{rb['counters']['prefill_dispatches']} dispatches, compiles {rb['compiles']}; token "
+        f"agreement {same:.3f} of requests (bf16; no gate)")
+    for k, v in r_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    del eng
+    torch.cuda.empty_cache()
+
+    # first-token logits through the kernels against the plain path (bf16)
+    rng = np.random.default_rng(23)
+    ring = model.init_slot_cache(RING_SLOTS, max(RING_PROMPTS) + RING_GEN, window=RING_WINDOW,
+                                 device=DEVICE)
+    pool = model.init_paged_cache(2, 2 * 26 * 8 + 1, 16, 52, device=DEVICE)
+    r = _parity_rounds(cold, hits)
+    pool["table"][0].copy_(torch.from_numpy(r["table"][0]))
+    pool["table"][1].copy_(torch.from_numpy(r["table_h"][0]))
+    c_len, s_len = int(r["lengths"][0]), int(r["slens"][0])
+    runs = []
+    # (the shifted mask moves the last position of a prompt of thousands by
+    # less than the bf16 tolerance; the dropped window moves it by more)
+    for n, slot, fault in ((6144, 0, ("window dropped", _prefill_no_window)),
+                           (700, 1, ("mask shifted by one", _prefill_shift))):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n), dtype=np.int32)).to(DEVICE)
+        runs.append((f"prefill_slot S{n} (ring C {RING_WINDOW})", ring,
+                     lambda c, t=t, slot=slot: model.prefill_slot(params, c, t, slot,
+                                                                  window=RING_WINDOW)[1],
+                     [(fault[0], dict(flash_prefill=fault[1]))]))
+    one = torch.ones(1, dtype=torch.int32, device=DEVICE)
+    runs.append((f"width-1 cold prefill S{c_len}", pool,
+                 lambda c: model.prefill_slots(params, c, r["tokens"][:1, :c_len], one * c_len,
+                                               one * 0)[1],
+                 [("mask shifted by one", dict(flash_prefill=_prefill_shift))]))
+    runs.append((f"width-1 suffix prefill S{s_len} start 256", pool,
+                 lambda c: model.prefill_slots(params, c, r["stoks"][:1, :s_len], one * s_len,
+                                               one, starts=r["starts"][:1],
+                                               prefix_pages=r["pw"])[1],
+                 [("last prefix page dropped", dict(suffix_prefill=_suffix_drop_page))]))
+    _first_token_parity(cfg, "5p", runs, LOGIT_RTOL[cfg.dtype])
+    del ring, pool, runs
+    torch.cuda.empty_cache()
+
+    # float32: per request against one batched cold round over the same prompts
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = _cast(params, torch.float32)
+    lens = (6144, 5000, 700, 96)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in lens]
+    cap = max(lens) + RING_GEN
+    a = model32.init_slot_cache(len(lens), cap, window=RING_WINDOW, device=DEVICE)
+    toks = np.zeros((len(lens), max(lens)), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, : p.size] = p
+    t = torch.from_numpy(toks).to(DEVICE)
+    lb = model32.prefill_slots(params32, a, t, torch.tensor(lens, device=DEVICE),
+                               torch.arange(len(lens), device=DEVICE), window=RING_WINDOW)[1]
+    del a
+    b = model32.init_slot_cache(len(lens), cap, window=RING_WINDOW, device=DEVICE)
+    lp = torch.cat([model32.prefill_slot(params32, b, t[i:i + 1, :n], i, window=RING_WINDOW)[1]
+                    for i, n in enumerate(lens)])
+    lb, lp = lb[:, : cfg.vocab_size], lp[:, : cfg.vocab_size]
+    tol = LOGIT_RTOL["float32"]
+    scale = max(lb.abs().max().item(), 1.0)
+    d = (lb - lp).abs().max().item()
+    agree = (lb.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    expect(d <= tol * scale, f"5p float32: per-request vs batched logits {d} > {tol} x {scale}")
+    log(f"[per-request-main] float32, prompts {lens} (rings of {RING_WINDOW}): per-request "
+        f"first-token logits vs one batched cold round max |dlogit| {d:.3e} = {d / scale:.3e} x "
+        f"logit scale {scale:.2f} (tol {tol:g} x scale); first-token argmax agreement "
+        f"{agree:.2f}")
+    del model32, params32, b, t, lb, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     t_script = time.perf_counter()
     smi = phase_device()
     import torch
 
+    dry = start_dryrun(ROOT / "build" / "dryrun")
     phase_build()
+    t0 = time.perf_counter()
+    phase_dryrun(smi, dry)
+    log(f"[dryrun] wall after the build {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     recurrent_train_launches = phase_training_recurrent_isolated()
     log(f"[train-recurrent] phase 7g wall {time.perf_counter() - t0:.1f} s")
@@ -6453,6 +6929,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels_whisper(smi)
     log(f"[whisper-kernels] phases 3w-3x, 5w wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_kernels_per_request(smi)
+    log(f"[per-request] phases 3p, 2p wall {time.perf_counter() - t0:.1f} s")
     phase_golden()
     phase_golden_int8()
     phase_golden_ring()
@@ -6477,6 +6956,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_golden_vlm_audio()
     log(f"[golden-vlm-audio] phase 4j wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_golden_per_request()
+    log(f"[golden-per-request] phase 4k wall {time.perf_counter() - t0:.1f} s")
     launches, main_trace = phase_main_path(smi)
     t0 = time.perf_counter()
     phase_eos(smi, main_trace)
@@ -6493,6 +6975,7 @@ def main() -> int:
     tp_launches = phase_tp_main(smi, main_trace)
     log(f"[tp-main] phases 5k-5l wall {time.perf_counter() - t0:.1f} s")
     spec_launches = spec.pop("launches")
+    batched = {k: main_trace[k] for k in ("record", "tokens", "tok_s", "ttft", "cold", "hits")}
     del main_trace, spec
     gc.collect()
     torch.cuda.empty_cache()
@@ -6509,10 +6992,13 @@ def main() -> int:
     phase_train_vlm_audio(smi)
     log(f"[train-vlm-audio] wall {time.perf_counter() - t0:.1f} s")
     launches.update(phase_main_path_int8(smi))
-    ring_launches, model, params = phase_main_path_ring(smi)
+    ring_launches, model, params, ring_batched = phase_main_path_ring(smi)
     launches.update(ring_launches)
     phase_serve_batch(smi, model, params)
-    del model, params
+    t0 = time.perf_counter()
+    per_request_launches = phase_per_request_main(smi, model, params, batched, ring_batched)
+    log(f"[per-request-main] phase 5p wall {time.perf_counter() - t0:.1f} s")
+    del model, params, batched, ring_batched
     gc.collect()
     torch.cuda.empty_cache()
     phase_graph_fault(smi)
@@ -6548,9 +7034,9 @@ def main() -> int:
     for k, c in config_launches.items():
         launches[k] += c
     # the recurrent families' main paths (5n) and training (7g), pixtral's
-    # and whisper's (5o)
+    # and whisper's (5o), the per-request traces (5p)
     for k, c in (*recurrent_launches.items(), *recurrent_train_launches.items(),
-                 *vlm_audio_launches.items()):
+                 *vlm_audio_launches.items(), *per_request_launches.items()):
         if k in launches:
             launches[k] += c
     kernels = []

@@ -5,12 +5,12 @@ decoders, the MoE family (``qwen3-moe-235b-a22b`` at its smoke config
 only: its full config, 470 GB of bf16 weights, does not fit on one card),
 the recurrent families (``xlstm-125m``, ``recurrentgemma-2b``), the
 vision-language decoder (``pixtral-12b``) and the audio encoder-decoder
-(``whisper-medium``)."""
+(``whisper-medium``). ``get_shape`` names the dry run's input shapes."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, ModelConfig, ShapeConfig
 
 _ARCH_MODULES = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
@@ -42,4 +42,9 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_smoke_config"]
+def get_shape(shape_id: str) -> ShapeConfig:
+    return INPUT_SHAPES[shape_id]
+
+
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+           "get_shape", "get_smoke_config"]

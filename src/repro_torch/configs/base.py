@@ -1,6 +1,7 @@
 """Configs: the port's own copies of the reference ``ModelConfig`` (same
-fields, same defaults, same derived quantities), ``FederatedConfig``,
-``TrainConfig`` and ``MeshConfig``, so the two packages agree on every shape
+fields, same defaults, same derived quantities), ``ShapeConfig`` and the
+dry run's ``INPUT_SHAPES``, ``FederatedConfig``, ``TrainConfig`` and
+``MeshConfig``, so the two packages agree on every shape
 and knob without the port importing the reference. ``FederatedConfig.wire_int8``
 is read by the pod-mode trainer (``FederatedTrainer(spmd_axis="pod")``): its
 sync then carries the clouds' updates to the combining device as int8 rows
@@ -114,6 +115,34 @@ class ModelConfig:
         emb = self.vocab_size * d
         unemb = 0 if self.tie_embeddings else self.vocab_size * d
         return total + emb + unemb + d
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (= ``param_count`` unless MoE,
+        where only ``experts_per_token`` of the experts count)."""
+        if self.arch_type != "moe":
+            return self.param_count()
+        d = self.d_model
+        dense_ffn = self.n_experts * 3 * d * self.d_ff
+        active_ffn = self.experts_per_token * 3 * d * self.d_ff
+        return self.param_count() - self.n_layers * (dense_ffn - active_ffn)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the dry run: sequence length, global batch and what
+    the step does with it."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["training", "prefill", "decode"]
+
+
+INPUT_SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "training"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

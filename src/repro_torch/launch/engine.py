@@ -20,7 +20,10 @@ over either KV layout:
 * ``prefill="chunked"``: every admission round is one batched prefill,
   padded to a shape bucket (pow2 width × pow2 length ladder; at its exact
   shape with ``bucket_prefill=False``), split into a cold dispatch (flash
-  prefill) and a prefix-hit dispatch (suffix prefill).
+  prefill) and a prefix-hit dispatch (suffix prefill). With
+  ``batch_prefill=False`` each admitted request is a dispatch of its own at
+  its exact length: on the pool a width-1 cold or suffix prefill, on the
+  rings ``prefill_slot`` (the whole feed into the slot's ring row).
   ``prefill="interleaved"``: prompt tokens are teacher-forced through the
   decode step, one per iteration (paged: pages arrive lazily); a prompt
   token's logits are discarded until the slot's last prompt token.
@@ -68,7 +71,8 @@ rebound. Every hot-path dispatch goes through the engine's ``GraphCache``
 use and replayed after, as the reference's jit specializations are traced
 once per shape. ``compiles`` counts them per entry point ("decode": one
 per engine; "prefill_slots" per cold (width, length) bucket;
-"prefill_suffix" per suffix (width, length, prefix-page width);
+"prefill_suffix" per suffix (width, length, prefix-page width); "prefill",
+the per-request ring prefill, per prompt length;
 "sample_rows", the batched sampler at the full slot width, one; with a
 draft "draft_prefill" per length bucket, "draft_propose" per whether any
 row samples, and "spec_verify" per (width, length, prefix-page width)).
@@ -123,8 +127,8 @@ from repro_torch.models.transformer import KV_PLANES, reset_slot
 # Smallest padded prompt length of the bucket ladder.
 LEN_BUCKET_MIN = 8
 PREFILL_MODES = ("chunked", "interleaved")
-# The reference's compile counters (``prefill``: per-request prefill, not
-# ported yet, stays 0), and with a draft its speculative ones.
+# The reference's compile counters (``prefill``: the per-request ring
+# prefill, one per prompt length), and with a draft its speculative ones.
 COMPILE_ENTRIES = ("decode", "prefill", "prefill_slots", "prefill_suffix")
 SPEC_COMPILE_ENTRIES = ("spec_verify", "draft_propose", "draft_prefill")
 
@@ -451,8 +455,10 @@ class ServeEngine:
     caches live and the model runs (``"cuda"`` unless the caller asks for
     the CPU). ``bucket_prefill=False`` dispatches each admission round at
     its exact (width, length), so every distinct shape is a new
-    specialization. ``graphs=False`` runs every dispatch eagerly instead of
-    through CUDA graphs (the same tokens and counters). ``mesh`` serves
+    specialization. ``batch_prefill=False`` (chunked only) prefills each
+    admitted request in a dispatch of its own, unbucketed. ``graphs=False``
+    runs every dispatch eagerly instead of through CUDA graphs (the same
+    tokens and counters). ``mesh`` serves
     tensor-parallel over its ``model`` axis (see the module docstring); the
     engine then runs on the mesh's first device."""
 
@@ -485,11 +491,13 @@ class ServeEngine:
         seed: int = 0,
         max_wall_s: float = 0.0,
         time_fn=None,
+        batch_prefill: bool = True,
         bucket_prefill: bool = True,
         graphs: bool = True,
         mesh=None,
     ):
-        if model.init_slot_cache is None or model.prefill_slots is None:
+        if (model.init_slot_cache is None or model.prefill_slot is None
+                or model.prefill_slots is None):
             raise ValueError(
                 f"arch {model.cfg.name!r} ({model.cfg.arch_type}) has no slot-cache API; the "
                 "engine serves the transformer family")
@@ -568,7 +576,9 @@ class ServeEngine:
         self.eos_id = eos_id
         self.seed = seed
         self.max_wall_s = max_wall_s
-        self.bucket_prefill = bucket_prefill
+        # per-request dispatches are at their exact length: no buckets
+        self.batch_prefill = batch_prefill and prefill == "chunked"
+        self.bucket_prefill = bucket_prefill and self.batch_prefill
         self.graphs = GraphCache(
             self.device, enabled=graphs,
             entries=COMPILE_ENTRIES + (SPEC_COMPILE_ENTRIES if speculative else ()))
@@ -715,18 +725,17 @@ class ServeEngine:
              sampling: SamplingParams | None = None) -> None:
         """Run every (width, length) bucket a trace of ``prompt_lens`` can
         dispatch once (first-use costs: graph captures, kernel builds and
-        loads, allocator growth; interleaved admission only sees width 1;
-        without ``bucket_prefill`` every exact (width, length)), then clear
-        the prefix index and the host tier and reset metrics. Each warm run
+        loads, allocator growth; interleaved and per-request admission only
+        see width 1; without ``bucket_prefill`` every exact (width,
+        length)), then clear the prefix index and the host tier and reset metrics. Each warm run
         starts from an empty prefix index, so that its round is a cold one
         at its bucket (the warm prompts are all zeros and would otherwise
         hit the pages the previous run published). Pass ``sampling`` when
         the trace will sample, so the sampler's first use is here too."""
-        chunked = self.prefill_mode == "chunked"
         for p in sorted(set(prompt_lens)):
-            for w in range(1, self.num_slots + 1) if chunked else [1]:
+            for w in range(1, self.num_slots + 1) if self.batch_prefill else [1]:
                 key = ((bucket_width(w, self.num_slots), bucket_length(p))
-                       if chunked and self.bucket_prefill else (w, p))
+                       if self.bucket_prefill else (w, p))
                 if key in self._warmed:
                     continue
                 self._warmed.add(key)
@@ -1129,10 +1138,20 @@ class ServeEngine:
         return True
 
     def _prefill_claimed(self, claimed: list[int]) -> bool:
-        """Prefill the claimed slots; returns True if any retired. The round
-        splits into a cold group (no cached prefix: flash prefill) and a hit
-        group (suffix prefill), each one dispatch padded to its bucket."""
+        """Prefill the claimed slots; returns True if any retired. Batched
+        (``batch_prefill``): the round splits into a cold group (no cached
+        prefix: flash prefill) and a hit group (suffix prefill), each one
+        dispatch padded to its bucket, and the slots emit in admission
+        order after both. Per request: one dispatch per slot at its exact
+        length (``_prefill_one``), each slot emitting right after its own."""
         self._sync_table()
+        if not self.batch_prefill:
+            retired = False
+            for i in claimed:
+                logits = self._prefill_one(i)
+                retired |= self._emit_first(i, self._next_tokens(logits, {i: 0})
+                                            if not self.slots[i].resumed else {})
+            return retired
         first: dict[int, int] = {}
         emit = [i for i in claimed if not self.slots[i].resumed]
         cold = [i for i in claimed if self.slots[i].prefix_len == 0]
@@ -1162,45 +1181,77 @@ class ServeEngine:
                          if i not in in_group and i not in claimed]
                 spare += [i for i in claimed if i not in in_group]
                 slot_ids[len(group):] = spare[: width - len(group)]
-            if suffix:
-                pw = bucket_pages(-(-int(starts.max()) // self.page_size), self.table_width)
-                logits = self.graphs(
-                    "prefill_suffix", (pw,),
-                    lambda t, n, s, st: self._forward("prefill_slots", t, n, s, starts=st,
-                                                      prefix_pages=pw),
-                    self._host(tokens), self._host(lengths), self._host(slot_ids),
-                    self._host(starts))
-                self.suffix_dispatches += 1
-            else:
-                logits = self.graphs(
-                    "prefill_slots", (),
-                    lambda t, n, s: self._forward("prefill_slots", t, n, s, window=self.window),
-                    self._host(tokens), self._host(lengths), self._host(slot_ids))
-                self.cold_dispatches += 1
-            self.prefill_dispatches += 1
+            logits = self._prefill_rows(tokens, lengths, slot_ids, starts if suffix else None)
             self.prefill_tokens += int(sum(p.size for p in sufs))
             # a resumed slot's next token is already known: no argmax, and
             # no draw from its stream
             first.update(self._next_tokens(logits, {i: j for j, i in enumerate(group)
                                                     if i in emit}))
-
         retired = False
         for i in claimed:  # emit in admission order
-            slot = self.slots[i]
-            if slot.resumed:
-                # every generated token survived preemption: continue by
-                # re-feeding the last one
-                slot.resumed = False
-                slot.next_feed = slot.generated[-1]
-                continue
-            g = first[i]
-            slot.first_token_time = self._now()
-            slot.generated.append(g)
-            slot.next_feed = g
-            if self._done(slot, g):
-                self._retire(i, slot)
-                retired = True
+            retired |= self._emit_first(i, first)
         return retired
+
+    def _prefill_rows(self, tokens: np.ndarray, lengths: np.ndarray, slot_ids: np.ndarray,
+                      starts: np.ndarray | None) -> torch.Tensor:
+        """One ``prefill_slots`` dispatch over the rows: cold (``starts``
+        None) or suffix, whose static prefix-page width ``pw`` is the
+        longest prefix's pages rounded up by ``bucket_pages``. Counts it."""
+        if starts is not None:
+            pw = bucket_pages(-(-int(starts.max()) // self.page_size), self.table_width)
+            logits = self.graphs(
+                "prefill_suffix", (pw,),
+                lambda t, n, s, st: self._forward("prefill_slots", t, n, s, starts=st,
+                                                  prefix_pages=pw),
+                self._host(tokens), self._host(lengths), self._host(slot_ids),
+                self._host(starts))
+            self.suffix_dispatches += 1
+        else:
+            logits = self.graphs(
+                "prefill_slots", (),
+                lambda t, n, s: self._forward("prefill_slots", t, n, s, window=self.window),
+                self._host(tokens), self._host(lengths), self._host(slot_ids))
+            self.cold_dispatches += 1
+        self.prefill_dispatches += 1
+        return logits
+
+    def _prefill_one(self, i: int) -> torch.Tensor:
+        """Slot i's per-request prefill, at the exact length of what it
+        prefills: on the pool one width-1 ``prefill_slots`` dispatch of the
+        uncached suffix of its feed (cold, or suffix over its cached
+        prefix); on the rings ``prefill_slot`` over its whole feed, one
+        specialization per length. Returns its logits (1, Vp)."""
+        slot = self.slots[i]
+        suf = slot.feed[slot.prefix_len:]
+        self.prefill_tokens += int(suf.size)
+        if self.paged_cache:
+            return self._prefill_rows(
+                suf[None, :], np.array([suf.size], np.int32), np.array([i], np.int32),
+                np.array([slot.prefix_len], np.int32) if slot.prefix_len else None)
+        self.prefill_dispatches += 1
+        return self.graphs(
+            "prefill", (),
+            lambda t, s: self._forward("prefill_slot", t, s, window=self.window),
+            self._host(suf[None, :]), self._host(np.array([i], np.int32)))
+
+    def _emit_first(self, i: int, first: dict[int, int]) -> bool:
+        """Slot i's first emission after its prefill (its token in
+        ``first``); True if that retired it. A resumed slot emits nothing:
+        every generated token survived preemption, and it continues by
+        re-feeding the last one."""
+        slot = self.slots[i]
+        if slot.resumed:
+            slot.resumed = False
+            slot.next_feed = slot.generated[-1]
+            return False
+        g = first[i]
+        slot.first_token_time = self._now()
+        slot.generated.append(g)
+        slot.next_feed = g
+        if self._done(slot, g):
+            self._retire(i, slot)
+            return True
+        return False
 
     def _retire(self, i: int, slot: _Slot, reason: str | None = None) -> None:
         """Emit the slot's output and free it. Its full prompt pages are
@@ -1777,8 +1828,9 @@ def serve_continuous(
     prefix_cache: bool = True, prefix_cache_pages: int = 0,
     kv_dtype: str = "fp", host_pages: int = 0, swap: bool = True, num_shards: int = 0,
     num_devices: int = 0, draft: str | None = None, spec_tokens: int = 0,
-    sampling: SamplingParams | None = None, bucket_prefill: bool = True, seed: int = 0,
-    stagger: float = 0.0, max_wall_s: float = 0.0, device="cuda", log_fn=print,
+    sampling: SamplingParams | None = None, batch_prefill: bool = True,
+    bucket_prefill: bool = True, seed: int = 0, stagger: float = 0.0,
+    max_wall_s: float = 0.0, device="cuda", log_fn=print,
 ) -> dict:
     """Build a model with seeded random weights and an engine (the shared
     paged pool unless ``paged_cache=False``), serve a synthetic trace after
@@ -1787,7 +1839,8 @@ def serve_continuous(
     arch`` gives a same-params draft): it proposes ``spec_tokens`` tokens per
     slot per round, verified in one target dispatch. ``sampling`` samples
     every request, request r on the seed ``sampling.seed + r`` when a seed
-    is given. ``bucket_prefill=False`` dispatches admission rounds at their
+    is given. ``batch_prefill=False`` prefills each request in a dispatch of
+    its own; ``bucket_prefill=False`` dispatches admission rounds at their
     exact shapes. Request r arrives at ``r * stagger`` seconds; with a
     stagger the trace is served in real time (``run(realtime=True)``).
     ``num_shards > 0`` serves tensor-parallel on a ``model``-axis mesh of
@@ -1815,8 +1868,8 @@ def serve_continuous(
         watermark_pages=watermark_pages, prefix_cache=prefix_cache,
         prefix_cache_pages=prefix_cache_pages, kv_dtype=kv_dtype, host_pages=host_pages,
         swap=swap, draft_model=draft_model, draft_params=draft_params, spec_tokens=spec_tokens,
-        bucket_prefill=bucket_prefill, seed=seed, max_wall_s=max_wall_s, device=device,
-        mesh=mesh,
+        batch_prefill=batch_prefill, bucket_prefill=bucket_prefill, seed=seed,
+        max_wall_s=max_wall_s, device=device, mesh=mesh,
     )
     reqs = make_requests(cfg, n_requests=n_requests, prompt_len=prompt_len,
                          gen_tokens=gen_tokens, seed=seed, stagger=stagger)
@@ -1854,6 +1907,7 @@ def serve_continuous(
         "prefill_tokens": engine.prefill_tokens,
         "engine_steps": engine.steps,
         "prefill_dispatches": engine.prefill_dispatches,
+        "batch_prefill": engine.batch_prefill,
         "bucket_prefill": engine.bucket_prefill,
         "compiles": engine.compiles,
         "pool": ps,

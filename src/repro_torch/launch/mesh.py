@@ -1,5 +1,6 @@
-"""Meshes of the port, and the sharding of a served model over one (the
-reference's ``launch/mesh.py``: its serving half and its pod helpers).
+"""Meshes of the port: the sharding of a served model over one, the pod
+helpers, and the production meshes' partition rules the dry run sizes
+against (the reference's ``launch/mesh.py``).
 
 A mesh is an ordered list of torch devices with one named axis: ``pod`` (the
 cross-cloud boundary: cloud i's training state lives on device i) or
@@ -29,10 +30,26 @@ the split leaves, on its device:
   holds its kv-head slice of the same physical pages).
 
 A replicated leaf exists once, never copied per shard; a split leaf's
-slice is a contiguous copy on its shard's device."""
+slice is a contiguous copy on its shard's device.
+
+The production meshes (``make_production_mesh``) are logical: axis names
+and sizes, ``data`` × ``model`` (16 × 16) or ``pod`` × ``data`` × ``model``
+(2 × 16 × 16), with no devices behind them; the dry run
+(``launch/dryrun.py``) lays the full configs' state out over them by the
+reference's rules. A partition spec is a tuple with one entry per dimension
+of its leaf: a mesh axis name, a tuple of names (the dimension splits over
+their product), or None (replicated), the port's counterpart of
+``PartitionSpec``. The rules assign an axis only where it divides the
+dimension (``_fits``); parameters follow the leaf-path rules of
+``_PARAM_RULES`` (column- and row-parallel attention and MLPs over
+``model``, vocab-parallel embeddings, FSDP over ``data`` for configs with
+``fsdp``, experts over ``model``; everything replicated under ``pure_dp``),
+AdamW's moments their parameters, batches their batch dimension, decode
+caches their batch or, at batch 1, their length (``cache_pspec``)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 
 import torch
@@ -40,6 +57,7 @@ import torch
 from repro_torch.models.sharding import Sharded
 
 POD_AXIS = "pod"
+DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 _SERVE_COL = re.compile(r"(attn|xattn)/(wq|wk|wv)$")   # column-parallel
@@ -103,22 +121,227 @@ def make_serve_mesh(num_shards: int, devices=None, kind: str = "cuda") -> Mesh:
 
 
 def axis_size(mesh, name: str) -> int:
+    """The size of axis ``name`` (1 when the mesh has none), on a device
+    mesh or a logical one."""
     return int(dict(mesh.shape).get(name, 1))
 
 
-def _leaf_items(tree, prefix: str = ""):
-    """(path, leaf) pairs of a nested dict, paths joined by "/"."""
+@dataclasses.dataclass(frozen=True)
+class LogicalMesh:
+    """Named axes and their sizes, with no devices: what the dry run lays
+    state out over."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """16 × 16 over ("data", "model"), or 2 × 16 × 16 over ("pod", "data",
+    "model") with ``multi_pod``."""
+    if multi_pod:
+        return LogicalMesh((POD_AXIS, DATA_AXIS, MODEL_AXIS), (2, 16, 16))
+    return LogicalMesh((DATA_AXIS, MODEL_AXIS), (16, 16))
+
+
+def _fits(dim: int, mesh, axis) -> bool:
+    """Whether ``axis`` (a name, a tuple of names, or None) can split a
+    dimension of size ``dim``: more than one shard, dividing it."""
+    if axis is None:
+        return True
+    size = math.prod(axis_size(mesh, a) for a in (axis if isinstance(axis, tuple) else (axis,)))
+    return size > 1 and dim % size == 0
+
+
+# (regex on the leaf path, {dim from the end: axis role}); the first match
+# wins. "fsdp" is the data axis for configs with ``fsdp``, else nothing;
+# counting dims from the end keeps stacked layer, period and cloud axes out
+# of the rule.
+_PARAM_RULES: list[tuple[str, dict[int, str | None]]] = [
+    (r"embed/tok$", {-2: "model", -1: "fsdp"}),            # vocab-parallel
+    (r"embed/unembed$", {-1: "model", -2: "fsdp"}),
+    (r"router$", {-1: None}),
+    (r"(attn|xattn)/(wq|wk|wv)$", {-1: "model", -2: "fsdp"}),  # column-parallel
+    (r"(attn|xattn)/wo$", {-2: "model", -1: "fsdp"}),          # row-parallel
+    (r"(ffn|mlp)/(w_gate|w_up)$", {-1: "model", -2: "fsdp"}),
+    (r"(ffn|mlp)/w_down$", {-2: "model", -1: "fsdp"}),
+    (r"mix/(wq|wk|wv)$", {-1: "model", -2: "fsdp"}),       # griffin local attention
+    (r"mix/wo$", {-2: "model", -1: "fsdp"}),
+    (r"mix/(w_x|w_y)$", {-1: "model", -2: "fsdp"}),        # griffin recurrent block
+    (r"mix/w_out$", {-2: "model", -1: "fsdp"}),
+    (r"mix/conv_w$", {-1: "model"}),
+    (r"mix/(gate_r|gate_i)$", {}),                         # block-diagonal per head
+    (r"blk/w_up$", {-1: "model", -2: "fsdp"}),             # xLSTM blocks
+    (r"blk/(wq|wk|wv)$", {-1: "model", -2: "fsdp"}),
+    (r"blk/(w_i|w_f)$", {-2: "fsdp"}),
+    (r"blk/w_down$", {-2: "model", -1: "fsdp"}),
+    (r"blk/ff_up$", {-1: "model", -2: "fsdp"}),
+    (r"blk/ff_down$", {-2: "model", -1: "fsdp"}),
+    (r"blk/conv_w$", {-1: "model"}),
+    (r"projector/w$", {-1: "model"}),                      # vlm projector
+]
+
+
+def _apply_rule(rule: dict, shape: tuple, fsdp_axis, mesh) -> tuple:
+    axes: list = [None] * len(shape)
+    for rel_dim, role in rule.items():
+        dim = len(shape) + rel_dim if rel_dim < 0 else rel_dim
+        if not 0 <= dim < len(shape):
+            continue
+        axis = fsdp_axis if role == "fsdp" else role
+        if axis is not None and _fits(shape[dim], mesh, axis):
+            axes[dim] = axis
+    return tuple(axes)
+
+
+def param_spec(path: str, shape: tuple, cfg, mesh) -> tuple:
+    """The spec of one parameter leaf (no pod dim: the caller prepends
+    it)."""
+    if cfg.pure_dp:
+        return (None,) * len(shape)
+    fsdp_axis = DATA_AXIS if cfg.fsdp else None
+    if cfg.arch_type == "moe":
+        # expert-parallel weights (L, E, D, F) / (L, E, F, D)
+        if re.search(r"ffn/(w_gate|w_up)$", path):
+            return _apply_rule({-3: "model", -1: "fsdp"}, shape, fsdp_axis, mesh)
+        if re.search(r"ffn/w_down$", path):
+            return _apply_rule({-3: "model", -2: "fsdp"}, shape, fsdp_axis, mesh)
+    for pat, rule in _PARAM_RULES:
+        if re.search(pat, path):
+            return _apply_rule(rule, shape, fsdp_axis, mesh)
+    return (None,) * len(shape)  # norms, biases, scalars
+
+
+def params_pspec_tree(params: dict, cfg, mesh, prefix: tuple = ()) -> dict:
+    """The specs of a parameter tree (shapes from its leaves), each behind
+    ``prefix`` (the federated state's ("pod",) over stacked clouds)."""
+    return _map_paths(lambda p, x: (*prefix, *param_spec(p, tuple(x.shape), cfg, mesh)),
+                      params)
+
+
+def opt_pspec_tree(opt: dict, param_pspecs: dict, mesh) -> dict:
+    """AdamW's moments take their parameters' specs (FSDP covers them, as
+    ZeRO does); the count is replicated."""
+    return {"m": param_pspecs, "v": param_pspecs, "count": (None,) * opt["count"].ndim}
+
+
+def batch_pspec(batch: dict, mesh, *, pod_stacked: bool = False,
+                pure_dp: bool = False) -> dict:
+    """A batch's leaves split their batch dimension over the data axes
+    (("pod", "data") on a multi-pod mesh; ("data", "model") under
+    ``pure_dp``), or, ``pod_stacked``, their cloud dimension over "pod" and
+    the per-cloud batch over the intra-pod data axes."""
+    dp = (DATA_AXIS, MODEL_AXIS) if pure_dp else (DATA_AXIS,)
+    b_axes = ((POD_AXIS,) + dp if POD_AXIS in mesh.axis_names and not pod_stacked else dp)
+    b_axes = b_axes if len(b_axes) > 1 else b_axes[0]
+    dp_axis = dp if len(dp) > 1 else dp[0]
+
+    def spec(path, x):
+        dims: list = [None] * x.ndim
+        if pod_stacked:
+            dims[0] = POD_AXIS
+            if x.ndim > 1:
+                if _fits(x.shape[1], mesh, dp):
+                    dims[1] = dp_axis
+                elif _fits(x.shape[1], mesh, DATA_AXIS):
+                    dims[1] = DATA_AXIS
+        elif _fits(x.shape[0], mesh, b_axes):
+            dims[0] = b_axes
+        elif _fits(x.shape[0], mesh, dp):
+            dims[0] = dp_axis
+        elif _fits(x.shape[0], mesh, DATA_AXIS):
+            dims[0] = DATA_AXIS
+        return tuple(dims)
+
+    return _map_paths(spec, batch)
+
+
+def cache_pspec(cache: dict, cfg, mesh, batch: int) -> dict:
+    """A decode cache's specs: a large batch splits its batch dimension over
+    the data axes, and k/v their kv heads over "model" where they divide;
+    at a batch the data axes cannot split (batch 1, long context) k/v split
+    their length instead (context parallelism, what lets a 500k-token cache
+    fit). Recurrent states split their batch dimension and, when it is at
+    least 128 wide and divides, their last over "model"; positions are
+    replicated."""
+    dp = (DATA_AXIS, MODEL_AXIS) if cfg.pure_dp else (DATA_AXIS,)
+    b_axes = (POD_AXIS,) + dp if POD_AXIS in mesh.axis_names else dp
+    b_axes = b_axes if len(b_axes) > 1 else b_axes[0]
+    batch_shardable = _fits(batch, mesh, b_axes) or _fits(batch, mesh, DATA_AXIS)
+    b_axis = b_axes if _fits(batch, mesh, b_axes) else (
+        DATA_AXIS if _fits(batch, mesh, DATA_AXIS) else None)
+
+    def spec(path, x):
+        shape = tuple(x.shape)
+        dims: list = [None] * len(shape)
+        if re.search(r"(^|/)(k|v|xk|xv)$", path) and len(shape) >= 4:
+            # (L, B, C, Hkv, hd), or stacked periods (P, B, C, Hkv, hd)
+            bdim, cdim, hdim = len(shape) - 4, len(shape) - 3, len(shape) - 2
+            if batch_shardable:
+                dims[bdim] = b_axis
+            elif _fits(shape[cdim], mesh, b_axes):
+                dims[cdim] = b_axes
+            if _fits(shape[hdim], mesh, MODEL_AXIS):
+                dims[hdim] = MODEL_AXIS
+            return tuple(dims)
+        if len(shape) >= 2 and not re.search(r"(pos|window)$", path):
+            bdim = next((d for d in range(len(shape)) if shape[d] == batch), None)
+            if bdim is not None and batch_shardable:
+                dims[bdim] = b_axis
+            if _fits(shape[-1], mesh, MODEL_AXIS) and shape[-1] >= 128:
+                dims[-1] = MODEL_AXIS
+        return tuple(dims)
+
+    return _map_paths(spec, cache)
+
+
+def shard_bytes(x: torch.Tensor, spec: tuple, mesh) -> int:
+    """Bytes of one device's block of leaf ``x`` under ``spec``: each
+    dimension divided by the product of the axis sizes its entry names
+    (rounded up, as a padded block would be)."""
+    n = x.element_size()
+    for dim, axis in zip(x.shape, spec):
+        if axis is None:
+            n *= dim
+            continue
+        size = math.prod(axis_size(mesh, a) for a in (axis if isinstance(axis, tuple) else (axis,)))
+        n *= -(-dim // size)
+    return n
+
+
+def _children(tree):
+    """(key, child) pairs of a dict or list node, None for a leaf."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaf_items(v, f"{prefix}/{k}" if prefix else k)
-    else:
+        return list(tree.items())
+    if isinstance(tree, list):
+        return list(enumerate(tree))
+    return None
+
+
+def _leaf_items(tree, prefix: str = ""):
+    """(path, leaf) pairs of a nested dict (lists index by position), paths
+    joined by "/"."""
+    kids = _children(tree)
+    if kids is None:
         yield prefix, tree
+        return
+    for k, v in kids:
+        yield from _leaf_items(v, f"{prefix}/{k}" if prefix else str(k))
 
 
 def _map_paths(fn, tree, prefix: str = ""):
-    if isinstance(tree, dict):
-        return {k: _map_paths(fn, v, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
-    return fn(prefix, tree)
+    """``fn(path, leaf)`` over a nested dict's leaves, in its structure."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    out = [(k, _map_paths(fn, v, f"{prefix}/{k}" if prefix else str(k))) for k, v in kids]
+    return dict(out) if isinstance(tree, dict) else [v for _, v in out]
 
 
 def serve_param_specs(params: dict) -> dict:

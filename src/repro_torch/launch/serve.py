@@ -13,7 +13,8 @@ serves tensor-parallel over N model-axis shards (``launch/mesh.py``; with
 ``--num-devices N`` every shard on ``--device``). Every hot-path
 dispatch replays a CUDA graph captured once per shape bucket
 (``launch/graphs.py``); ``--no-bucket-prefill`` dispatches admission rounds
-at their exact shapes, one prefill graph per distinct shape.
+at their exact shapes, one prefill graph per distinct shape, and
+``--no-batch-prefill`` prefills each request in a dispatch of its own.
 
     # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 4 \\
@@ -31,6 +32,9 @@ at their exact shapes, one prefill graph per distinct shape.
         --prompt-len 8 --gen 4 --window 4
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
         --no-paged-cache --prefill interleaved --window 4
+    # one prefill dispatch per request, on the rings (a window the prompts wrap)
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
+        --no-paged-cache --no-batch-prefill --window 4
     # int8 pages and a host tier on the CPU: a pool that preempts and swaps
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --device cpu \\
         --requests 3 --gen 6 --prompt-len 8 --slots 2 --page-size 4 --num-pages 6 \\
@@ -175,6 +179,9 @@ def main(argv=None):
                     help="[continuous] number of queued requests")
     ap.add_argument("--prefill", choices=("chunked", "interleaved"), default="chunked",
                     help="[continuous] prompt admission mode")
+    ap.add_argument("--no-batch-prefill", dest="batch_prefill", action="store_false",
+                    help="[continuous] one prefill dispatch per request instead of one per "
+                    "admission round")
     ap.add_argument("--no-bucket-prefill", dest="bucket_prefill", action="store_false",
                     help="[continuous] disable shape-bucketed admission rounds (one prefill "
                     "graph per distinct round shape)")
@@ -376,8 +383,9 @@ def main(argv=None):
         prefix_cache_pages=args.prefix_cache_pages, kv_dtype=args.kv_dtype,
         host_pages=args.host_pages, swap=args.swap, num_shards=args.mesh,
         num_devices=args.num_devices, draft=args.draft,
-        spec_tokens=args.spec_tokens, sampling=sampling, bucket_prefill=args.bucket_prefill,
-        seed=args.seed, stagger=args.stagger, max_wall_s=args.max_wall_s, device=args.device,
+        spec_tokens=args.spec_tokens, sampling=sampling, batch_prefill=args.batch_prefill,
+        bucket_prefill=args.bucket_prefill, seed=args.seed, stagger=args.stagger,
+        max_wall_s=args.max_wall_s, device=args.device,
     )
 
 

@@ -15,8 +15,8 @@ writes it in place. An int8 pool adds one f32 scale plane per k and v
 them in their slots in one launch per layer (``ops.kv_write_int8``), every
 read dequantizes to the model dtype in the kernel.
 
-The serving paths (``prefill_attend``, ``decode_attend_paged``,
-``decode_attend``) are tensor-parallel under an active tensor axis
+The serving paths (``prefill_attend``, ``prefill_slot_attend``,
+``decode_attend_paged``, ``decode_attend``) are tensor-parallel under an active tensor axis
 (``models/sharding.py``): the projections, rope, the cache write and the
 attention kernel run per shard on its head slice (``map_shards``), then
 ``gather_heads`` joins the slices and the replicated ``wo`` runs once.
@@ -369,6 +369,19 @@ def fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
     cache["v"].copy_(new_v)
 
 
+def _prefill_local_heads(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                         cfg: ModelConfig, cache: dict, window: int,
+                         rope: bool = True) -> torch.Tensor:
+    """``prefill_local_attend`` for one shard's heads (every head with no
+    active axis): the pre-``wo`` output (B, S, H·hd)."""
+    b, s, _ = x.shape
+    k, v = compute_kv_for_prefill(params, x, positions, cfg, rope)
+    q, k, v = _kernel_heads(cfg, _queries(params, x, positions, cfg, rope), k, v)
+    out = ops.flash_prefill_attention(q, k, v, window=window, scale=_kernel_scale(cfg))
+    fill_cache(cache, k, v)
+    return _model_heads(cfg, out).reshape(b, s, -1)
+
+
 def prefill_local_attend(params: dict, x: torch.Tensor, positions: torch.Tensor,
                          cfg: ModelConfig, cache: dict, *, window: int,
                          rope: bool = True) -> torch.Tensor:
@@ -380,9 +393,28 @@ def prefill_local_attend(params: dict, x: torch.Tensor, positions: torch.Tensor,
     ``rope`` is False) fill the layer's ring ``cache`` ({"k"/"v": (B, C,
     Hkv, hd)}) in place (``fill_cache``). Returns the output after
     ``wo``."""
-    b, s, _ = x.shape
-    k, v = compute_kv_for_prefill(params, x, positions, cfg, rope)
-    q, k, v = _kernel_heads(cfg, _queries(params, x, positions, cfg, rope), k, v)
-    out = ops.flash_prefill_attention(q, k, v, window=window, scale=_kernel_scale(cfg))
-    fill_cache(cache, k, v)
-    return _model_heads(cfg, out).reshape(b, s, -1) @ params["wo"]
+    return _prefill_local_heads(params, x, positions, cfg, cache, window, rope) @ params["wo"]
+
+
+def _prefill_slot_heads(params: dict, cache: dict, x: torch.Tensor, positions: torch.Tensor,
+                        cfg: ModelConfig, slot: torch.Tensor, window: int) -> torch.Tensor:
+    """``prefill_slot_attend`` for one shard: its head slice of row
+    ``slot`` gathered, prefilled as a batch of one, and written back."""
+    row = {name: cache[name].index_select(0, slot) for name in ("k", "v")}
+    out = _prefill_local_heads(params, x, positions, cfg, row, window)
+    for name in ("k", "v"):
+        cache[name].index_copy_(0, slot, row[name])
+    return out
+
+
+def prefill_slot_attend(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                        cache, slot: torch.Tensor, *, window: int) -> torch.Tensor:
+    """One request's whole-prompt prefill into one row of a per-slot ring
+    cache: x (1, S, D) at positions 0..S-1 attends causally within
+    ``window`` through the flash-prefill kernel at B 1, and its rotated k/v
+    go into row ``slot`` ((1,) long) of the layer's rings ({"k"/"v": (B, C,
+    Hkv, hd)}) in place, every other row untouched; S >= C keeps the last C
+    tokens, as ``fill_cache`` does. Per shard under a tensor axis, then the
+    gathered heads through ``wo``."""
+    out = map_shards(_prefill_slot_heads, params, cache, x, positions, cfg, slot, window)
+    return gather_heads(out) @ replica(params)["wo"]

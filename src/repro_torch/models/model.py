@@ -40,7 +40,11 @@ class ModelAPI:
     # batch["audio_embeds"] and holds each layer's cross K/V)
     init_cache: Callable[..., dict]
     # The slot-cache API of continuous batching (None where the arch has none,
-    # as in the reference: the recurrent families):
+    # as in the reference: the recurrent, vlm and audio families):
+    # prefill_slot(params, cache, tokens (1, S), slot, window=) -> (cache, logits (1, Vp)):
+    #     one request's whole prompt into row ``slot`` of the per-slot rings
+    #     (the engine's per-request admission, ``batch_prefill=False``)
+    prefill_slot: Callable[..., tuple[dict, Any]] | None = None
     # prefill_slots(params, cache, tokens (n, S), lengths (n,), slots (n,),
     #               starts=None, prefix_pages=None, window=, return_all_logits=False)
     #     -> (cache, logits (n, Vp), or (n, S, Vp) with return_all_logits)
@@ -51,9 +55,9 @@ class ModelAPI:
     # init_slot_cache(num_slots, max_seq, window=, device=) -> per-slot rings (pos (B,))
     init_slot_cache: Callable[..., dict] | None = None
     # prefill(params, batch, window=, cache_window=) -> (decode cache at pos S,
-    # logits (B, Vp) of the last position): the whole-prompt prefill of the
-    # recurrent families, vlm (image prefix + prompt) and audio (encoder +
-    # prompt)
+    # logits (B, Vp) of the last position): the whole-prompt prefill of every
+    # family (vlm: image prefix + prompt; audio: encoder + prompt); the
+    # transformer's attends within ``window`` or the config's
     prefill: Callable[..., tuple[dict, Any]] | None = None
 
 
@@ -165,5 +169,14 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return transformer.init_decode_cache(cfg, num_slots, max_seq, window=window,
                                              per_slot=True, device=device)
 
-    return ModelAPI(cfg, init, loss, forward, decode, init_cache, prefill_slots=prefill_slots,
-                    init_paged_cache=init_paged_cache, init_slot_cache=init_slot_cache)
+    def prefill(params, batch, *, window=0, cache_window=0):
+        return transformer.prefill(cfg, params, batch["tokens"], ffn=ffn,
+                                   window=window or cfg.window, cache_window=cache_window)
+
+    def prefill_slot(params, cache, tokens, slot, *, window=0):
+        return transformer.prefill_into_slot(cfg, params, cache, tokens, slot, ffn=ffn,
+                                             window=window)
+
+    return ModelAPI(cfg, init, loss, forward, decode, init_cache, prefill_slot=prefill_slot,
+                    prefill_slots=prefill_slots, init_paged_cache=init_paged_cache,
+                    init_slot_cache=init_slot_cache, prefill=prefill)

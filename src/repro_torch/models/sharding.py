@@ -18,7 +18,13 @@ is independent of the other heads, so each slice is what the unsharded
 forward computes for those heads wherever the projections' column slices
 round as the full product's columns do. With no active axis every helper
 is the identity on its single tree, so ``mesh=None`` forwards are
-unchanged."""
+unchanged.
+
+``ShardingRules`` and ``DEFAULT_RULES`` map the model's logical axis names
+to the production meshes' axes; the dry run (``launch/dryrun.py``) picks and
+reports them. The reference's ``constrain``, which pins an activation to
+its rule, has no counterpart: it is a hint to XLA's partitioner, and the
+port has none."""
 from __future__ import annotations
 
 import contextlib
@@ -105,3 +111,34 @@ def gather_heads(x):
         return x
     dev = ax.devices[0]
     return torch.cat([t.to(dev) for t in x], dim=-1)
+
+
+class ShardingRules:
+    """A logical → physical axis map over a mesh: ``spec(*logical)`` is the
+    partition spec (one mesh axis, tuple of axes or None per name)."""
+
+    def __init__(self, mesh, logical_to_physical: dict):
+        self.mesh = mesh
+        self.map = dict(logical_to_physical)
+
+    def spec(self, *logical_axes: str | None) -> tuple:
+        return tuple(None if ax is None else self.map.get(ax) for ax in logical_axes)
+
+
+# The production meshes' default mapping; "batch" is the data axis only (the
+# pod axis is the federated step's own, outside the per-cloud step).
+DEFAULT_RULES = {
+    "batch": "data",
+    "seq": None,
+    "cache_seq": "data",     # decode: long caches split over the data axis
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "ff": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_ff": None,
+    "lru": "model",
+    "inner": "model",
+}

@@ -1,7 +1,7 @@
 """Dense decoder transformer: parameters, the training forward and loss,
 the KV caches (per-row contiguous rings, or the shared paged pool), prefill
-(whole prompts, one slot, or batched cold and suffix rounds) and one decode
-step.
+(whole prompts, one request into its slot, or batched cold and suffix
+rounds) and one decode step.
 
 Parameters are the reference package's pytree as a dict of tensors with the
 same leaf paths, per-layer leaves stacked on a leading L axis; the layer
@@ -13,11 +13,11 @@ dense SwiGLU MLP here (``DENSE_FFN``) or the MoE layer (``models/moe.py``'s
 ``MOE_FFN``); its ``apply`` returns (out, aux loss), the aux summed over
 layers into the training loss and dropped by the serving paths.
 
-``decode_step`` and ``prefill_slots`` also run tensor-parallel: under an
-active tensor axis (``models/sharding.py``) ``params`` and ``cache`` are
-``Sharded`` trees (the config is the per-shard one,
-``model.localize_config``); attention runs per shard and everything else
-once, on the replicated leaves."""
+``decode_step``, ``prefill_into_slot`` and ``prefill_slots`` also run
+tensor-parallel: under an active tensor axis (``models/sharding.py``)
+``params`` and ``cache`` are ``Sharded`` trees (the config is the per-shard
+one, ``model.localize_config``); attention runs per shard and everything
+else once, on the replicated leaves."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -282,6 +282,51 @@ def prefill_embeds(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     h = rms_norm(h, params["ln_f"]["scale"], cfg.norm_eps)
     cache["pos"].fill_(s)
     return cache, lm_logits(params["embed"], h[:, -1:], cfg)[:, 0]
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            ffn: FFNHooks = DENSE_FFN, window: int = 0, cache_window: int = 0,
+            ) -> tuple[dict, torch.Tensor]:
+    """Whole-prompt prefill of a lockstep batch of prompts (B, S):
+    ``prefill_embeds`` over their token embeddings → (the decode cache at
+    pos S, a ring of ``cache_window`` slots (S when 0), logits (B, Vp) of
+    the last position)."""
+    return prefill_embeds(cfg, params, embed_tokens(params["embed"], tokens), ffn=ffn,
+                          window=window, cache_window=cache_window)
+
+
+def prefill_into_slot(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
+                      slot, *, ffn: FFNHooks = DENSE_FFN, window: int = 0,
+                      ) -> tuple[dict, torch.Tensor]:
+    """One request's prefill into row ``slot`` of a per-slot ring cache
+    (the per-request admission of continuous batching; the other rows keep
+    their live state). tokens (1, S): the whole prompt at positions
+    0..S-1 goes through the flash-prefill kernel at B 1, causal within
+    ``window``; each layer's rotated k/v are written into the slot's ring
+    row in place (S >= C keeps the last C tokens), and its position
+    becomes S. ``slot``: an int or a (1,) tensor (a CUDA graph replays the
+    step on its input buffer). Returns (cache, logits (1, Vp) of the last
+    position). Tensor-parallel under an active tensor axis, as
+    ``prefill_slots``."""
+    c0, p0 = replica(cache), replica(params)
+    if c0["pos"].dim() != 1 or "table" in c0:
+        raise ValueError("prefill_into_slot needs a per-slot ring cache")
+    b1, s = tokens.shape
+    if b1 != 1:
+        raise ValueError(f"prefill_into_slot admits one request at a time, got {b1} rows")
+    slot = torch.as_tensor(slot, device=tokens.device).reshape(1).long()
+    pos = positions_for(tokens)
+    h = embed_tokens(p0["embed"], tokens)
+    for i in range(cfg.n_layers):
+        lp = _per_shard(layer_params, params, i)
+        lc = _per_shard(layer_cache, cache, i)
+        a = rms_norm(h, replica(lp)["ln1"]["scale"], cfg.norm_eps)
+        h = h + attn.prefill_slot_attend(_per_shard(lambda t: t["attn"], lp), a, pos, cfg, lc,
+                                         slot, window=window)
+        h = _ffn_residual(cfg, replica(lp), h, ffn)
+    h = rms_norm(h, p0["ln_f"]["scale"], cfg.norm_eps)
+    c0["pos"].index_fill_(0, slot, s)
+    return cache, lm_logits(p0["embed"], h[:, -1:], cfg)[:, 0]
 
 
 def prefill_slots(

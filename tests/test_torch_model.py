@@ -218,11 +218,13 @@ def test_batched_prefill_matches_own_looped_prefill():
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b", "pixtral-12b",
                                   "recurrentgemma-2b", "xlstm-125m", "whisper-medium"])
 def test_build_model_takes_every_arch_type(arch):
-    """All six of the reference's arch types build, with the whole-prompt
-    prefill or the slot-cache API; an unknown one raises."""
+    """All six of the reference's arch types build, each with the
+    whole-prompt prefill, the transformer family also with the slot-cache
+    API; an unknown one raises."""
     model = build_model(get_smoke_config(arch))
     assert (model.prefill_slots is not None) == (model.cfg.arch_type in ("dense", "moe"))
-    assert (model.prefill is not None) != (model.prefill_slots is not None)
+    assert (model.prefill_slot is not None) == (model.prefill_slots is not None)
+    assert model.prefill is not None
     with pytest.raises(ValueError, match="arch_type"):
         build_model(dataclasses.replace(get_smoke_config(arch), arch_type="cnn"))
 
