@@ -209,11 +209,16 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    (10 architectures x 4 input shapes x 2 production meshes; a process of
    its own beside the build, no device, joined before the first timed
    phase so that no timed phase shares the host with it): 80 records, no error,
-   every compiler-only field null, its wall; then stablelm-1.6b's
-   training record on a one-device logical mesh at phase 7's per-cloud
-   shape (8 x 256): ``argument_bytes`` equal to the bytes of the
-   parameters, AdamW state and batch the trainer holds on the card,
-   exactly, beside the caching allocator's growth;
+   every counted field filled (FLOPs, bytes, temporaries, collectives, the
+   roofline terms) and only the compiler-only ones null, its wall, and
+   stablelm-1.6b's eight records; then stablelm-1.6b's training record on a
+   one-device logical mesh at phase 7's per-cloud shape (8 x 256):
+   ``argument_bytes`` equal to the bytes of the parameters, AdamW state and
+   batch the trainer holds on the card, exactly, beside the caching
+   allocator's growth; then the counted cost of the real training (8 x
+   256), prefill (8 x 512) and decode (8 rows) steps on the card: FLOPs
+   equal to the meta count, ``temp_bytes`` within its set tolerance of the
+   allocator's peak growth, the device time beside the roofline terms;
 5. main path: ``ServeEngine`` over stablelm-1.6b at its published widths
    (24 layers, bf16, seeded random weights), 8 slots, page 16, prefix cache
    on: 8 cold prompts, then 8 prompts sharing a 256-token prefix; checks
@@ -435,6 +440,16 @@ engines, whose target only verifies) and add no ``prefill_slots`` one:
    recurrentgemma-2b (published widths, 3 of 26 layers) and xlstm-125m
    (published widths): finite losses, the channel kernels launched, a
    kernel sync equal to the plain sync; local-step walls, peak memory;
+7h. ``dp_transmit`` ([dp-transmit]; run right after 7g, as is 7i): over
+   stablelm-1.6b's whole parameter tree, bitwise the plain clip and noise from the kernel's norm at stddev 0
+   and 0.1 on the same draws, its Σx² within 1e-5 of the plain sum's, the
+   device time of one call;
+7i. the examples ([examples]): the four torch examples (quickstart,
+   federated LM, long-context decode, continuous serving), each in a
+   process of its own on the card, all at once (before phases 3-7f leave
+   the allocator holding most of the card), each exiting 0; the
+   continuous-serving example's tokens identical to the single-batch
+   oracle's;
 8. a ``{"kernels": [...]}`` line (thirteen kernels: launches from the fp
    main path, the int8 main path, the ring main path (``swa_decode``'s from
    its paged-decode-off run, at the shape 3c times), the speculative traces
@@ -6687,13 +6702,24 @@ def phase_dryrun(smi, started):
     recs = [json.loads(line) for line in out.read_text().splitlines()]
     check(len(recs) == 80 and not any("error" in r for r in recs),
           f"the dry run wrote {len(recs)} records: {[r for r in recs if 'error' in r]}")
-    check(all(r["needs"] == "compiler" and all(r[k] is None for k in dryrun.COMPILER_FIELDS)
-              for r in recs), "a dry-run record fills a compiler-only field")
+    check(all(_counted(r) for r in recs),
+          "a dry-run record leaves a counted field null or fills a compiler-only one: "
+          f"{[(r['arch'], r['shape'], r['mesh']) for r in recs if not _counted(r)]}")
     big = max(recs, key=lambda r: r["memory"]["argument_bytes"])
     log(f"[dryrun] {len(recs)} records (10 architectures x 4 shapes x 2 meshes) in {wall:.1f} s "
-        f"(beside the kernels' build; the process's own wall); largest arguments per device "
-        f"{big['memory']['argument_bytes'] / 2**30:.3f} GiB ({big['arch']} x {big['shape']} x "
-        f"{big['mesh']})")
+        f"(beside the kernels' build; the process's own wall), every counted field filled; "
+        f"largest arguments per device {big['memory']['argument_bytes'] / 2**30:.3f} GiB "
+        f"({big['arch']} x {big['shape']} x {big['mesh']})")
+    for r in recs:
+        if r["arch"] == DRYRUN_TRAIN["arch"]:
+            rf = r["roofline"]
+            log(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: "
+                f"{r['hlo_flops_per_device']:.4e} FLOP and {r['hlo_bytes_per_device']:.4e} B a "
+                f"device, temporaries {r['memory']['temp_bytes']:.4e} B; compute "
+                f"{rf['compute_s'] * 1e3:.3f} ms, memory {rf['memory_s'] * 1e3:.3f} ms, "
+                f"collective {rf['collective_s'] * 1e3:.3f} ms (ici {rf['ici_link_bytes']:.4e} "
+                f"B, dcn {rf['dcn_link_bytes']:.4e} B) -> {r['dominant']}; useful "
+                f"{r['useful_flops_ratio']:.3f}")
 
     c = DRYRUN_TRAIN
     cfg = get_config(c["arch"])
@@ -6722,6 +6748,210 @@ def phase_dryrun(smi, started):
     del model, params, opt, batch
     gc.collect()
     torch.cuda.empty_cache()
+    phase_dryrun_counted(smi)
+
+
+def _counted(r: dict) -> bool:
+    """Whether a dry-run record fills every counted field and leaves null
+    only what a compiler alone gives."""
+    from repro_torch.launch import dryrun
+
+    rf = r.get("roofline") or {}
+    filled = (r["hlo_flops_per_device"], r["hlo_bytes_per_device"], r["useful_flops_ratio"],
+              r["dominant"], r["memory"]["temp_bytes"],
+              *(v for k, v in rf.items() if not k.startswith("xla_reported")))
+    null = (r["compile_seconds"], r["memory"]["code_bytes"], rf.get("xla_reported_flops"),
+            rf.get("xla_reported_bytes"))
+    return (r["needs"] == list(dryrun.COMPILER_ONLY) and len(rf) == 9
+            and all(v is not None for v in filled) and all(v is None for v in null))
+
+
+# The steps counted on the card ((kind, sequence, batch): phase 7's per-cloud
+# training batch, phase 5's prefill and decode widths) and, per step, the
+# tolerance on |temp_bytes - the allocator's peak growth| / that growth,
+# set before the first run that read them: the counter sees every tensor
+# the step makes, the allocator also rounds each block up to 512 B and
+# holds the kernels' internal workspaces and the reductions' scratch, a few
+# MB at most, which a decode step's few-MB peak feels most.
+DRYRUN_STEPS = (("training", 256, 8), ("prefill", 512, 8), ("decode", 512, 8))
+TEMP_TOL = {"training": 0.10, "prefill": 0.10, "decode": 0.50}
+
+
+def phase_dryrun_counted(smi):
+    """The dry run's counted cost on the card ([dryrun]): stablelm-1.6b at
+    its published widths on one device, ``utils/cost.count_step`` over the
+    real training (8 x 256), prefill (8 x 512) and decode (8 rows over a
+    512-slot ring) steps, with the kernels reporting as units. The card's
+    FLOPs and bytes must EQUAL the meta count of the same step
+    (``dryrun.step_cost`` on a one-device logical mesh, at the config's
+    full depth), and both counts' ``temp_bytes`` (the card's, and the meta
+    count's that the dry run's records carry) must lie within ``TEMP_TOL``
+    of the caching allocator's peak growth over the arguments
+    (``max_memory_allocated``, after a warm-up call). Printed beside them:
+    the step's device time (the profiler's kernel rows) and wall, the
+    roofline terms of the meta count (``compute_s``, ``memory_s``) and the
+    share of each that results."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.utils import cost
+
+    def no_grad(fn):
+        def run(*args):
+            with torch.no_grad():
+                return fn(*args)
+        return run
+
+    cfg = get_config(DRYRUN_TRAIN["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    one = meshlib.LogicalMesh((meshlib.DATA_AXIS, meshlib.MODEL_AXIS), (1, 1))
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, n_domains=4, noise=0.0)
+    for kind, seq, batch in DRYRUN_STEPS:
+        shape = ShapeConfig(kind, seq, batch, kind)
+        t0 = time.perf_counter()
+        meta = dryrun.step_cost(cfg, shape, one)
+        t_meta = time.perf_counter() - t0
+        data = corpus.sample(torch.Generator().manual_seed(0), torch.ones(4) / 4, batch, seq)
+        if kind == "training":
+            args = (params, adamw_init(params),
+                    {k: data[k].to(DEVICE) for k in ("tokens", "labels")})
+            fn = steps.make_train_step(model, TrainConfig(seq_len=seq, global_batch=batch))
+        elif kind == "prefill":
+            args = (params, {"tokens": data["tokens"].to(DEVICE)})
+            fn = no_grad(steps.make_prefill_step(model, shape))
+        else:
+            tokens = data["tokens"][:, :1].to(DEVICE)
+            args = (params, model.init_cache(params, {"tokens": tokens}, seq), tokens)
+            fn = no_grad(steps.make_decode_step(model, 0))
+        fn(*args)   # first-use allocations (cuBLAS workspaces) before the count
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        card = cost.count_step(fn, *args)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        grown = torch.cuda.max_memory_allocated() - base
+        check(card.flops == meta.flops,
+              f"dryrun {kind}: the card's counted FLOPs {card.flops} != the meta count "
+              f"{meta.flops}")
+        check(card.hbm_bytes == meta.hbm_bytes,
+              f"dryrun {kind}: the card's counted bytes {card.hbm_bytes} != the meta count "
+              f"{meta.hbm_bytes}")
+        off = abs(card.temp_bytes - grown) / grown
+        check(off <= TEMP_TOL[kind],
+              f"dryrun {kind}: temp_bytes {card.temp_bytes:.0f} vs the allocator's peak growth "
+              f"{grown} ({off:.3f} > tolerance {TEMP_TOL[kind]})")
+        meta_off = abs(meta.temp_bytes - grown) / grown
+        check(meta_off <= TEMP_TOL[kind],
+              f"dryrun {kind}: the meta count's temp_bytes {meta.temp_bytes:.0f} vs the "
+              f"allocator's peak growth {grown} ({meta_off:.3f} > tolerance {TEMP_TOL[kind]})")
+        dev_ms, wall_ms = timed_ms(lambda: fn(*args), iters=3)
+        compute_ms = meta.flops / meshlib.PEAK_FLOPS * 1e3
+        memory_ms = meta.hbm_bytes / meshlib.HBM_BW * 1e3
+        log(f"[dryrun] {cfg.name} {kind} {batch} x {seq}, one device ({smi}): counted FLOPs "
+            f"{card.flops:.0f} on the card == {meta.flops:.0f} on meta tensors "
+            f"(counts {t_card:.1f} s and {t_meta:.1f} s); bytes {card.hbm_bytes:.0f} card == "
+            f"{meta.hbm_bytes:.0f} meta; temp_bytes {card.temp_bytes:.0f} card, "
+            f"{meta.temp_bytes:.0f} meta, vs the allocator's peak growth {grown} ({off:.4f} "
+            f"and {meta_off:.4f} of it; tolerance {TEMP_TOL[kind]}); device "
+            f"{dev_ms:.3f} ms (wall {wall_ms:.3f} ms) vs compute_s {compute_ms:.3f} ms and "
+            f"memory_s {memory_ms:.3f} ms: {compute_ms / dev_ms:.4f} of the bf16 peak, "
+            f"{memory_ms / dev_ms:.4f} of the HBM rate")
+        del args, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dp_transmit(smi):
+    """``ops.dp_transmit`` over stablelm-1.6b's whole parameter tree
+    (1,644,267,520 bf16 parameters, clip 1.0) on the card ([dp-transmit]):
+    at stddev 0 and at stddev 0.1 its tree equals, bitwise, that of its
+    plain clip and noise (``plain_channel``) from the kernel's global norm
+    on the same generator's draws; the kernel's Σx² lies within 1e-5 of the
+    plain sum's over the tree; the device time of one call."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dp_clip, ops, ref
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(DRYRUN_TRAIN["arch"])
+    params = build_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    n = _numel(params)
+    check(n == 1_644_267_520, f"dp_transmit: {n} parameters")
+    clip = 1.0
+    sq, sq_plain = ops.tree_sq_norm(params), sum(ref.sq_norm_ref(x) for x in tree_leaves(params))
+    rel = abs(sq.item() - sq_plain.item()) / sq_plain.item()
+    check(rel <= 1e-5, f"dp_transmit: the kernels' sum of squares off the plain one by {rel}")
+    for std in (0.0, 0.1):
+        got = ops.dp_transmit(params, torch.Generator(device=DEVICE).manual_seed(7), clip, std)
+        with plain_channel(sq_norm=dp_clip.sq_norm):
+            want = ops.dp_transmit(params, torch.Generator(device=DEVICE).manual_seed(7), clip,
+                                   std)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        check(same, f"dp_transmit stddev {std}: the kernels' tree differs from the plain "
+                    "clip and noise's")
+        del got, want
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    dev_ms, wall_ms = timed_ms(lambda: ops.dp_transmit(params, gen, clip, 0.1), iters=3)
+    log(f"[dp-transmit] {cfg.name} tree, {n} bf16 parameters ({smi}): bitwise the plain clip "
+        f"and noise at stddev 0 and 0.1; sum of squares {sq.item():.6e} (plain {rel:.2e} off); "
+        f"device {dev_ms:.3f} ms, wall {wall_ms:.3f} ms a call (the N(0, 1) draws included)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# Each torch example at a size that keeps its process within ~60 s on the card.
+EXAMPLES = (
+    ("torch_quickstart.py", "--steps", "8"),
+    ("torch_federated_lm.py", "--steps", "20", "--d-model", "128", "--layers", "2"),
+    ("torch_serve_longcontext.py",),
+    ("torch_continuous_serving.py", "--stagger", "0.05"),
+)
+
+
+def phase_examples(smi):
+    """The four torch examples ([examples]), each in a process of its own on
+    the card, all four at once: each must exit 0, and the continuous-serving
+    example must report every request's tokens identical to the
+    single-batch oracle's."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = [(name, subprocess.Popen([sys.executable, str(ROOT / "examples" / name), *args],
+                                     cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))
+             for name, *args in EXAMPLES]
+    try:
+        for name, proc in procs:
+            out, err = proc.communicate(timeout=240)
+            check(proc.returncode == 0,
+                  f"example {name} exited {proc.returncode}: {err[-2000:]}")
+            if name == "torch_continuous_serving.py":
+                check("identical to the single-batch oracle's: True" in out,
+                      "continuous serving: an engine's tokens differ from the oracle's")
+            tail = [line for line in out.splitlines() if line.strip()][-1]
+            log(f"[examples] {name}: exit 0 ({smi}); last line: {tail.strip()}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    log(f"[examples] four examples in {time.perf_counter() - t0:.1f} s")
 
 
 # ----------------------------------------------------------------- phase 5p
@@ -6911,6 +7141,12 @@ def main() -> int:
     t0 = time.perf_counter()
     recurrent_train_launches = phase_training_recurrent_isolated()
     log(f"[train-recurrent] phase 7g wall {time.perf_counter() - t0:.1f} s")
+    # while this process holds little of the card: the examples' processes
+    # need its memory (after phases 5-7f the allocator holds most of it)
+    t0 = time.perf_counter()
+    phase_dp_transmit(smi)
+    log(f"[dp-transmit] wall {time.perf_counter() - t0:.1f} s")
+    phase_examples(smi)
     rows = phase_kernels(smi)
     rows.update(phase_kernels_int8(smi))
     rows.update(phase_kernels_ring(smi))

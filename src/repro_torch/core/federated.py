@@ -10,8 +10,10 @@ Per the paper:
        aggregate.
 
 Where the reference stacks per-cloud state on a leading axis under
-``jax.vmap``, the port keeps a list of per-cloud states and loops over it;
-``lax.cond`` on the sync round becomes ``if step % H == 0``.
+``jax.vmap``, the port keeps a list of per-cloud states and loops over it
+(counted over meta tensors, ``utils/cost.scan_range``, one cloud's local
+step stands for all of them); ``lax.cond`` on the sync round becomes
+``if step % H == 0``.
 
 Pod mode (``spmd_axis="pod"`` with a ``mesh`` of one device per cloud,
 ``launch/mesh.make_sim_mesh``; the reference's SPMD mode): cloud i's
@@ -49,6 +51,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.model import ModelAPI
 from repro_torch.optim.adamw import adamw_init, adamw_update, clip_scale
 from repro_torch.optim.outer import outer_init, outer_update
+from repro_torch.utils import cost
 from repro_torch.utils.grad import microbatched_value_and_grad
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -249,8 +252,9 @@ class FederatedTrainer:
         if fed.aggregation == "gradient":
             return self._gradient_step(state, batch_stack)
 
-        metrics = [self._local_step(cloud, self._cloud_batch(batch_stack, i, device))
-                   for i, cloud in enumerate(state["clouds"])]
+        metrics = cost.fill_steps(
+            [self._local_step(state["clouds"][i], self._cloud_batch(batch_stack, i, device))
+             for i in cost.scan_range(c, like=state["loss_accum"])], c)
         losses = torch.stack([m["loss"].to(device) for m in metrics])
         accs = torch.stack([m["accuracy"].to(device) for m in metrics])
         state["loss_accum"] = state["loss_accum"] + losses

@@ -14,7 +14,9 @@ device by the caller."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
+import numpy as np
 import torch
 
 _PRIMES = torch.tensor([3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59])
@@ -52,3 +54,23 @@ class SyntheticCorpus:
     def oracle_accuracy(self) -> float:
         """Best achievable next-token accuracy (predict the affine map)."""
         return (1.0 - self.noise) + self.noise / self.vocab_size
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s generator in the stream of ``seed`` (the
+    reference's ``fold_in``): a 63-bit draw of numpy's ``SeedSequence``
+    over (seed, step)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def batch_iterator(corpus: SyntheticCorpus, seed: int, domain_mix: torch.Tensor, batch: int,
+                   seq: int) -> Iterator[dict]:
+    """Infinite deterministic batch stream: step k's batch is
+    ``corpus.sample`` from a fresh CPU generator seeded with
+    ``_step_seed(seed, k)``, so a stream restarted from the same seed repeats
+    itself batch for batch."""
+    step = 0
+    while True:
+        yield corpus.sample(torch.Generator().manual_seed(_step_seed(seed, step)), domain_mix,
+                            batch, seq)
+        step += 1

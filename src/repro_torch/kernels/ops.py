@@ -3,6 +3,8 @@
 A CUDA tensor goes to the hand-written kernel (which raises on what it
 cannot take); a CPU tensor goes to the plain PyTorch version. There is no
 other route: nothing here falls back from the kernel to the plain version.
+Under ``utils/cost.count_step`` each entry point counts as one unit
+(``kernel_unit``): its plain version's dot FLOPs and its own bytes.
 ``LAUNCHES`` counts kernel launches per entry point. The attention entry
 points take the softmax ``scale`` (None: hd**-0.5 of the operands' head
 dim): a model whose head dim the kernels take only padded
@@ -17,9 +19,18 @@ from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_suffix_prefill import suffix_prefill, suffix_prefill_int8
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_int8, paged_decode_ring
 from repro_torch.kernels.swa_decode import swa_decode
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.cost import kernel_unit
+from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
+def _kernel_layout(out: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """A plain version's result in the layout its kernel writes
+    (``empty_like(q)``), so that what the caller does next (a reshape that
+    views or copies) is the same on the CPU and on the card."""
+    return torch.empty_like(q).copy_(out)
+
+
+@kernel_unit
 def paged_decode_attention(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     pos: torch.Tensor, table: torch.Tensor, window: int = 0,
@@ -41,6 +52,7 @@ def paged_decode_attention(
     return ref.paged_decode_ref(q, k_pool, v_pool, pos, table, window, scale)
 
 
+@kernel_unit
 def swa_decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, window: int = 0, *,
     paged: bool, scale: float | None = None,
@@ -62,6 +74,7 @@ def swa_decode_attention(
                                                                         scale)
 
 
+@kernel_unit
 def flash_prefill_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     window: int = 0, scale: float | None = None,
@@ -72,9 +85,11 @@ def flash_prefill_attention(
         return flash_prefill(q, k, v, causal=causal, window=window, scale=scale)
     if not causal and window:
         raise ValueError("flash_prefill: a window needs causal attention")
-    return ref.flash_prefill_ref(q, k, v, causal=causal, window=window, scale=scale)
+    return _kernel_layout(
+        ref.flash_prefill_ref(q, k, v, causal=causal, window=window, scale=scale), q)
 
 
+@kernel_unit
 def suffix_prefill_attention(
     q: torch.Tensor, k_suf: torch.Tensor, v_suf: torch.Tensor,
     pool_k: torch.Tensor, pool_v: torch.Tensor, table: torch.Tensor,
@@ -90,18 +105,26 @@ def suffix_prefill_attention(
         args = (q, k_suf, v_suf, pool_k, pool_v, pool_k_scale, pool_v_scale, table, starts)
         if q.is_cuda:
             return suffix_prefill_int8(*args, prefix_width=prefix_width, scale=scale)
-        return ref.suffix_prefill_int8_ref(*args, prefix_width=prefix_width, scale=scale)
+        return _kernel_layout(
+            ref.suffix_prefill_int8_ref(*args, prefix_width=prefix_width, scale=scale), q)
     if q.is_cuda:
         return suffix_prefill(
             q, k_suf, v_suf, pool_k, pool_v, table, starts, prefix_width=prefix_width,
             scale=scale,
         )
-    return ref.suffix_prefill_ref(
+    return _kernel_layout(ref.suffix_prefill_ref(
         q, k_suf, v_suf, pool_k, pool_v, table, starts, prefix_width=prefix_width,
         scale=scale,
-    )
+    ), q)
 
 
+def _kv_write_bytes(pool: dict, k: torch.Tensor, *args, **kwargs) -> float:
+    """What the int8 pool write stores in place, for k and v: one byte an
+    element and one fp32 scale a head vector."""
+    return 2 * k.numel() * (1 + 4 / k.shape[-1])
+
+
+@kernel_unit(inplace_bytes=_kv_write_bytes)
 def kv_write_int8(pool: dict, k: torch.Tensor, v: torch.Tensor, table_rows: torch.Tensor,
                   starts: torch.Tensor, lengths: torch.Tensor | None = None) -> None:
     """One layer's int8 pool write, in place: the live tokens of k/v (n, S,
@@ -128,6 +151,7 @@ def topk_k(ratio: float) -> int:
     return max(1, int(round(ratio * BLOCK)))
 
 
+@kernel_unit
 def topk_sparsify_leaf(x: torch.Tensor, ratio: float) -> torch.Tensor:
     """Block-local magnitude top-k of one leaf, in fp32, cast back to x's
     dtype."""
@@ -138,6 +162,7 @@ def topk_sparsify_leaf(x: torch.Tensor, ratio: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+@kernel_unit
 def int8_roundtrip_leaf(x: torch.Tensor) -> torch.Tensor:
     """Per-block int8 quantize→dequantize of one leaf, in fp32, cast back
     to x's dtype."""
@@ -146,6 +171,7 @@ def int8_roundtrip_leaf(x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+@kernel_unit
 def int8_encode_leaf(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     """The int8 wire form of one leaf: (q int8 (nb, 256), scale f32 (nb,),
     n) over its flat elements in 256-element rows, the ragged last row
@@ -160,6 +186,7 @@ def int8_encode_leaf(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     return q, scale, x.numel()
 
 
+@kernel_unit
 def sq_norm(x: torch.Tensor) -> torch.Tensor:
     """Σx² of one tensor (fp32 or bf16) → () fp32 on its device."""
     x = x.contiguous()
@@ -179,6 +206,7 @@ def tree_sq_norm(leaves) -> torch.Tensor:
     return total
 
 
+@kernel_unit
 def clip_noise(x: torch.Tensor, scale, noise: torch.Tensor | None = None,
                stddev: float = 0.0) -> torch.Tensor:
     """x·scale + stddev·noise in fp32, cast to x's dtype. ``scale`` is a ()
@@ -189,3 +217,25 @@ def clip_noise(x: torch.Tensor, scale, noise: torch.Tensor | None = None,
     if x.is_cuda:
         return dp_clip.clip_noise(x, scale, noise, stddev)
     return ref.clip_noise_ref(x, scale, noise, stddev)
+
+
+def dp_transmit(tree, generator: torch.Generator, clip_norm: float, stddev: float):
+    """The fused DP channel of a tree (the reference's ``ops.dp_transmit``):
+    clip it to global norm ``clip_norm`` and add N(0, stddev²) per element.
+    The global Σx² goes through the ``sq_norm`` kernel leaf by leaf
+    (``tree_sq_norm``), the scale is min(1, clip_norm / max(‖x‖, 1e-9)) as
+    the reference's, and each leaf's noise is drawn N(0, 1) in fp32 from
+    ``generator`` (on the leaves' device, in leaf order, also at stddev 0,
+    so that the stream does not depend on stddev) before the
+    ``clip_noise`` kernel scales and adds it. Kernels on the card, plain
+    versions on the CPU."""
+    leaves = tree_leaves(tree)
+    norm = torch.sqrt(tree_sq_norm(leaves))
+    # a tensor numerator: ``float / tensor`` is a reciprocal times the float
+    scale = torch.clamp(norm.new_tensor(clip_norm) / torch.clamp(norm, min=1e-9), max=1.0)
+    out = []
+    for leaf in leaves:
+        noise = torch.randn(leaf.shape, generator=generator, dtype=torch.float32,
+                            device=leaf.device)
+        out.append(clip_noise(leaf, scale, noise, stddev))
+    return tree_unflatten(tree, out)

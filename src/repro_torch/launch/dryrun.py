@@ -20,11 +20,19 @@ device, and the sharding rules the step runs under:
   logits out;
 * decode: params, cache and tokens in; the cache and logits out.
 
-What only a compiler can give (the program's FLOPs and bytes, its
-temporaries and code, collectives, the roofline terms and the compile
-time) is ``null`` beside ``"needs": "compiler"``.
+The compiler half (the program's FLOPs and bytes per device, its
+temporaries, its collectives and the roofline terms) is counted
+(``utils/cost.count_step``) over the same steps on meta tensors: the train
+step (AdamW's count the trainer's host int), the federated step (every
+cloud's local step and the sync round the reference's ``lax.cond`` branch
+holds), the prefill step and the decode step, each seeded with its
+arguments' specs under the record's mesh, every step at the config's full
+depth. The roofline terms divide by the H100 constants of
+``launch/mesh.py``. What the port has no counterpart of (the
+generated code's size, the compile time, XLA's own cost analysis) stays
+``null``, its keys listed in ``"needs"``.
 
-Usage:
+Usage (the records spread over ``--workers`` processes, 6 by default):
     python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k
     python -m repro_torch.launch.dryrun --arch all --shape all --multi-pod both \\
         --out build/dryrun.jsonl
@@ -32,25 +40,39 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import functools
 import json
+import multiprocessing
+import os
 import traceback
 
 import torch
 
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config, get_shape
-from repro_torch.configs.base import FederatedConfig, ModelConfig, ShapeConfig
+from repro_torch.configs.base import FederatedConfig, ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.core.compression import Compressor
+from repro_torch.core.federated import FederatedTrainer
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import specs as speclib
-from repro_torch.launch.steps import decode_window_for, make_prefill_step
+from repro_torch.launch.steps import (
+    decode_window_for,
+    make_decode_step,
+    make_prefill_step,
+    make_train_step,
+)
 from repro_torch.models.common import padded_vocab
 from repro_torch.models.model import build_model
 from repro_torch.models.sharding import DEFAULT_RULES, ShardingRules
+from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.outer import outer_init
+from repro_torch.utils import cost as costlib
+from repro_torch.utils.tree import fmt_bytes, fmt_flops
 
-# The fields only a compiled program gives.
-COMPILER_FIELDS = ("hlo_flops_per_device", "hlo_bytes_per_device", "useful_flops_ratio",
-                   "roofline", "dominant", "compile_seconds")
+# The fields only a compiled program gives, which stay null.
+COMPILER_ONLY = ("compile_seconds", "memory.code_bytes", "roofline.xla_reported_flops",
+                 "roofline.xla_reported_bytes")
 
 
 def _rules_for(mesh, kind: str = "training", cfg: ModelConfig | None = None) -> ShardingRules:
@@ -275,6 +297,140 @@ def memory_plan(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     return cfg, {"argument_bytes": arg, "output_bytes": out}
 
 
+# ------------------------------------------------------------- step costs
+class _StepTrainer(FederatedTrainer):
+    """The federated trainer over the dry run's batches, which carry the
+    patch or audio embeddings the vlm and audio losses read: the trainer's
+    refusal of those families (its corpus holds tokens only) does not
+    apply."""
+
+    def __post_init__(self):
+        self.compressor = Compressor(self.fed.compression, self.fed.topk_ratio, spmd=True)
+
+
+def _count_train(cfg, shape, mesh, mb) -> costlib.StepCost:
+    model = build_model(cfg)
+    params, opt = speclib.state_specs(model)
+    opt["count"] = 0      # the trainer's host int (a meta step count cannot be read)
+    batch = speclib.train_batch_specs(cfg, shape)
+    p_ps = meshlib.params_pspec_tree(params, cfg, mesh)
+    o_ps = {"m": p_ps, "v": p_ps}
+    b_ps = meshlib.batch_pspec(batch, mesh, pure_dp=cfg.pure_dp)
+    step = make_train_step(model, TrainConfig(seq_len=shape.seq_len,
+                                              global_batch=shape.global_batch), mb)
+    return costlib.count_step(step, params, opt, batch, mesh=mesh, specs=(p_ps, o_ps, b_ps),
+                              out_specs=(p_ps, o_ps, None))
+
+
+def _count_federated(cfg, shape, mesh, mb) -> costlib.StepCost:
+    """The federated step at a sync round (the reference's ``lax.cond``
+    counts its sync branch every step): each cloud's state on its pod's
+    slice (``Owned``), the global params replicated over the pods."""
+    n = meshlib.axis_size(mesh, "pod")
+    fed = FederatedConfig(n_clouds=n, local_steps=4, aggregation="fedavg", compression="none")
+    model = build_model(cfg)
+    params = speclib.meta_params(model)
+    p_ps = meshlib.params_pspec_tree(params, cfg, mesh)
+    clouds = []
+    for _ in range(n):
+        cp = speclib.meta_params(model)
+        clouds.append({"params": cp, "opt": adamw_init(cp)})
+    state = {"clouds": clouds, "global": {"params": params, "outer": outer_init(fed, params)},
+             "sample_counts": speclib.meta((n,), torch.float32),
+             "loss_accum": speclib.meta((n,), torch.float32),
+             "step": fed.local_steps - 1, "rng": None}
+    specs = {"clouds": [costlib.owned_tree({"params": p_ps, "opt": {"m": p_ps, "v": p_ps}},
+                                           "pod", i) for i in range(n)],
+             "global": {"params": p_ps}, "sample_counts": ("pod",), "loss_accum": ("pod",)}
+    batch = speclib.train_batch_specs(cfg, shape, n_pods=n)
+    b_ps = meshlib.batch_pspec(batch, mesh, pod_stacked=True, pure_dp=cfg.pure_dp)
+    trainer = _StepTrainer(model, fed, TrainConfig(seq_len=shape.seq_len,
+                                                   global_batch=shape.global_batch),
+                           spmd_axis="pod", microbatches=mb,
+                           mesh=meshlib.make_sim_mesh(n, devices=[speclib.META] * n))
+    return costlib.count_step(trainer.train_step, state, batch, mesh=mesh, specs=(specs, b_ps),
+                              out_specs=(specs, None))
+
+
+def _count_prefill(cfg, shape, mesh) -> costlib.StepCost:
+    model = build_model(cfg)
+    params = speclib.meta_params(model)
+    batch = speclib.train_batch_specs(cfg, shape)
+    batch.pop("labels")
+    step = make_prefill_step(model, shape)
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            return step(params, batch)
+
+    return costlib.count_step(
+        prefill, params, batch, mesh=mesh,
+        specs=(meshlib.params_pspec_tree(params, cfg, mesh),
+               meshlib.batch_pspec(batch, mesh, pure_dp=cfg.pure_dp)),
+        out_specs=lambda out: (meshlib.cache_pspec(out[0], cfg, mesh, shape.global_batch),
+                               (None, "model")))
+
+
+def _count_decode(cfg, shape, mesh) -> costlib.StepCost:
+    model = build_model(cfg)
+    window = decode_window_for(cfg, shape)
+    params = speclib.meta_params(model)
+    cache = speclib.cache_specs(model, cfg, shape, window)
+    tokens = speclib.decode_token_specs(shape)
+    c_ps = meshlib.cache_pspec(cache, cfg, mesh, shape.global_batch)
+    step = make_decode_step(model, window)
+
+    def decode(params, cache, tokens):
+        with torch.no_grad():
+            return step(params, cache, tokens)
+
+    return costlib.count_step(
+        decode, params, cache, tokens, mesh=mesh,
+        specs=(meshlib.params_pspec_tree(params, cfg, mesh), c_ps,
+               meshlib.batch_pspec({"tokens": tokens}, mesh, pure_dp=cfg.pure_dp)["tokens"]),
+        out_specs=(c_ps, (None, "model")))
+
+
+def _count(cfg, shape, mesh, mb, federated) -> costlib.StepCost:
+    if shape.kind == "training":
+        return (_count_federated if federated else _count_train)(cfg, shape, mesh, mb)
+    if shape.kind == "prefill":
+        return _count_prefill(cfg, shape, mesh)
+    return _count_decode(cfg, shape, mesh)
+
+
+def step_cost(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *, microbatches: int = 1,
+              federated: bool = False) -> costlib.StepCost:
+    """What one device spends on ``shape``'s step over ``mesh`` (the
+    federated step with ``federated``; ``mesh`` None: one device), counted
+    at the config's depth. Raises if an op with a split input has no
+    placement rule (``StepCost.unruled``): its count per device would be
+    wrong with nothing to show it."""
+    mesh = mesh or meshlib.LogicalMesh((meshlib.DATA_AXIS, meshlib.MODEL_AXIS), (1, 1))
+    cost = _count(cfg, shape, mesh, microbatches, federated)
+    if cost.unruled:
+        raise NotImplementedError(f"ops with a split input and no placement rule: "
+                                  f"{sorted(cost.unruled)}")
+    return cost
+
+
+def roofline(cost: costlib.StepCost) -> dict:
+    """The reference's roofline terms of one device's step, over the H100
+    constants of ``launch/mesh.py``."""
+    ici, dcn = cost.link_bytes(cross_pod=False), cost.link_bytes(cross_pod=True)
+    return {
+        "compute_s": cost.flops / meshlib.PEAK_FLOPS,
+        "memory_s": cost.hbm_bytes / meshlib.HBM_BW,
+        "collective_s": ici / meshlib.ICI_BW + dcn / meshlib.DCN_BW,
+        "ici_link_bytes": ici,
+        "dcn_link_bytes": dcn,
+        "n_collectives": cost.n_collectives(),
+        "collectives_by_kind": cost.by_kind(),
+        "xla_reported_flops": None,
+        "xla_reported_bytes": None,
+    }
+
+
 def dryrun_pair(arch: str, shape_name: str, *, multi_pod: bool) -> dict:
     """One record: ``arch`` at input shape ``shape_name`` over the
     production mesh (multi-pod: the federated step for training)."""
@@ -284,29 +440,67 @@ def dryrun_pair(arch: str, shape_name: str, *, multi_pod: bool) -> dict:
     n_pods = meshlib.axis_size(mesh, "pod")
     mb = speclib.microbatch_policy(cfg, shape, n_pods=n_pods,
                                    data_axis=meshlib.axis_size(mesh, "data"))
-    run_cfg, mem = memory_plan(cfg, shape, mesh,
-                               federated=multi_pod and shape.kind == "training")
+    federated = multi_pod and shape.kind == "training"
+    run_cfg, mem = memory_plan(cfg, shape, mesh, federated=federated)
+    cost = step_cost(run_cfg, shape, mesh, microbatches=mb, federated=federated)
     mf = model_flops(cfg, shape)
+    terms = roofline(cost)
+    dominant = max(("compute", terms["compute_s"]), ("memory", terms["memory_s"]),
+                   ("collective", terms["collective_s"]), key=lambda kv: kv[1])[0]
     rec = {
         "arch": arch,
         "shape": shape_name,
-        "mesh": "2x16x16" if multi_pod else "16x16",
+        "mesh": "x".join(str(n) for n in mesh.sizes),
         "kind": shape.kind,
         "microbatches": mb,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
+        "hlo_flops_per_device": cost.flops,
+        "hlo_bytes_per_device": cost.hbm_bytes,
         "model_flops_total": mf,
         "model_flops_per_device": mf / mesh.size,
+        "useful_flops_ratio": (mf / mesh.size) / cost.flops if cost.flops else 0.0,
+        "memory": {**mem, "temp_bytes": cost.temp_bytes, "code_bytes": None},
+        "roofline": terms,
+        "dominant": dominant,
+        "compile_seconds": None,
         "devices": mesh.size,
-        "memory": {**mem, "temp_bytes": None, "code_bytes": None},
         "rules": _rules_for(mesh, shape.kind, cfg=run_cfg).map,
-        **{k: None for k in COMPILER_FIELDS},
-        "needs": "compiler",
+        "needs": list(COMPILER_ONLY),
     }
     print(f"[{arch} × {shape_name} × {rec['mesh']}] mb={mb} "
-          f"arguments {mem['argument_bytes'] / 2**30:.3f} GiB "
-          f"outputs {mem['output_bytes'] / 2**30:.3f} GiB per device", flush=True)
+          f"compute={terms['compute_s'] * 1e3:.2f}ms memory={terms['memory_s'] * 1e3:.2f}ms "
+          f"collective={terms['collective_s'] * 1e3:.2f}ms dominant={dominant} "
+          f"useful={rec['useful_flops_ratio']:.2f} ({fmt_flops(cost.flops)}, "
+          f"{fmt_bytes(cost.hbm_bytes)} a device; arguments "
+          f"{fmt_bytes(mem['argument_bytes'])}, temporaries {fmt_bytes(cost.temp_bytes)})",
+          flush=True)
     return rec
+
+
+def _records(arch: str, shape_name: str, pods: tuple) -> list:
+    """The records of one (architecture, input shape) over the meshes of
+    ``pods`` (multi-pod or not); a record that fails carries its error."""
+    torch.set_num_threads(1)
+    out = []
+    for mp in pods:
+        try:
+            out.append(dryrun_pair(arch, shape_name, multi_pod=mp))
+        except Exception as e:  # noqa: BLE001 -- recorded, and the run fails at the end
+            traceback.print_exc()
+            out.append({"arch": arch, "shape": shape_name, "mesh": "2x16x16" if mp else "16x16",
+                        "error": f"{type(e).__name__}: {e}"})
+    return out
+
+
+def _longest_first(pair) -> tuple:
+    """The order the records are handed to the workers: the training steps
+    first, the deepest first (a count walks every layer, and a federated
+    step every cloud's)."""
+    arch, shape_name, pods = pair
+    cfg = get_config(arch)
+    walked = (cfg.n_layers + cfg.encoder_layers) * (2 if True in pods else 1)
+    return get_shape(shape_name).kind != "training", -walked
 
 
 def main(argv=None):
@@ -315,25 +509,24 @@ def main(argv=None):
     ap.add_argument("--shape", default="all")
     ap.add_argument("--multi-pod", choices=["on", "off", "both"], default="off")
     ap.add_argument("--out", default="")
+    ap.add_argument("--workers", type=int, default=min(6, os.cpu_count() or 1),
+                    help="processes the records are spread over (1: this process)")
     args = ap.parse_args(argv)
 
     archs = list(ARCH_IDS) if args.arch == "all" else args.arch.split(",")
     shapes = list(INPUT_SHAPES) if args.shape == "all" else args.shape.split(",")
-    pods = {"on": [True], "off": [False], "both": [False, True]}[args.multi_pod]
+    pods = {"on": (True,), "off": (False,), "both": (False, True)}[args.multi_pod]
+    pairs = [(a, s, (mp,)) for a in archs for s in shapes for mp in pods]
 
-    records, failures = [], []
-    for arch in archs:
-        for shape_name in shapes:
-            for mp in pods:
-                mesh_name = "2x16x16" if mp else "16x16"
-                try:
-                    rec = dryrun_pair(arch, shape_name, multi_pod=mp)
-                except Exception as e:  # noqa: BLE001 -- recorded, and the run fails at the end
-                    traceback.print_exc()
-                    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                           "error": f"{type(e).__name__}: {e}"}
-                    failures.append(rec)
-                records.append(rec)
+    if args.workers > 1 and len(pairs) > 1:
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(args.workers, mp_context=ctx) as pool:
+            futures = {p: pool.submit(_records, *p) for p in sorted(pairs, key=_longest_first)}
+            done = [futures[p].result() for p in pairs]
+    else:
+        done = [_records(*p) for p in pairs]
+    records = [r for recs in done for r in recs]
+    failures = [r for r in records if "error" in r]
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in records)

@@ -54,6 +54,7 @@ import re
 
 import torch
 
+from repro_torch.core.protocols import Link
 from repro_torch.models.sharding import Sharded
 
 POD_AXIS = "pod"
@@ -419,3 +420,14 @@ def shard_cache(cache: dict, mesh: Mesh) -> Sharded:
     """A serving cache (paged pool or rings) as per-shard caches
     (``serve_cache_specs``)."""
     return shard_tree(cache, serve_cache_specs(cache), mesh)
+
+
+# ---------------------------------------------------------------- constants
+# The dry run's roofline terms (``launch/dryrun.roofline``) per H100, from
+# data sheets, not measured:
+PEAK_FLOPS = 989e12    # dense bf16 tensor-core FLOP/s, H100 SXM5 (NVIDIA H100 data sheet)
+HBM_BW = 3.35e12       # HBM3 bytes/s, H100 SXM5 (NVIDIA H100 data sheet)
+ICI_BW = 50e9          # intra-pod bytes/s per GPU: NDR InfiniBand, 400 Gb/s per GPU
+#                        (one ConnectX-7 port per GPU, NVIDIA DGX H100 data sheet)
+DCN_BW = Link.bandwidth  # cross-pod bytes/s: the cross-cloud WAN of core/protocols.Link
+#                          (1.25e9: a 10 Gbit/s leased line)

@@ -38,6 +38,7 @@ from repro_torch.kernels.ref import gather_pages_ref, kv_dequant_ref, kv_quant_r
 from repro_torch.models.common import NEG_INF, default_q_chunk
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.sharding import gather_heads, map_shards, replica
+from repro_torch.utils import cost
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
@@ -115,7 +116,8 @@ def attend_full(
         return _model_heads(cfg, out).reshape(b, s, -1) @ params["wo"]
     chunk = default_q_chunk(s)
     outs = []
-    for c0 in range(0, s, chunk):
+    for j in cost.scan_range(s // chunk, like=x):   # chunk divides s
+        c0 = j * chunk
         qc = q[:, c0:c0 + chunk]
         scores = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), k.float()) * (hd**-0.5)
         if causal:
@@ -126,7 +128,7 @@ def attend_full(
             scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, qc.shape[1], -1))
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    out = outs[0] if s == chunk else torch.cat(cost.fill_steps(outs, s // chunk), dim=1)
     return out.to(x.dtype) @ params["wo"]
 
 

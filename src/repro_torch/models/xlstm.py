@@ -11,7 +11,8 @@ recurrent weights) blocks [arXiv:2405.04517]; the port of the reference's
   (the reference's ``jax.custom_vjp``): the reverse-time loop computes only
   the per-step pre-activation deltas and the (dh, dc, dn) carry chain, and
   the recurrent-weight gradients are one batched product over (S, B) after
-  the loop.
+  the loop. Its time loops go through ``utils/cost.scan_range``: counted
+  over meta tensors (the dry run), one step stands for all of them.
 * Every ``cfg.slstm_every``-th block is sLSTM, the rest mLSTM, in the
   reference's periodic layout (``common.periodic_stack``).
 
@@ -33,6 +34,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.layers import cross_entropy_loss, gelu, rms_norm
 from repro_torch.models.rglru import causal_conv
+from repro_torch.utils import cost
 from repro_torch.utils.tree import tree_map
 
 
@@ -97,8 +99,11 @@ def mlstm_parallel(q, k, v, i_pre, f_pre, q_chunk: int = 1024) -> torch.Tensor:
     qf, kf, vf = q.float(), k.float(), v.float()
     t_all = torch.arange(s, device=q.device)
     outs = []
-    for c0 in range(0, s, q_chunk if s > q_chunk else s):
-        c1 = min(c0 + q_chunk, s) if s > q_chunk else s
+    chunk = q_chunk if s > q_chunk else s
+    n_chunks = -(-s // chunk)
+    for j in cost.scan_range(n_chunks, like=q if s % chunk == 0 else None):
+        c0 = j * chunk
+        c1 = min(c0 + chunk, s)
         # D̃[t, s] = lf_cum[t] - lf_cum[s] + ĩ_s  (decay over r = s+1..t)
         dtil = lf_cum[:, c0:c1, None, :] - lf_cum[:, None, :, :] + i_pre[:, None, :, :]
         causal = t_all[c0:c1, None] >= t_all[None, :]
@@ -108,7 +113,7 @@ def mlstm_parallel(q, k, v, i_pre, f_pre, q_chunk: int = 1024) -> torch.Tensor:
         sw = torch.einsum("bchd,bshd->bcsh", qf[:, c0:c1], kf) * scale * d
         n = torch.maximum(sw.sum(dim=2).abs(), torch.exp(-m[:, :, 0, :]))
         outs.append(torch.einsum("bcsh,bshd->bchd", sw, vf) / n[..., None])
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    out = outs[0] if n_chunks == 1 else torch.cat(cost.fill_steps(outs, n_chunks), dim=1)
     return out.to(q.dtype)
 
 
@@ -223,7 +228,7 @@ class SlstmScan(torch.autograd.Function):
         c, n, h = zero, zero, zero
         m = torch.full((b, d), -1e30, dtype=torch.float32, device=xz.device)
         saved = []
-        for t in range(s):
+        for t in cost.scan_range(s, like=xz):
             hf = h.to(dt)
             zpre = (xz[:, t] + _block_diag(r_z, hf)).float() + b_z
             ipre = (xi[:, t] + _block_diag(r_i, hf)).float() + b_i
@@ -239,7 +244,7 @@ class SlstmScan(torch.autograd.Function):
             h = o * c / torch.clamp(n, min=_SLSTM_EPS)
             m = m_new
             saved.append(torch.stack([z, i_s, f_s, o, f_sig, c, n, h]))
-        saved = torch.stack(saved, dim=1)                    # (8, S, B, d)
+        saved = torch.stack(cost.fill_steps(saved, s), dim=1)   # (8, S, B, d)
         ctx.save_for_backward(saved, r_z, r_i, r_f, r_o)
         ctx.dtypes = (dt, r_z.dtype)
         return saved[7].transpose(0, 1)
@@ -263,7 +268,7 @@ class SlstmScan(torch.autograd.Function):
         def bd_t(w, g):   # the transposed block-diagonal product into h_{t-1}
             return torch.einsum("bhj,hij->bhi", g.reshape(b, heads, dh_), w).reshape(b, d)
 
-        for t in range(s - 1, -1, -1):
+        for t in cost.scan_range(s, like=z, reverse=True):
             dh = dhs[t] + dh_rec
             nh = torch.clamp(n_seq[t], min=_SLSTM_EPS)
             dc = dh * o[t] / nh + dc_next
@@ -306,10 +311,10 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict | None):
     else:
         carry = {k: state[k] for k in ("c", "n", "h", "m")}
         hs = []
-        for t in range(x.shape[1]):
+        for t in cost.scan_range(x.shape[1], like=xz):
             carry = slstm_cell(p, xz[:, t], xi[:, t], xf[:, t], xo[:, t], carry)
             hs.append(carry["h"])
-        hs = torch.stack(hs, dim=1).to(x.dtype)
+        hs = torch.stack(cost.fill_steps(hs, x.shape[1]), dim=1).to(x.dtype)
         new_state = {**carry, "conv": new_tail}
     hs = _head_norm(hs, p["gn"], cfg.n_heads, cfg.norm_eps)
     ff_gate, ff_up = (hs @ p["ff_up"]).chunk(2, dim=-1)

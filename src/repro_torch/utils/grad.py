@@ -7,13 +7,18 @@ microbatches the fp32 gradients are summed and divided by k, and the loss
 and metrics are microbatch means. The sum and the division run in place on
 the first microbatch's gradient tree (the same adds in the same order as
 the reference's ``tree_map``, so the same bits), so k > 1 holds one fp32
-gradient tree and one microbatch's beside it, not a new tree per add."""
+gradient tree and one microbatch's beside it, not a new tree per add.
+Counted over meta tensors (``utils/cost.scan_range``), the first two
+microbatches stand for all k: the second, which adds into the first's
+tree as every later one does, counts k - 1 times, as the reference's
+compiled loop counts its body k times."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
 
+from repro_torch.utils import cost
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -47,7 +52,7 @@ def microbatched_value_and_grad(loss_fn: Callable, params: dict, batch: dict,
         raise ValueError(f"batch {b} not divisible by {k} microbatches")
     acc = losses = None
     metrics_sum: dict = {}
-    for j in range(k):
+    for j in cost.scan_range(k, like=tree_leaves(params)[0]):
         mb = {key: v[j * (b // k):(j + 1) * (b // k)] for key, v in batch.items()}
         (loss, metrics), g = _value_and_grad(loss_fn, params, mb)
         if acc is None:
@@ -55,10 +60,11 @@ def microbatched_value_and_grad(loss_fn: Callable, params: dict, batch: dict,
         else:
             for a, x in zip(tree_leaves(acc), tree_leaves(g)):
                 a.add_(x)
-            del g
+            del g, a, x   # nothing of this step held into the next one
         losses = loss if losses is None else losses + loss
-        for key, v in metrics.items():
-            metrics_sum[key] = v if key not in metrics_sum else metrics_sum[key] + v
+        metrics_sum = metrics if not metrics_sum else {
+            key: metrics_sum[key] + v for key, v in metrics.items()}
+        del loss, metrics
     for a in tree_leaves(acc):
         a.div_(k)
     return (losses / k, {key: v / k for key, v in metrics_sum.items()}), acc

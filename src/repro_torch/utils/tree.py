@@ -48,3 +48,26 @@ def tree_unflatten(like: Tree, leaves: list) -> Tree:
     ``leaves``."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Bytes of a tree's tensor leaves (real or meta): elements × element
+    size."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def fmt_bytes(n: float) -> str:
+    for unit in ("B", "KB", "MB", "GB", "TB", "PB"):
+        if abs(n) < 1024.0 or unit == "PB":
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} PB"
+
+
+def fmt_flops(n: float) -> str:
+    for unit in ("FLOP", "KFLOP", "MFLOP", "GFLOP", "TFLOP", "PFLOP"):
+        if abs(n) < 1000.0 or unit == "PFLOP":
+            return f"{n:.2f} {unit}"
+        n /= 1000.0
+    return f"{n:.2f} PFLOP"

@@ -26,7 +26,9 @@ over a ``LogicalMesh``.
   ``draft_cache_specs`` equal the reference's shapes and dtypes, or raise as
   it does.
 * The CLI writes its records with the reference's keys, the memory plan,
-  and ``null`` for what needs a compiler.
+  the compiler half filled by the counted cost model (``utils/cost.py``;
+  its own tests are ``test_torch_cost.py``), and ``null`` for what only a
+  compiler gives (``dryrun.COMPILER_ONLY``).
 * ``launch/steps.py``'s train step (2 microbatches, one AdamW step),
   prefill step and decode step on the stablelm smoke config in float32,
   bridged weights, against the reference's jitted steps: parameters, m,
@@ -371,7 +373,7 @@ def test_engine_cache_specs_match_reference(arch):
 def test_cli_records_carry_the_reference_keys_and_the_memory_plan(tmp_path, capsys):
     out = tmp_path / "dry.jsonl"
     dryrun.main(["--arch", "stablelm-1.6b,xlstm-125m", "--shape", "all", "--multi-pod", "both",
-                 "--out", str(out)])
+                 "--workers", "1", "--out", str(out)])
     recs = [json.loads(line) for line in out.read_text().splitlines()]
     assert len(recs) == 16 and "all dry-runs passed" in capsys.readouterr().out
     for r in recs:
@@ -379,8 +381,10 @@ def test_cli_records_carry_the_reference_keys_and_the_memory_plan(tmp_path, caps
                   "model_flops_total", "model_flops_per_device", "devices"):
             assert k in r, k
         assert r["devices"] == (512 if r["mesh"] == "2x16x16" else 256)
-        assert r["needs"] == "compiler" and r["memory"]["temp_bytes"] is None
-        assert all(r[k] is None for k in dryrun.COMPILER_FIELDS)
+        assert r["needs"] == list(dryrun.COMPILER_ONLY) and r["memory"]["temp_bytes"] > 0
+        assert r["compile_seconds"] is None and r["memory"]["code_bytes"] is None
+        assert all(r[k] is not None for k in ("hlo_flops_per_device", "hlo_bytes_per_device",
+                                              "useful_flops_ratio", "roofline", "dominant"))
         mp = r["mesh"] == "2x16x16"
         shape = get_shape(r["shape"])
         mesh = pmesh.make_production_mesh(multi_pod=mp)
